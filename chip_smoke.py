@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CSR-k main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's CSR-k and SELL-C-σ paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, all started together; sm_90a);
 2. print the card's name and power limit (``nvidia-smi``);
 3. hold the kernel against its plain PyTorch version on a small suite matrix:
    f32/bf16/int8 x B in {1, 8} x monolithic/bucketed layouts, within the
@@ -21,16 +22,30 @@ Phases (any failure exits non-zero and prints no result line):
    the yardstick; the port never calls it) at the ecology1 shapes, as device
    time from CUDA-graph replays between CUDA events, beside the memory-bound
    least time; the eager per-call time (host overhead included) is logged;
-6. print one JSON line describing the kernel; then the card line and, last,
-   ``{"ok": true, "device": {...}}``.
+6. SELL-C-σ kernel against its plain version on bmwcra_1 at 1/64 and on a
+   Pareto matrix with empty rows and m not a multiple of C: f32/bf16/int8 x
+   B in {1, 8}, within the same per-row bound, repeat launches and B=8
+   columns bit-equal;
+7. the SELL-C-σ path at the paper's size of bmwcra_1 (147,456 rows, 11.7M
+   nnz): ``prepare(format="auto")`` must route to "sellcs";
+   ``apply_original`` against a plain CSR product; 40 Jacobi sweeps for 1
+   and for 8 right-hand sides to a true relative residual <= 1e-5
+   (bmwcra_1's values are not symmetric, but it is strictly diagonally
+   dominant), counting kernel launches;
+8. time the SELL-C-σ kernel, its plain version and cuSPARSE at the bmwcra_1
+   shapes, as in phase 5;
+9. print one JSON line describing both kernels; then the card line and,
+   last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -131,8 +146,6 @@ def check_close(y, y_ref, bound, what: str) -> float:
 
 def abs_tiles(view):
     """The same tile view with |values| (for the |A| |x| bound)."""
-    import dataclasses
-
     from repro_torch.sparse import CSRkTileBuckets
 
     if isinstance(view, CSRkTileBuckets):
@@ -187,6 +200,244 @@ def views_for(csrk, dtypes, layouts=("monolithic", "bucketed")):
     return out
 
 
+def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates) -> dict:
+    """Time one (value dtype, B) case: kernel, eager call, plain version and,
+    where there is one, the library call; log it and return its record."""
+    mem_rate, f32_rate = rates
+    ms = time_ms(run)
+    call_ms = eager_ms(run)
+    plain_ms = time_ms(plain, reps=5)
+    lib_ms = None if library is None else time_ms(library)
+    t_bytes = nbytes / mem_rate * 1e3
+    t_ops = 2 * nnz * B / f32_rate * 1e3
+    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+    log(f"[{tag}] {dt:4s} B={B}: kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, cuSPARSE {lib_txt} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB; "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved), max |err| {err:.3e}")
+    return {
+        "value_dtype": dt, "B": B, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "eager_call_ms": call_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+    }
+
+
+def kernel_entry(name, source, replaces, launches, variants, shape) -> dict:
+    """One kernel's record of the ``kernels`` line; the headline numbers are
+    its first variant's (f32, B=1)."""
+    head = variants[0]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(v["max_abs_err"] for v in variants),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": shape,
+        "variants": variants,
+    }
+
+
+def build_all(names):
+    """Build every kernel source at once (one nvcc each) and log the reports."""
+    from repro_torch.kernels import build
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = build.build(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(timed, names)))
+    for name, (lib, secs) in built.items():
+        log(f"[build] {name}.cu -> {lib.name} in {secs:.2f} s")
+        report = Path(str(lib) + ".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "entry function" in line or "registers" in line or "spill" in line:
+                    log(f"[build] {name}: {line.strip()}")
+
+
+def sell_kernel_vs_plain(views, row_nnz, n, seed: int, what: str):
+    """Phase-6 checks for one matrix; returns {(dtype, B): max_abs_err}."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
+    for dtype, tiles in views.items():
+        X = torch.randn((n, 8), generator=gen, device="cuda")
+        abs_view = dataclasses.replace(tiles, vals=tiles.vals.abs())
+        for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
+            yb = ops.spmv_sellcs(tiles, xb)
+            bound = row_bound(ref.spmv_sellcs_tiles(abs_view, xb.abs()), row_nnz)
+            errs[(dtype, B)] = check_close(
+                yb, ref.spmv_sellcs_tiles(tiles, xb), bound, f"{what} {dtype} B={B}")
+            if not torch.equal(yb, ops.spmv_sellcs(tiles, xb)):
+                raise AssertionError(f"{what} {dtype} B={B}: repeat launch differs")
+        Y8 = ops.spmv_sellcs(tiles, X)
+        for j in range(8):
+            if not torch.equal(Y8[:, j], ops.spmv_sellcs(tiles, X[:, j].contiguous())):
+                raise AssertionError(f"{what} {dtype}: column {j} of B=8 != B=1")
+    return errs
+
+
+def sell_views(sell, dtypes):
+    from repro_torch.sparse import tiles_from_sellcs
+
+    return {dt: tiles_from_sellcs(sell, value_dtype=dt).to("cuda") for dt in dtypes}
+
+
+def csr_diagonal(A):
+    """The diagonal of a square CSR matrix, on its device."""
+    import torch
+
+    rows = torch.repeat_interleave(
+        torch.arange(A.m, device=A.vals.device), A.row_lengths().long())
+    on = rows == A.col_idx.long()
+    diag = torch.zeros(A.m, dtype=A.vals.dtype, device=A.vals.device)
+    diag[rows[on]] = A.vals[on]
+    return diag
+
+
+def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
+    """Phases 6-8: the SELL-C-σ kernel, its path at bmwcra_1's size, timing.
+
+    Returns the kernel's entry of the ``kernels`` line.
+    """
+    import torch
+
+    from repro_torch.configs.spmv_suite import load_suite, pareto_rows
+    from repro_torch.core import jacobi_smoother, prepare
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.obs import get_registry
+    from repro_torch.sparse import CSRMatrix, sellcs_from_csr
+
+    # 6. kernel vs plain on small matrices
+    t0 = time.perf_counter()
+    errs = {}
+    for name, A_s in (("bmwcra_1/64", load_suite(scale=64, ids=[16])["bmwcra_1"]),
+                      ("pareto", pareto_rows(1003, seed=3))):
+        sell_s = sellcs_from_csr(A_s)
+        views = sell_views(sell_s, ("f32", "bf16", "int8"))
+        what = (f"{name} ({A_s.m} rows, widths {int(sell_s.chunk_widths().min())}.."
+                f"{int(sell_s.chunk_widths().max())}, W {views['f32'].width})")
+        errs.update({(name,) + k: v for k, v in sell_kernel_vs_plain(
+            views, A_s.row_lengths().cuda(), A_s.n, 2, what).items()})
+    torch.cuda.synchronize()
+    log(f"[sellcs/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
+        f"bit-equal; max |err| {max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+
+    # 7. the SELL-C-σ path at the paper's bmwcra_1 size
+    t0 = time.perf_counter()
+    A = load_suite(scale=1, ids=[16])["bmwcra_1"]
+    log(f"[sellcs/main] bmwcra_1: {A.m} rows, {A.nnz} nnz "
+        f"(built in {time.perf_counter() - t0:.1f} s)")
+    t_main = time.perf_counter()
+    reg = get_registry()
+    reg.clear()
+    spmv_csrk_tiles.launches = 0
+    spmv_sellcs_chunks.launches = 0
+    t0 = time.perf_counter()
+    op = prepare(A, device="cuda", format="auto")
+    t_prep = time.perf_counter() - t0
+    if op.backend != "sellcs":
+        raise AssertionError(f"bmwcra_1 routed to {op.backend}, expected sellcs")
+    if not np.array_equal(op.perm, np.arange(A.m)):
+        raise AssertionError("the SELL-C-σ route must not reorder")
+    phases = {r["name"]: r["value"] for r in reg.records() if r["section"] == "prepare"}
+    log(f"[sellcs/main] prepare {t_prep:.1f} s: " + ", ".join(
+        f"{k[6:-3]} {v / 1e3:.2f} s" for k, v in sorted(phases.items())
+        if k.startswith("phase.") and k.endswith("_ms")))
+    widths, counts = np.unique(op.sell.chunk_widths(), return_counts=True)
+    tiles = op.sell_tiles
+    log(f"[sellcs/main] stats row_var {op.stats.row_var:.2f}, row_skew "
+        f"{op.stats.row_skew:.2f}; C {tiles.C}, sigma {op.sell.sigma}, {tiles.num_chunks} "
+        f"chunks, widths " + ", ".join(f"{w} x{c}" for w, c in zip(widths, counts))
+        + f"; canonical slots {op.sell.slots}, [T, C, W] view {tiles.vals.numel()} slots "
+        f"(W {tiles.width}); modeled_bytes() {op.modeled_bytes()} (prices all W lanes)")
+    A_dev = A.to("cuda")
+    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
+    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.abs(), A_dev.shape)
+    row_nnz = A_dev.row_lengths()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(A.n).astype(np.float32)).cuda()
+    err = check_close(op.apply_original(x), ref.spmv_csr(A_dev, x),
+                      row_bound(ref.spmv_csr(A_abs, x.abs()), row_nnz),
+                      "apply_original vs plain CSR")
+    log(f"[sellcs/main] apply_original vs plain CSR product: max |err| {err:.3e}")
+
+    # perm is the identity, so op works in the original index space
+    diag = csr_diagonal(A_dev)
+    sweeps = 40
+    X_true = torch.from_numpy(rng.standard_normal((A.n, 8)).astype(np.float32)).cuda()
+    for label, xt in (("1 rhs", X_true[:, 0].contiguous()), ("8 rhs", X_true)):
+        b = ref.spmm_csr(A_dev, xt) if xt.ndim == 2 else ref.spmv_csr(A_dev, xt)
+        d = diag[:, None] if xt.ndim == 2 else diag
+        t0 = time.perf_counter()
+        xs = jacobi_smoother(op, d, b, iters=sweeps)
+        torch.cuda.synchronize()
+        t_j = time.perf_counter() - t0
+        r = (b.double() - (ref.spmm_csr(A64, xs.double()) if xt.ndim == 2
+                           else ref.spmv_csr(A64, xs.double())))
+        true_res = float((torch.linalg.norm(r, dim=0) / torch.linalg.norm(b.double(), dim=0))
+                         .max())
+        log(f"[sellcs/main] jacobi ({label}): {sweeps} sweeps, worst true relative residual "
+            f"{true_res:.3e}, {t_j:.3f} s ({t_j / sweeps * 1e3:.3f} ms/sweep)")
+        if not true_res <= 1e-5:
+            raise AssertionError(f"jacobi ({label}) did not reach 1e-5 on bmwcra_1")
+    launches = spmv_sellcs_chunks.launches
+    spmvs = 1 + 2 * sweeps
+    log(f"[sellcs/main] phase done in {time.perf_counter() - t_main:.1f} s")
+    log(f"[sellcs/main] spmv_sellcs launches on the path: {launches} "
+        f"({launches / spmvs:.2f} per SpMV over {spmvs} SpMVs); spmv_csrk_tiles "
+        f"launches {spmv_csrk_tiles.launches}")
+    if launches == 0:
+        raise AssertionError("the SELL-C-σ path never launched its CUDA kernel")
+
+    # 8. timing at the bmwcra_1 shapes
+    t0 = time.perf_counter()
+    m, n, nnz = A.m, A.n, A.nnz
+    T, m_pad = tiles.num_chunks, op.sell.m_pad
+    warnings.filterwarnings("ignore", message=".*[Ss]parse CSR tensor support is in beta.*")
+    sp = torch.sparse_csr_tensor(A_dev.row_ptr.long(), A_dev.col_idx.long(), A_dev.vals,
+                                 size=A.shape, check_invariants=True)
+    views = sell_views(op.sell, ("bf16", "int8"))
+    views["f32"] = tiles
+    # int8 scales the kernel reads: one per 128 real lanes of every real row
+    real_rows = (op.sell.row_perm < m).view(T, -1).sum(dim=1).cpu().numpy()
+    w_t = op.sell.chunk_widths()
+    scale_reads = int((real_rows * -(-w_t // 128)).sum())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    variants = []
+    for dt in ("f32", "bf16", "int8"):
+        view = views[dt]
+        abs_view = dataclasses.replace(view, vals=view.vals.abs())
+        for B in (1, 8):
+            xb = torch.randn((n, B), generator=gen, device="cuda")
+            xb = xb[:, 0].contiguous() if B == 1 else xb
+            err = check_close(ops.spmv_sellcs(view, xb), ref.spmv_sellcs_tiles(view, xb),
+                              row_bound(ref.spmv_sellcs_tiles(abs_view, xb.abs()), row_nnz),
+                              f"bmwcra_1 {dt} B={B}")
+            # real slots only: values, columns, int8 scales; row_perm and
+            # chunk_width once; x and y once per column
+            nbytes = (nnz * (VALUE_BYTES[dt] + 4) + (4 * scale_reads if dt == "int8" else 0)
+                      + 4 * m_pad + 4 * T + 4 * n * B + 4 * m * B)
+            variants.append(time_variant(
+                "sellcs/time", dt, B, err, lambda: ops.spmv_sellcs(view, xb),
+                lambda: ref.spmv_sellcs_tiles(view, xb),
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
+    log(f"[sellcs/time] done in {time.perf_counter() - t0:.1f} s")
+    return kernel_entry(
+        "spmv_sellcs", "src/repro_torch/csrc/spmv_sellcs.cu",
+        "src/repro/kernels/spmv_sellcs.py:103", launches, variants,
+        {"matrix": "bmwcra_1", "m": m, "n": n, "nnz": nnz, "C": tiles.C, "chunks": T,
+         "W": tiles.width, "value_dtype": "f32", "B": 1})
+
+
 def main() -> int:
     import torch
 
@@ -197,7 +448,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.spmv_suite import load_suite
     from repro_torch.core import block_cg, cg, prepare
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
     from repro_torch.obs import get_registry
     from repro_torch.sparse import CSRMatrix
@@ -207,14 +458,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # 1. build
-    t0 = time.perf_counter()
-    lib = build.build("spmv_csrk")
-    log(f"[build] spmv_csrk.cu -> {lib.name} in {time.perf_counter() - t0:.2f} s")
-    report = Path(str(lib) + ".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+    build_all(("spmv_csrk", "spmv_sellcs"))
 
     # 2. card
     card = card_line()
@@ -329,45 +573,22 @@ def main() -> int:
             yp = ref.spmv_csrk_buckets(view, xb)
             bound = row_bound(ref.spmv_csrk_buckets(abs_view, xb.abs()), csr.row_lengths())
             err = check_close(yk, yp, bound, f"ecology1 {dt} B={B}")
-            ms = time_ms(lambda: ops.spmv_csrk_bucketed(view, xb))
-            call_ms = eager_ms(lambda: ops.spmv_csrk_bucketed(view, xb))
-            plain_ms = time_ms(lambda: ref.spmv_csrk_buckets(view, xb), reps=5)
-            lib_ms = time_ms(lambda: sp @ xb) if dt == "f32" else None
             nbytes = nnz * (VALUE_BYTES[dt] + 8) + scale_bytes + n * 4 * B + m * 4 * B
-            t_bytes = nbytes / mem_rate * 1e3
-            t_ops = 2 * nnz * B / f32_rate * 1e3
-            variants.append({
-                "value_dtype": dt, "B": B, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms, "eager_call_ms": call_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes,
-            })
-            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-            log(f"[time] {dt:4s} B={B}: kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, cuSPARSE {lib_txt} ms, bound "
-                f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB; "
-                f"{nbytes / ms / 1e6:.0f} GB/s achieved), max |err| {err:.3e}")
+            variants.append(time_variant(
+                "time", dt, B, err, lambda: ops.spmv_csrk_bucketed(view, xb),
+                lambda: ref.spmv_csrk_buckets(view, xb),
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
     log(f"[time] done in {time.perf_counter() - t0:.1f} s")
 
-    # 6. result lines
-    head = variants[0]
-    kernels = {"kernels": [{
-        "name": "spmv_csrk_tiles",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/spmv_csrk.cu",
-        "replaces": "src/repro/kernels/spmv_csrk.py:131",
-        "launches": launches,
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz,
-                  "value_dtype": "f32", "B": 1},
-        "variants": variants,
-    }]}
+    # 6.-8. the SELL-C-σ kernel and its path
+    sell_entry = sellcs_phases(mem_rate, f32_rate)
+
+    # 9. result lines
+    kernels = {"kernels": [kernel_entry(
+        "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
+        "src/repro/kernels/spmv_csrk.py:131", launches, variants,
+        {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
+    ), sell_entry]}
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -257,6 +257,27 @@ def powerlaw_zipf(
     )
 
 
+def pareto_rows(m: int, seed: int = 0) -> CSRMatrix:
+    """Square matrix with Pareto row lengths and some empty rows.
+
+    The irregular case the SELL-C-σ tests of the reference draw
+    (``tests/test_sparse_registry.py::powerlaw_csr``): row i holds
+    ``min(⌊4·pareto(1) + 1⌋, m)`` distinct random columns with normal
+    values; on top of that about 10% of the rows are empty.
+    Port-only: the kernel checks of ``chip_smoke.py`` use it with an m that
+    is not a multiple of the chunk height.
+    """
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum((rng.pareto(1.0, m) * 4 + 1).astype(int), m)
+    lengths[rng.random(m) < 0.1] = 0
+    rows = np.repeat(np.arange(m), lengths)
+    cols = np.concatenate(
+        [rng.choice(m, size=L, replace=False) for L in lengths] + [np.zeros(0, int)]
+    )
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return csr_from_coo(_coo(rows, cols, vals, (m, m)))
+
+
 def stencil_fringe(
     side: int = 64,
     seed: int = 18,

@@ -1,11 +1,16 @@
 """Format-dispatching SpMV public API — the paper's contribution as a module.
 
-Port of ``repro.core.spmv`` for the CSR-k route.  ``prepare(A)`` runs the
-setup pipeline and returns a :class:`PreparedSpMV` whose ``__call__`` is the
-SpMV:
+Port of ``repro.core.spmv`` for the CSR-k and SELL-C-σ routes.
+``prepare(A)`` runs the setup pipeline and returns a :class:`PreparedSpMV`
+whose ``__call__`` is the SpMV:
 
-  Band-k reorder → constant-time tune (SSRS/SRS from rdensity) → CSR-k build
-  → padded tile view (bucketed by slot count) → CUDA kernel per call.
+  CSR-k (regular matrices): Band-k reorder → constant-time tune (SSRS/SRS
+  from rdensity) → CSR-k build → padded tile view (bucketed by slot count)
+  → CUDA kernel per call.
+
+  SELL-C-σ (row_var > 10): σ-window sort → C-row chunks → ``[T, C, W]``
+  chunk view with each chunk's real width → CUDA kernel per call.  No
+  global reordering (``perm`` is the identity).
 
 The JAX ``device=`` string named both the tuning model and where arrays
 live; here they are two arguments: ``device_model`` (a name the tuner knows,
@@ -33,11 +38,15 @@ from repro_torch.sparse import (
     CSRkTiles,
     CSRMatrix,
     MatrixStats,
+    SELLCSMatrix,
+    SELLCSTiles,
     bucket_tiles,
     build_csrk,
     compute_stats,
     select_format,
+    sellcs_from_csr,
     tiles_from_csrk,
+    tiles_from_sellcs,
 )
 from repro_torch.sparse._tree import host, tensor_leaves
 
@@ -46,7 +55,6 @@ _CPU_MODELS = ("cpu", "rome", "icelake")
 #: Backends the registry can select that this package does not run yet, with
 #: the port slice (ROADMAP.md, Queue 1) that brings each.
 _UNPORTED = {
-    "sellcs": "slice 6 (SELL-C-σ route)",
     "segsum": "slice 7 (segmented-sum route)",
     "diahybrid": "slice 8 (DIA/CSR hybrid route)",
 }
@@ -69,10 +77,13 @@ class PreparedSpMV:
 
     ``perm`` maps new index → old index (A was symmetrically permuted), so for
     callers living in the original index space use :meth:`apply_original`.
-    ``fingerprint`` is the content hash of the *source* matrix.
+    ``fingerprint`` is the content hash of the *source* matrix.  ``backend``
+    is "csrk" (``csrk``/``tiles``/``tile_buckets`` set) or "sellcs"
+    (``sell``/``sell_tiles`` set, ``perm`` the identity: the σ-sort is
+    internal to the container).
     """
 
-    csrk: CSRkMatrix
+    csrk: Optional[CSRkMatrix]
     tiles: Optional[CSRkTiles]
     perm: np.ndarray
     params: tuner_mod.TuningParams
@@ -84,6 +95,8 @@ class PreparedSpMV:
     value_dtype: str = "f32"
     fingerprint: Optional[str] = None
     spmm_width: Optional[int] = None
+    sell: Optional[SELLCSMatrix] = None
+    sell_tiles: Optional[SELLCSTiles] = None
 
     def __post_init__(self):
         # Device-resident permutation arrays, built once so apply_original
@@ -96,6 +109,10 @@ class PreparedSpMV:
 
     @property
     def csr(self) -> CSRMatrix:
+        if self.csrk is None:
+            raise AttributeError(
+                f"no CSR view: this operator uses the {self.backend!r} backend"
+            )
         return self.csrk.csr
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +150,8 @@ class PreparedSpMV:
 
     def _dispatch(self, x: torch.Tensor) -> torch.Tensor:
         """Backend kernel launch at x's natural width (no fixed-width pad)."""
+        if self.backend == "sellcs":
+            return kops.spmv_sellcs(self.sell_tiles, x)
         if self.tile_buckets is not None:
             return kops.spmv_csrk_bucketed(self.tile_buckets, x)
         if self.tiles is not None:
@@ -155,18 +174,26 @@ class PreparedSpMV:
 
     # -- introspection -----------------------------------------------------
     def overhead_fraction(self) -> float:
+        if self.backend == "sellcs":
+            base = (2 * self.sell.nnz + self.sell.m + 1) * 4
+            return self.sell.overhead_bytes() / base
         return self.csrk.overhead_fraction()
 
     def padding_overhead(self) -> float:
+        if self.backend == "sellcs":
+            return self.sell.padding_overhead()
         return self.tiles.padding_overhead() if self.tiles is not None else 0.0
 
     def modeled_bytes(self) -> int:
         """Modeled HBM bytes one SpMV moves under the TPU design's accounting.
 
         Bucketed CSR-k sums per-bucket launches, monolithic uses worst-tile
-        padding; the CSR-2 fallback counts the raw CSR streams.  Equal to the
-        reference's value for the same operator.
+        padding, SELL-C-σ prices every chunk at the global padded width; the
+        CSR-2 fallback counts the raw CSR streams.  Equal to the reference's
+        value for the same operator.
         """
+        if self.backend == "sellcs":
+            return self.sell_tiles.modeled_bytes()
         if self.tile_buckets is not None:
             return self.tile_buckets.modeled_bytes()
         if self.tiles is not None:
@@ -177,7 +204,7 @@ class PreparedSpMV:
     def resident_bytes(self) -> int:
         """Total bytes of every tensor this operator keeps between calls."""
         leaves = tensor_leaves((
-            self.csrk, self.tiles, self.tile_buckets,
+            self.csrk, self.tiles, self.tile_buckets, self.sell, self.sell_tiles,
             self._perm_dev, self._inv_perm_dev,
         ))
         return sum(t.numel() * t.element_size() for t in leaves)
@@ -199,8 +226,11 @@ def _record_prepared(op: PreparedSpMV) -> PreparedSpMV:
     reg.counter("prepare", f"backend.{op.backend}")
     reg.gauge("prepare", "padding_overhead", op.padding_overhead(), unit="fraction")
     reg.gauge("prepare", "overhead_fraction", op.overhead_fraction(), unit="fraction")
-    reg.gauge("prepare", "tile_count",
-              op.tiles.num_tiles if op.tiles is not None else 0, unit="count")
+    if op.backend == "sellcs":
+        tile_count = op.sell_tiles.num_chunks              # C-row chunks
+    else:
+        tile_count = op.tiles.num_tiles if op.tiles is not None else 0
+    reg.gauge("prepare", "tile_count", tile_count, unit="count")
     if op.stats is not None:
         reg.gauge("prepare", "stats.row_var", op.stats.row_var)
         reg.gauge("prepare", "stats.bandwidth", op.stats.bandwidth, unit="count")
@@ -259,10 +289,12 @@ def prepare(
     device_model: str = "ampere",
     *,
     device="cuda",
-    format: str = "auto",             # "auto" | "csrk"
+    format: str = "auto",             # "auto" | "csrk" | "sellcs"
     reorder: str = "bandk",           # "bandk" | "rcm" | "natural"
     params: tuner_mod.TuningParams | None = None,
     adaptive: bool = False,
+    sell_c: int = 8,
+    sell_sigma: int | None = None,
     value_dtype: str = "f32",         # "f32" | "bf16" | "int8" | "auto"
     tile_layout: str = "bucketed",    # "bucketed" | "monolithic"
     spmm_width: int | None = None,
@@ -280,13 +312,18 @@ def prepare(
         unless the caller asks for "cpu"); raises if CUDA is asked for and
         absent.
       format: "auto" computes one-pass :class:`MatrixStats` and dispatches
-        through the registry; "csrk" forces the paper's path.  A selected or
-        forced backend this package does not run yet raises
-        ``NotImplementedError`` naming the slice that ports it.
-      reorder: global reordering ("bandk" | "rcm" | "natural").
+        through the registry; "csrk" forces the paper's path; "sellcs"
+        forces SELL-C-σ (σ-window sort → C-row chunks; no Band-k, ``perm``
+        stays the identity).  A selected or forced backend this package does
+        not run yet raises ``NotImplementedError`` naming the slice that
+        ports it.
+      reorder: global reordering for the CSR-k path ("bandk" | "rcm" |
+        "natural").
       params: explicit :class:`~repro_torch.core.tuner.TuningParams`; None
         runs the constant-time tuner.
       adaptive: use the variance-aware bytes-model tuner (``"tpu_v5e"`` only).
+      sell_c / sell_sigma: SELL-C-σ chunk height and sorting window
+        (defaults: C=8, σ=16·C).
       value_dtype: storage dtype of the kernel value stream ("f32" | "bf16" |
         "int8" | "auto"); accumulation is always f32.  The CSR-2 fallback
         always computes in f32.
@@ -318,7 +355,7 @@ def prepare(
             f"backend {format!r} is not ported yet; it arrives with port "
             f"{_UNPORTED[format]}"
         )
-    if format != "csrk":
+    if format not in ("csrk", "sellcs"):
         raise ValueError(
             f"unknown format {format!r} (expected auto|csrk|sellcs|segsum|diahybrid)"
         )
@@ -326,6 +363,25 @@ def prepare(
         with reg.timer("prepare", "phase.value_dtype"):
             value_dtype = _auto_value_dtype(A, stats, candidates=("int8", "bf16"))
         reg.counter("prepare", f"value_dtype.{value_dtype}")
+    if format == "sellcs":
+        with reg.timer("prepare", "phase.tile_build"):
+            sell = sellcs_from_csr(A, C=sell_c, sigma=sell_sigma)
+            sell_tiles = tiles_from_sellcs(sell, value_dtype=value_dtype)
+        return _record_prepared(PreparedSpMV(
+            csrk=None,
+            tiles=None,
+            perm=np.arange(A.m),
+            params=tuner_mod.TuningParams(ssrs=1, srs=sell_c, k=1, use_inner_parallel=True),
+            device_model=device_model,
+            device=dev,
+            backend="sellcs",
+            stats=stats,
+            value_dtype=value_dtype,
+            fingerprint=fingerprint,
+            spmm_width=spmm_width,
+            sell=sell.to(dev),
+            sell_tiles=sell_tiles.to(dev),
+        ))
 
     with reg.timer("prepare", "phase.reorder"):
         if reorder == "bandk":

@@ -1,18 +1,21 @@
-"""Public wrappers around the CSR-k kernel.
+"""Public wrappers around the CSR-k and SELL-C-σ kernels.
 
-Port of the CSR-k half of ``repro.kernels.ops``: ``spmv_csrk`` (monolithic
-tile view) and ``spmv_csrk_bucketed`` (one launch per slot bucket) run the
-kernel and fold in the COO remainder.  ``_pad_x_to_blocks`` and
-``combine_tile_rows`` keep the reference's helpers: the CUDA kernel bounds
-its x reads and scatters bucket rows itself, so the CUDA path needs neither.
+Port of the CSR-k and SELL-C-σ parts of ``repro.kernels.ops``: ``spmv_csrk``
+(monolithic tile view) and ``spmv_csrk_bucketed`` (one launch per slot
+bucket) run the CSR-k kernel and fold in the COO remainder; ``spmv_sellcs``
+runs the SELL-C-σ kernel, which writes rows in the original order itself.
+``_pad_x_to_blocks`` and ``combine_tile_rows`` keep the reference's helpers:
+the CUDA kernel bounds its x reads and scatters bucket rows itself, so the
+CUDA path needs neither.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.obs import annotated
-from repro_torch.sparse import CSRkTileBuckets, CSRkTiles
+from repro_torch.sparse import CSRkTileBuckets, CSRkTiles, SELLCSTiles
 
 
 def _pad_rows(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -107,3 +110,18 @@ def spmv_csrk_bucketed(buckets: CSRkTileBuckets, x: torch.Tensor) -> torch.Tenso
         )
     y = y[: buckets.shape[0]]
     return _fold_remainder(y, buckets.rem_row, buckets.rem_col, buckets.rem_val, x)
+
+
+@annotated("repro_torch.spmv_sellcs", count_section="kernels")
+def spmv_sellcs(tiles: SELLCSTiles, x: torch.Tensor) -> torch.Tensor:
+    """SELL-C-σ SpMV: ``[n]`` → ``[m]`` (``[n, B]`` → ``[m, B]``) in the
+    original row order, one kernel launch per call.
+
+    The reference pads x to a 128 multiple and scatters the σ-sorted kernel
+    rows back by ``row_perm``; the CUDA kernel reads only in-range x rows and
+    writes each row to ``y[row_perm[i]]`` itself, so neither step remains.
+    """
+    return spmv_sellcs_chunks(
+        tiles.vals, tiles.col_idx, tiles.row_perm, tiles.chunk_width,
+        x.contiguous(), tiles.val_scale, m=tiles.shape[0],
+    )

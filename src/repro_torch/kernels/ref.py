@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels, and the CSR oracles.
 
 Port of ``repro.kernels.ref``.  These are the correctness references the
-CUDA kernel is held against (on the card by ``chip_smoke.py``, on the CPU by
+CUDA kernels are held against (on the card by ``chip_smoke.py``, on the CPU by
 the tests against the JAX oracles), the path a kernel wrapper takes for CPU
 tensors, and the "plain CSR" baseline.  They repeat the kernel's arithmetic
 (f32 dequantize, f32 products, f32 sums) but not its summation order:
@@ -13,7 +13,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.obs import annotated
-from repro_torch.sparse import CSRkTileBuckets, CSRkTiles, CSRMatrix
+from repro_torch.sparse import (
+    CSRkTileBuckets,
+    CSRkTiles,
+    CSRMatrix,
+    SELLCSMatrix,
+    SELLCSTiles,
+)
 
 
 def _tile_vals_f32(vals: torch.Tensor, val_scale) -> torch.Tensor:
@@ -121,3 +127,57 @@ def spmv_csrk_buckets(buckets: CSRkTileBuckets, x: torch.Tensor) -> torch.Tensor
         y_tiles[ids.long()] = y_b.reshape((b.num_tiles, R) + tail)
     y = y_tiles.reshape((buckets.num_tiles * R,) + tail)[: buckets.shape[0]]
     return _add_remainder(y, buckets.rem_row, buckets.rem_col, buckets.rem_val, x)
+
+
+def sellcs_chunk_rows(
+    vals: torch.Tensor,
+    col_idx: torch.Tensor,
+    row_perm: torch.Tensor,
+    x: torch.Tensor,
+    val_scale=None,
+    *,
+    m: int,
+) -> torch.Tensor:
+    """Plain version of the SELL-C-σ kernel: ``[m]`` (``[m, B]``) rows.
+
+    Per sorted row ``i = t·C + c``: ``y[row_perm[i]] = Σ_w dq(vals[t,c,w]) ·
+    x[col[t,c,w]]`` over all W lanes (padding lanes hold value 0).  Columns
+    are clamped to ``n − 1`` as in the reference oracle; C-alignment pad rows
+    land on the dump row m, which is dropped.
+    """
+    v = _tile_vals_f32(vals, val_scale).to(x.dtype)
+    cols = col_idx.long().clamp(max=x.shape[0] - 1)
+    if x.ndim == 2:
+        y_sorted = (v[..., None] * x[cols]).sum(dim=2).reshape(-1, x.shape[1])
+    else:
+        y_sorted = (v * x[cols]).sum(dim=2).reshape(-1)
+    out = torch.zeros((m + 1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[row_perm.long()] = y_sorted
+    return out[:m]
+
+
+@annotated("repro_torch.oracle.spmv_sellcs_tiles", count_section="oracles")
+def spmv_sellcs_tiles(tiles: SELLCSTiles, x: torch.Tensor) -> torch.Tensor:
+    """Oracle for the uniform-width SELL-C-σ view (value-dtype aware)."""
+    return sellcs_chunk_rows(tiles.vals, tiles.col_idx, tiles.row_perm, x,
+                             tiles.val_scale, m=tiles.shape[0])
+
+
+@annotated("repro_torch.oracle.spmv_sellcs", count_section="oracles")
+def spmv_sellcs(mat: SELLCSMatrix, x: torch.Tensor) -> torch.Tensor:
+    """SELL-C-σ SpMV oracle over the canonical flat slot arrays.
+
+    Per slot: contrib = vals · x[col]; slots are segment-summed by their
+    σ-sorted row id, then scattered back to the original row order via
+    ``row_perm`` (padding rows land in the dump row m and are dropped).
+    ``x`` may carry a trailing batch dimension ([n, B] → [m, B]).
+    """
+    m = mat.shape[0]
+    tail = tuple(x.shape[1:])
+    v = mat.vals.to(x.dtype)
+    contrib = (v[:, None] if x.ndim == 2 else v) * x[mat.col_idx.long()]
+    y_sorted = torch.zeros((mat.m_pad,) + tail, dtype=x.dtype, device=x.device)
+    y_sorted.index_add_(0, mat.slot_row.long(), contrib)
+    out = torch.zeros((m + 1,) + tail, dtype=x.dtype, device=x.device)
+    out[mat.row_perm.long()] = y_sorted
+    return out[:m]

@@ -38,7 +38,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: Optional[torch.Tensor], device, dtypes, shape=None):
+def check_operand(name: str, t: Optional[torch.Tensor], device, dtypes, shape=None):
     if t is None:
         return
     if t.device != device:
@@ -97,13 +97,13 @@ def spmv_csrk_tiles(
     if x.ndim not in (1, 2):
         raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
     B = 1 if x.ndim == 1 else int(x.shape[1])
-    _check("x", x, dev, (torch.float32,))
-    _check("vals", vals, dev, tuple(_VALUE_KIND))
-    _check("local_col", local_col, dev, (torch.int32,), (T, S))
-    _check("local_row", local_row, dev, (torch.int32,), (T, S))
-    _check("win_block", win_block, dev, (torch.int32,), (T,))
-    _check("tile_nnz", tile_nnz, dev, (torch.int32,), (T,))
-    _check("tile_ids", tile_ids, dev, (torch.int32,), (T,))
+    check_operand("x", x, dev, (torch.float32,))
+    check_operand("vals", vals, dev, tuple(_VALUE_KIND))
+    check_operand("local_col", local_col, dev, (torch.int32,), (T, S))
+    check_operand("local_row", local_row, dev, (torch.int32,), (T, S))
+    check_operand("win_block", win_block, dev, (torch.int32,), (T,))
+    check_operand("tile_nnz", tile_nnz, dev, (torch.int32,), (T,))
+    check_operand("tile_ids", tile_ids, dev, (torch.int32,), (T,))
     groups = 0
     if vals.dtype == torch.int8:
         if val_scale is None:
@@ -111,13 +111,13 @@ def spmv_csrk_tiles(
         groups = int(val_scale.shape[1])
         if groups == 0 or S % groups:
             raise ValueError(f"val_scale has {groups} groups for {S} slots")
-        _check("val_scale", val_scale, dev, (torch.float32,), (T, groups))
+        check_operand("val_scale", val_scale, dev, (torch.float32,), (T, groups))
     elif val_scale is not None:
         raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
     if out is None:
         out = torch.empty((T * R,) + tail, dtype=torch.float32, device=dev)
     else:
-        _check("out", out, dev, (torch.float32,))
+        check_operand("out", out, dev, (torch.float32,))
         if out.shape[1:] != x.shape[1:] or out.shape[0] % R:
             raise ValueError(f"out of shape {tuple(out.shape)} does not take {R}-row tiles")
     if T == 0:

@@ -2,6 +2,7 @@
 
 * :mod:`repro_torch.sparse.coo` / :mod:`repro_torch.sparse.csr` — interchange formats
 * :mod:`repro_torch.sparse.csrk` — CSR-k + its padded tile view
+* :mod:`repro_torch.sparse.sellcs` — SELL-C-σ + its uniform-width chunk view
 * :mod:`repro_torch.sparse.stats` — one-pass matrix statistics
 * :mod:`repro_torch.sparse.registry` — O(1) ``select_format`` dispatch
 * :mod:`repro_torch.sparse.convert` — containers from numpy arrays
@@ -15,6 +16,12 @@ from repro_torch.sparse.csrk import (  # noqa: F401
     bucket_tiles,
     build_csrk,
     tiles_from_csrk,
+)
+from repro_torch.sparse.sellcs import (  # noqa: F401
+    SELLCSMatrix,
+    SELLCSTiles,
+    sellcs_from_csr,
+    tiles_from_sellcs,
 )
 from repro_torch.sparse.stats import (  # noqa: F401
     DIA_FRACTION_MIN,

@@ -1,6 +1,6 @@
 """Build the port's containers from plain numpy arrays.
 
-Any producer of CSR / CSR-k tile arrays (a file, another framework) can hand
+Any producer of CSR / CSR-k tile / SELL-C-σ arrays (a file, another framework) can hand
 its arrays to the port through these functions; the tests use them to push
 identical tiles through both packages' kernels and oracles.  Results live on
 the CPU; move them with ``.to(device)``.  bf16 values may arrive as an
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
+from repro_torch.sparse.sellcs import SELLCSMatrix, SELLCSTiles
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -76,6 +77,34 @@ def buckets_from_numpy(
         int(rows_per_tile),
         int(window),
         int(num_tiles),
+        value_dtype=value_dtype,
+    )
+
+
+def sellcs_from_numpy(
+    vals, col_idx, slot_row, chunk_ptr, row_perm, *,
+    shape: Tuple[int, int], C: int, sigma: int, nnz_real: int,
+) -> SELLCSMatrix:
+    """A canonical :class:`SELLCSMatrix` from its flat slot arrays."""
+    i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return SELLCSMatrix(
+        tensor_from_numpy(vals), i32(col_idx), i32(slot_row), i32(chunk_ptr),
+        i32(row_perm), (int(shape[0]), int(shape[1])),
+        C=int(C), sigma=int(sigma), nnz_real=int(nnz_real),
+    )
+
+
+def sell_tiles_from_numpy(
+    vals, col_idx, row_perm, chunk_width, *, shape: Tuple[int, int], C: int,
+    val_scale=None, value_dtype: str = "f32",
+) -> SELLCSTiles:
+    """A :class:`SELLCSTiles` from its ``[T, C, W]`` arrays; ``chunk_width``
+    is each chunk's real width (``SELLCSMatrix.chunk_widths()``)."""
+    i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return SELLCSTiles(
+        tensor_from_numpy(vals), i32(col_idx), i32(row_perm), i32(chunk_width),
+        (int(shape[0]), int(shape[1])), int(C),
+        val_scale=None if val_scale is None else tensor_from_numpy(val_scale),
         value_dtype=value_dtype,
     )
 

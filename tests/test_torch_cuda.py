@@ -1,4 +1,4 @@
-"""Tests of the port's CUDA kernel that need a card (marker ``cuda``).
+"""Tests of the port's CUDA kernels that need a card (marker ``cuda``).
 
 Each test takes the ``cuda`` fixture, which skips where no CUDA device is
 present.  On a machine with a card and ``nvcc`` run them with
@@ -14,11 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.spmv_suite import load_suite
-from repro_torch.core import cg, prepare
+from repro_torch.configs.spmv_suite import load_suite, pareto_rows
+from repro_torch.core import cg, jacobi_smoother, prepare
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
-from repro_torch.sparse import CSRMatrix, bucket_tiles, tiles_from_csrk
+from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+from repro_torch.sparse import (
+    CSRMatrix,
+    bucket_tiles,
+    sellcs_from_csr,
+    tiles_from_csrk,
+    tiles_from_sellcs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +35,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -125,3 +132,87 @@ def test_cg_on_card_matches_cpu(cuda, ecology):
     assert res_gpu.iters < 2000 and abs(res_gpu.iters - res_cpu.iters) <= 2
     rel = torch.linalg.norm(res_gpu.x.cpu() - res_cpu.x) / torch.linalg.norm(res_cpu.x)
     assert float(rel) <= 1e-4
+
+
+# --- SELL-C-σ route ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def irregular():
+    """bmwcra_1 at 1/64 (routes to SELL-C-σ) and a Pareto matrix with empty
+    rows and m not a multiple of C."""
+    return {"bmwcra_1": load_suite(scale=64, ids=[16])["bmwcra_1"],
+            "pareto": pareto_rows(1003, seed=3)}
+
+
+def _sell_bound(tiles, x, row_nnz):
+    absv = dataclasses.replace(tiles, vals=tiles.vals.abs())
+    prod = ref.spmv_sellcs_tiles(absv, x.abs())
+    k = row_nnz.to(prod.dtype)
+    return (2 * (k[:, None] if prod.ndim == 2 else k) + 2) * EPS32 * prod
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["bmwcra_1", "pareto"])
+def test_sellcs_kernel_matches_plain_and_is_bit_stable(cuda, irregular, name, value_dtype):
+    A = irregular[name]
+    tiles = tiles_from_sellcs(sellcs_from_csr(A), value_dtype=value_dtype).to(cuda)
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    row_nnz = A.row_lengths().to(cuda)
+    for xb in (X, X[:, 0].contiguous(), X[:, :3].contiguous()):
+        Y = ops.spmv_sellcs(tiles, xb)
+        err = (Y - ref.spmv_sellcs_tiles(tiles, xb)).abs()
+        assert bool((err <= _sell_bound(tiles, xb, row_nnz)).all())
+        assert torch.equal(Y, ops.spmv_sellcs(tiles, xb))
+    Y = ops.spmv_sellcs(tiles, X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_sellcs(tiles, X[:, j].contiguous()))
+
+
+def test_sellcs_wrapper_rejects_what_the_kernel_does_not_take(cuda, irregular):
+    A = irregular["bmwcra_1"]
+    t = tiles_from_sellcs(sellcs_from_csr(A)).to(cuda)
+    x = torch.randn(A.n, device=cuda)
+    call = lambda **kw: spmv_sellcs_chunks(  # noqa: E731
+        kw.get("vals", t.vals), kw.get("cols", t.col_idx), t.row_perm,
+        kw.get("width", t.chunk_width), kw.get("x", x), kw.get("scale"), m=A.m)
+    with pytest.raises(TypeError):
+        call(x=x.double())
+    with pytest.raises(TypeError):
+        call(x=x.half())
+    with pytest.raises(ValueError):
+        call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])      # not contiguous
+    with pytest.raises(ValueError):
+        call(cols=t.col_idx.transpose(1, 2))                     # not contiguous
+    with pytest.raises(ValueError):
+        call(vals=t.vals.cpu())                                  # CPU mixed with CUDA
+    with pytest.raises(ValueError):
+        call(width=t.chunk_width.cpu())
+    with pytest.raises(TypeError):
+        call(cols=t.col_idx.long())
+    with pytest.raises(ValueError):
+        call(vals=t.vals.to(torch.int8))                         # int8 needs val_scale
+    before = spmv_sellcs_chunks.launches
+    call()
+    assert spmv_sellcs_chunks.launches == before + 1
+
+
+def test_sellcs_route_launches_once_per_spmv(cuda, irregular):
+    op = prepare(irregular["bmwcra_1"], device=cuda)
+    assert op.backend == "sellcs"
+    before = spmv_sellcs_chunks.launches
+    op(torch.randn(op.sell.n, device=cuda))
+    op(torch.randn((op.sell.n, 8), device=cuda))
+    assert spmv_sellcs_chunks.launches - before == 2
+
+
+def test_jacobi_on_card_matches_cpu(cuda, irregular):
+    A = irregular["bmwcra_1"]
+    op_gpu = prepare(A, device=cuda)
+    op_cpu = prepare(A, device="cpu")
+    diag = A.todense().diagonal().contiguous()
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n).astype(np.float32))
+    x_gpu = jacobi_smoother(op_gpu, diag.to(cuda), b.to(cuda), iters=40)
+    x_cpu = jacobi_smoother(op_cpu, diag, b, iters=40)
+    rel = torch.linalg.norm(x_gpu.cpu() - x_cpu) / torch.linalg.norm(x_cpu)
+    assert float(rel) <= 1e-5

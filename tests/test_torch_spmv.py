@@ -151,14 +151,19 @@ def test_csr2_route_matches(rng, mats, device_model):
                             np.asarray(opj.apply_original(jnp.asarray(x))), dense, x)
 
 
-def test_prepare_rejects_and_routes():
+def test_prepare_rejects_and_routes(rng):
     A = t_load_suite(SCALE, ids=[15])["Emilia_923"]          # row_var > 10 → sellcs
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t_prepare(A, "ampere", device="cpu")
+    op = t_prepare(A, "ampere", device="cpu")
+    assert op.backend == "sellcs"
+    x = rng.standard_normal(A.n).astype(np.float32)
+    dense = A.todense().numpy()
+    assert_within_bound(op(torch.from_numpy(x)).numpy(), dense @ x, dense, x)
     op = t_prepare(A, "ampere", device="cpu", format="csrk", reorder="natural")
     assert op.backend == "csrk"
     with pytest.raises(NotImplementedError, match="slice 7"):
         t_prepare(A, "ampere", device="cpu", format="segsum")
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        t_prepare(A, "ampere", device="cpu", format="diahybrid")
     with pytest.raises(ValueError):
         t_prepare(A, "ampere", device="cpu", format="nope")
     with pytest.raises(ValueError):
