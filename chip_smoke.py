@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CSR-k and SELL-C-σ paths on one NVIDIA GPU.
+"""Drive the PyTorch port's CSR-k, SELL-C-σ and segmented-sum paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -18,10 +18,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``prepare(format="auto")`` -> ``apply_original`` against a plain CSR
    product -> CG and 8-column block CG to a true relative residual <= 1e-4,
    counting kernel launches;
-5. time the kernel, its plain version and ``torch.sparse`` CSR (cuSPARSE,
-   the yardstick; the port never calls it) at the ecology1 shapes, as device
-   time from CUDA-graph replays between CUDA events, beside the memory-bound
-   least time; the eager per-call time (host overhead included) is logged;
+5. time the kernel, its plain version and ``torch.sparse`` CSR (cuSPARSE
+   with int32 indices, the yardstick; the port never calls it) at the
+   ecology1 shapes, as device time from CUDA-graph replays between CUDA
+   events, beside the memory-bound least time; the eager per-call time
+   (host overhead included) is logged;
 6. SELL-C-σ kernel against its plain version on bmwcra_1 at 1/64 and on a
    Pareto matrix with empty rows and m not a multiple of C: f32/bf16/int8 x
    B in {1, 8}, within the same per-row bound, repeat launches and B=8
@@ -34,8 +35,25 @@ Phases (any failure exits non-zero and prints no result line):
    dominant), counting kernel launches;
 8. time the SELL-C-σ kernel, its plain version and cuSPARSE at the bmwcra_1
    shapes, as in phase 5;
-9. print one JSON line describing both kernels; then the card line and,
-   last, ``{"ok": true, "device": {...}}``.
+9. segmented-sum kernel against its plain version on powerlaw_zipf(2048)
+   at 128- and 512-slot chunks, on a matrix whose first and last rows are
+   empty, on a row that spans three chunks (which must come out exactly)
+   and on a row that spans 40: f32/bf16/int8 x B in {1, 8}, within the
+   same per-row bound, repeat launches and B=8 columns bit-equal, empty
+   rows 0 in an output filled with NaN before the call, and with unit
+   values the row lengths exactly;
+10. the segmented-sum path at powerlaw_zipf's full size (262,144 rows,
+    32.6M nnz): ``prepare(format="auto")`` must route to "segsum";
+    ``apply_original`` against a plain CSR product at B=1 and B=8; 50 sweeps
+    of power iteration and of 8-column block power iteration, whose last
+    products through the operator must agree with a float64 CSR product
+    within the bound (their values have random signs, so the iterations
+    need not converge), counting kernel launches;
+11. at the powerlaw_zipf shapes, check that unit values give the row
+    lengths exactly, then time the segmented-sum kernel, its plain version
+    and cuSPARSE as in phase 5;
+12. print one JSON line describing the three kernels; then the card line
+    and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -200,9 +218,13 @@ def views_for(csrk, dtypes, layouts=("monolithic", "bucketed")):
     return out
 
 
-def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates) -> dict:
+def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
+                 read_bytes=None) -> dict:
     """Time one (value dtype, B) case: kernel, eager call, plain version and,
-    where there is one, the library call; log it and return its record."""
+    where there is one, the library call; log it and return its record.
+
+    ``nbytes`` is the least the function must move, which sets the bound;
+    ``read_bytes``, where given, is what the kernel moves, if more."""
     mem_rate, f32_rate = rates
     ms = time_ms(run)
     call_ms = eager_ms(run)
@@ -211,31 +233,49 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates) -> di
     t_bytes = nbytes / mem_rate * 1e3
     t_ops = 2 * nnz * B / f32_rate * 1e3
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+    read_txt = "" if read_bytes is None else (
+        f"; the kernel reads {read_bytes / 1e6:.1f} MB, "
+        f"{read_bytes / ms / 1e6:.0f} GB/s, {read_bytes / mem_rate * 1e3:.4f} ms at the rate")
     log(f"[{tag}] {dt:4s} B={B}: kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, cuSPARSE {lib_txt} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB; "
-        f"{nbytes / ms / 1e6:.0f} GB/s achieved), max |err| {err:.3e}")
-    return {
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved{read_txt}), max |err| {err:.3e}")
+    rec = {
         "value_dtype": dt, "B": B, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "eager_call_ms": call_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes,
     }
+    if read_bytes is not None:
+        rec["bytes_read"] = read_bytes
+    return rec
 
 
-def kernel_entry(name, source, replaces, launches, variants, shape) -> dict:
+def kernel_entry(name, source, replaces, launches, variants, shape,
+                 cuda_launches_per_call: int = 1) -> dict:
     """One kernel's record of the ``kernels`` line; the headline numbers are
-    its first variant's (f32, B=1)."""
+    its first variant's (f32, B=1).  ``launches`` counts wrapper calls, each
+    ``cuda_launches_per_call`` CUDA launches."""
     head = variants[0]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches,
+        "launches": launches, "cuda_launches_per_call": cuda_launches_per_call,
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": shape,
         "variants": variants,
     }
+
+
+def library_csr(csr):
+    """``torch.sparse`` CSR of ``csr`` (cuSPARSE), with int32 indices as the
+    kernels read them; the yardstick only, never called by the port."""
+    import torch
+
+    warnings.filterwarnings("ignore", message=".*[Ss]parse CSR tensor support is in beta.*")
+    return torch.sparse_csr_tensor(csr.row_ptr.int(), csr.col_idx.int(), csr.vals,
+                                   size=csr.shape, check_invariants=True)
 
 
 def build_all(names):
@@ -402,9 +442,7 @@ def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
     t0 = time.perf_counter()
     m, n, nnz = A.m, A.n, A.nnz
     T, m_pad = tiles.num_chunks, op.sell.m_pad
-    warnings.filterwarnings("ignore", message=".*[Ss]parse CSR tensor support is in beta.*")
-    sp = torch.sparse_csr_tensor(A_dev.row_ptr.long(), A_dev.col_idx.long(), A_dev.vals,
-                                 size=A.shape, check_invariants=True)
+    sp = library_csr(A_dev)
     views = sell_views(op.sell, ("bf16", "int8"))
     views["f32"] = tiles
     # int8 scales the kernel reads: one per 128 real lanes of every real row
@@ -438,6 +476,235 @@ def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
          "W": tiles.width, "value_dtype": "f32", "B": 1})
 
 
+def segsum_kernel_vs_plain(seg, row_nnz, n, seed: int, what: str):
+    """Phase-9 checks for one container; returns {B: max_abs_err}."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, 8), generator=gen, device="cuda")
+    abs_seg = dataclasses.replace(seg, vals=seg.vals.abs())
+    empty = row_nnz == 0
+    errs = {}
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
+        out = torch.full((seg.m,) + tuple(xb.shape[1:]), float("nan"), device="cuda")
+        yb = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.local_seg, seg.seg_row, seg.carry,
+                                xb, seg.val_scale, m=seg.m, nnz=seg.nnz, out=out)
+        if not bool((yb[empty] == 0).all()):
+            raise AssertionError(f"{what} B={B}: an empty row is not 0")
+        bound = row_bound(ref.spmv_segsum(abs_seg, xb.abs()), row_nnz)
+        errs[B] = check_close(yb, ref.spmv_segsum(seg, xb), bound, f"{what} B={B}")
+        if not torch.equal(yb, ops.spmv_segsum(seg, xb)):
+            raise AssertionError(f"{what} B={B}: repeat launch differs")
+    Y8 = ops.spmv_segsum(seg, X)
+    for j in range(8):
+        if not torch.equal(Y8[:, j], ops.spmv_segsum(seg, X[:, j].contiguous())):
+            raise AssertionError(f"{what}: column {j} of B=8 != B=1")
+    return errs
+
+
+def segsum_pattern_exact(seg, row_nnz, what: str) -> None:
+    """Unit values (scale 1 for int8) and ``x[:, j] = j + 1``: y[i, j] must be
+    ``(j + 1)·k_i`` bit for bit, at B = 1 and 8.  Every partial sum is an
+    integer below 2^24, so a fragment dropped or added twice shows whatever
+    the row's tolerance."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ones = dataclasses.replace(
+        seg, vals=torch.ones_like(seg.vals),
+        val_scale=None if seg.val_scale is None else torch.ones_like(seg.val_scale))
+    X = torch.arange(1, 9, dtype=torch.float32, device="cuda").expand(seg.shape[1], 8)
+    X = X.contiguous()
+    want = row_nnz.float()[:, None] * X[0]
+    for B, xb, wb in ((1, X[:, 0].contiguous(), want[:, 0]), (8, X, want)):
+        if not torch.equal(ops.spmv_segsum(ones, xb), wb):
+            raise AssertionError(f"{what} B={B}: unit-value product != row lengths")
+
+
+class Recorder:
+    """A matvec that passes through to ``op`` and keeps its last input and output."""
+
+    def __init__(self, op):
+        self.op = op
+        self.last = None
+
+    def __call__(self, v):
+        w = self.op(v)
+        self.last = (v, w)
+        return w
+
+
+def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
+    """Phases 9-11: the segmented-sum kernel, its path at powerlaw_zipf's
+    full size, timing.  Returns the kernel's entry of the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs.spmv_suite import (
+        empty_margin_rows, load_adversarial, long_row_matrix, powerlaw_zipf,
+        three_chunk_matrix)
+    from repro_torch.core import block_power_iteration, power_iteration, prepare
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.obs import get_registry
+    from repro_torch.sparse import CSRMatrix, segsum_from_csr
+
+    # 9. kernel vs plain on small matrices
+    t0 = time.perf_counter()
+    errs = {}
+    cases = (("powerlaw_zipf(2048)", powerlaw_zipf(2048), (128, 512)),
+             ("empty margins", empty_margin_rows(300, seed=3), (128, 512)),
+             ("three chunks", three_chunk_matrix(), (128,)),
+             ("long row", long_row_matrix(), (128,)))
+    for name, A_s, chunks in cases:
+        row_nnz = A_s.row_lengths().cuda()
+        for S in chunks:
+            for dt in ("f32", "bf16", "int8"):
+                seg = segsum_from_csr(A_s, chunk_slots=S, value_dtype=dt).to("cuda")
+                what = (f"{name} ({A_s.m} rows, {int((row_nnz == 0).sum())} empty) "
+                        f"S={S} T={seg.num_chunks} R={seg.segs_per_chunk} {dt}")
+                errs.update({(name, S, dt, B): e for B, e in segsum_kernel_vs_plain(
+                    seg, row_nnz, A_s.n, 4, what).items()})
+                segsum_pattern_exact(seg, row_nnz, what)
+    seg = segsum_from_csr(three_chunk_matrix(), chunk_slots=128).to("cuda")
+    x = torch.from_numpy((np.arange(512) % 7 + 1).astype(np.float32)).cuda()
+    y = ops.spmv_segsum(seg, x).cpu().numpy()
+    if seg.num_chunks != 3 or not np.array_equal(y, [1197.0, 0.0, 14.0, 17.0]):
+        raise AssertionError(f"three-chunk carry gave {y.tolist()}, expected [1197, 0, 14, 17]")
+    torch.cuda.synchronize()
+    log(f"[segsum/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
+        f"bit-equal, empty rows 0 in NaN-filled output, unit-value products exactly the "
+        f"row lengths (a row over 40 chunks among them); three-chunk carry exactly "
+        f"{y.tolist()}; max |err| {max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+
+    # 10. the segmented-sum path at powerlaw_zipf's full size
+    t0 = time.perf_counter()
+    A = load_adversarial(scale=1, names=["powerlaw_zipf"])["powerlaw_zipf"]
+    lengths = A.row_lengths()
+    log(f"[segsum/main] powerlaw_zipf: {A.m} rows, {A.nnz} nnz, {int((lengths == 0).sum())} "
+        f"empty rows, longest row {int(lengths.max())} (built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t_main = time.perf_counter()
+    reg = get_registry()
+    reg.clear()
+    spmv_csrk_tiles.launches = 0
+    spmv_sellcs_chunks.launches = 0
+    spmv_segsum_chunks.launches = 0
+    t0 = time.perf_counter()
+    op = prepare(A, device="cuda", format="auto")
+    t_prep = time.perf_counter() - t0
+    if op.backend != "segsum":
+        raise AssertionError(f"powerlaw_zipf routed to {op.backend}, expected segsum")
+    if not np.array_equal(op.perm, np.arange(A.m)):
+        raise AssertionError("the segmented-sum route must not reorder")
+    phases = {r["name"]: r["value"] for r in reg.records() if r["section"] == "prepare"}
+    log(f"[segsum/main] prepare {t_prep:.1f} s: " + ", ".join(
+        f"{k[6:-3]} {v / 1e3:.2f} s" for k, v in sorted(phases.items())
+        if k.startswith("phase.") and k.endswith("_ms")))
+    seg = op.segsum
+    T, S, R = seg.num_chunks, seg.chunk_slots, seg.segs_per_chunk
+    real = seg.real_segments()
+    sr = seg.seg_row
+    last_row = sr.gather(1, torch.from_numpy(real - 1).cuda()[:, None])[:, 0]
+    cuts = int((sr[1:, 0] == last_row[:-1]).sum())
+    log(f"[segsum/main] stats row_var {op.stats.row_var:.4g}, row_skew "
+        f"{op.stats.row_skew:.4g}; T {T} chunks of S {S} slots, R {R} segments per chunk, "
+        f"{real.mean():.2f} real on average (max {int(real.max())}); {cuts} of {T - 1} chunk "
+        f"boundaries cut a row; modeled_bytes() {op.modeled_bytes()} (prices all T*R "
+        f"partials)")
+    A_dev = A.to("cuda")
+    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
+    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.abs(), A_dev.shape)
+    row_nnz = A_dev.row_lengths()
+
+    def product(mat, v):
+        return ref.spmm_csr(mat, v) if v.ndim == 2 else ref.spmv_csr(mat, v)
+
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal((A.n, 8)).astype(np.float32)).cuda()
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
+        err = check_close(op.apply_original(xb), product(A_dev, xb),
+                          row_bound(product(A_abs, xb.abs()), row_nnz),
+                          f"apply_original B={B} vs plain CSR")
+        log(f"[segsum/main] apply_original (B={B}) vs plain CSR product: max |err| {err:.3e}")
+
+    iters = 50
+    for label, run in (
+            ("power_iteration",
+             lambda mv: power_iteration(mv, A.n, iters=iters, device="cuda")),
+            ("block_power_iteration (8)",
+             lambda mv: block_power_iteration(mv, A.n, 8, iters=iters, device="cuda"))):
+        rec = Recorder(op)
+        t0 = time.perf_counter()
+        est = run(rec)
+        torch.cuda.synchronize()
+        t_it = time.perf_counter() - t0
+        v, w = rec.last
+        err = check_close(w, product(A64, v.double()), row_bound(product(A_abs, v.abs()), row_nnz),
+                          f"{label}: last product vs float64 CSR")
+        est = est.reshape(-1).double().cpu()
+        if not bool(torch.isfinite(est).all()):
+            raise AssertionError(f"{label}: non-finite estimate {est.tolist()}")
+        log(f"[segsum/main] {label}: {iters} sweeps in {t_it:.3f} s "
+            f"({t_it / iters * 1e3:.3f} ms/sweep), estimates "
+            + ", ".join(f"{e:.6g}" for e in est.tolist())
+            + f"; last product vs float64 CSR within bound, max |err| {err:.3e}")
+    launches = spmv_segsum_chunks.launches
+    spmvs = 2 + 2 * (iters + 1)
+    log(f"[segsum/main] phase done in {time.perf_counter() - t_main:.1f} s")
+    log(f"[segsum/main] spmv_segsum launches on the path: {launches} ({launches / spmvs:.2f} "
+        f"wrapper calls per SpMV over {spmvs} SpMVs; each call is two CUDA launches, a chunk "
+        f"pass and a carry pass); "
+        f"spmv_csrk_tiles {spmv_csrk_tiles.launches}, spmv_sellcs {spmv_sellcs_chunks.launches}")
+    if launches == 0:
+        raise AssertionError("the segmented-sum path never launched its CUDA kernel")
+
+    # 11. timing at the powerlaw_zipf shapes
+    t0 = time.perf_counter()
+    m, n, nnz = A.m, A.n, A.nnz
+    sp = library_csr(A_dev)
+    views = {dt: segsum_from_csr(A, value_dtype=dt).to("cuda") for dt in ("bf16", "int8")}
+    views["f32"] = seg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_real = int(real.sum())
+    variants = []
+    for dt in ("f32", "bf16", "int8"):
+        view = views[dt]
+        segsum_pattern_exact(view, row_nnz, f"powerlaw_zipf {dt}")
+        abs_view = dataclasses.replace(view, vals=view.vals.abs())
+        for B in (1, 8):
+            xb = torch.randn((n, B), generator=gen, device="cuda")
+            xb = xb[:, 0].contiguous() if B == 1 else xb
+            err = check_close(ops.spmv_segsum(view, xb), ref.spmv_segsum(view, xb),
+                              row_bound(ref.spmv_segsum(abs_view, xb.abs()), row_nnz),
+                              f"powerlaw_zipf {dt} B={B}")
+            # least bytes, real slots only: values and columns, one int8
+            # scale per 128 of them; each chunk's L_t + 1 segment offsets and
+            # L_t seg_row entries; x and y once per column
+            nbytes = (nnz * (VALUE_BYTES[dt] + 4) + (4 * -(-nnz // 128) if dt == "int8" else 0)
+                      + 4 * (2 * n_real + T) + 4 * n * B + 4 * m * B)
+            # the kernel finds the offsets from local_seg, 4 bytes a slot
+            read_bytes = nbytes + 4 * nnz - 4 * (n_real + T)
+            variants.append(time_variant(
+                "segsum/time", dt, B, err, lambda: ops.spmv_segsum(view, xb),
+                lambda: ref.spmv_segsum(view, xb),
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
+                read_bytes=read_bytes))
+    log(f"[segsum/time] unit-value products exactly the row lengths at full size "
+        f"(f32/bf16/int8, B=1 and 8); done in {time.perf_counter() - t0:.1f} s")
+    return kernel_entry(
+        "spmv_segsum", "src/repro_torch/csrc/spmv_segsum.cu",
+        "src/repro/kernels/spmv_segsum.py:101", launches, variants,
+        {"matrix": "powerlaw_zipf", "m": m, "n": n, "nnz": nnz, "chunks": T, "S": S, "R": R,
+         "value_dtype": "f32", "B": 1},
+        cuda_launches_per_call=2 if seg.carry.shape[0] else 1)
+
+
 def main() -> int:
     import torch
 
@@ -458,7 +725,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # 1. build
-    build_all(("spmv_csrk", "spmv_sellcs"))
+    build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum"))
 
     # 2. card
     card = card_line()
@@ -554,9 +821,7 @@ def main() -> int:
     t0 = time.perf_counter()
     m, n, nnz = A.m, A.n, A.nnz
     csr = op.csrk.csr
-    warnings.filterwarnings("ignore", message=".*[Ss]parse CSR tensor support is in beta.*")
-    sp = torch.sparse_csr_tensor(csr.row_ptr.long(), csr.col_idx.long(), csr.vals,
-                                 size=csr.shape, check_invariants=True)
+    sp = library_csr(csr)
     views = views_for(op.csrk, ("bf16", "int8"), layouts=("bucketed",))
     views["f32"] = {"bucketed": op.tile_buckets}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -583,12 +848,15 @@ def main() -> int:
     # 6.-8. the SELL-C-σ kernel and its path
     sell_entry = sellcs_phases(mem_rate, f32_rate)
 
-    # 9. result lines
+    # 9.-11. the segmented-sum kernel and its path
+    segsum_entry = segsum_phases(mem_rate, f32_rate)
+
+    # 12. result lines
     kernels = {"kernels": [kernel_entry(
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
         "src/repro/kernels/spmv_csrk.py:131", launches, variants,
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
-    ), sell_entry]}
+    ), sell_entry, segsum_entry]}
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

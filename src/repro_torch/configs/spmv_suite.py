@@ -278,6 +278,52 @@ def pareto_rows(m: int, seed: int = 0) -> CSRMatrix:
     return csr_from_coo(_coo(rows, cols, vals, (m, m)))
 
 
+def empty_margin_rows(m: int, seed: int = 0) -> CSRMatrix:
+    """Square matrix whose first and last ``m // 16`` rows are empty.
+
+    The rows between draw their lengths from ``{0, 1, 3, m // 2, m − 8}``
+    (distinct random columns, normal values), so with 128-slot chunks some
+    rows span several chunks and some chunks hold many short rows.
+    Port-only: the segmented-sum kernel checks of ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py`` use it for the rows no chunk covers.
+    """
+    rng = np.random.default_rng(seed)
+    lengths = rng.choice(np.array([0, 1, 3, m // 2, m - 8]), size=m)
+    lengths[: m // 16] = 0
+    lengths[m - m // 16:] = 0
+    rows = np.repeat(np.arange(m), lengths)
+    cols = np.concatenate(
+        [rng.choice(m, size=L, replace=False) for L in lengths] + [np.zeros(0, int)]
+    )
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return csr_from_coo(_coo(rows, cols, vals, (m, m)))
+
+
+def three_chunk_matrix() -> CSRMatrix:
+    """4×512: row 0 holds 300 ones and spans three 128-slot chunks, row 1 is
+    empty, rows 2 and 3 are short.  With ``x = arange(512) % 7 + 1`` the
+    product is exactly ``[1197, 0, 14, 17]`` (the reference's hand-computed
+    carry case, ``tests/test_irregular_formats.py:63``)."""
+    dense = np.zeros((4, 512), np.float32)
+    dense[0, :300] = 1.0
+    dense[2, 10], dense[2, 400] = 2.0, 3.0
+    dense[3, [0, 100, 200, 300, 511]] = 1.0
+    return CSRMatrix.fromdense(dense)
+
+
+def long_row_matrix(length: int = 5000) -> CSRMatrix:
+    """8×(length + 64) of ones: row 1 holds ``length`` entries, so with
+    128-slot chunks it spans more than 32 chunks (more fragments than a warp
+    has lanes); rows 2 and 7 are empty, the others short.  Every product
+    with small integer x is exact in float32, so a kernel must match it bit
+    for bit.  Port-only, like :func:`empty_margin_rows`."""
+    lengths = np.array([20, length, 0, 3, 300, 1, 64, 0])
+    n = length + 64
+    rows = np.repeat(np.arange(8), lengths)
+    cols = np.concatenate([np.arange(L) * 7 % n for L in lengths])
+    return csr_from_coo(_coo(rows, cols, np.ones(rows.shape[0], np.float32), (8, n)))
+
+
 def stencil_fringe(
     side: int = 64,
     seed: int = 18,

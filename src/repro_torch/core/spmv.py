@@ -1,6 +1,7 @@
 """Format-dispatching SpMV public API — the paper's contribution as a module.
 
-Port of ``repro.core.spmv`` for the CSR-k and SELL-C-σ routes.
+Port of ``repro.core.spmv`` for the CSR-k, SELL-C-σ and segmented-sum
+routes.
 ``prepare(A)`` runs the setup pipeline and returns a :class:`PreparedSpMV`
 whose ``__call__`` is the SpMV:
 
@@ -11,6 +12,10 @@ whose ``__call__`` is the SpMV:
   SELL-C-σ (row_var > 10): σ-window sort → C-row chunks → ``[T, C, W]``
   chunk view with each chunk's real width → CUDA kernel per call.  No
   global reordering (``perm`` is the identity).
+
+  Segmented sum (row_var > 10 and row_skew ≥ 16: power-law rows, empty
+  rows): the nnz stream cut into equal chunks of ``segsum_chunk`` slots →
+  CUDA kernel per call (chunk pass + carry pass).  ``perm`` is the identity.
 
 The JAX ``device=`` string named both the tuning model and where arrays
 live; here they are two arguments: ``device_model`` (a name the tuner knows,
@@ -38,11 +43,13 @@ from repro_torch.sparse import (
     CSRkTiles,
     CSRMatrix,
     MatrixStats,
+    SegSumCSR,
     SELLCSMatrix,
     SELLCSTiles,
     bucket_tiles,
     build_csrk,
     compute_stats,
+    segsum_from_csr,
     select_format,
     sellcs_from_csr,
     tiles_from_csrk,
@@ -55,7 +62,6 @@ _CPU_MODELS = ("cpu", "rome", "icelake")
 #: Backends the registry can select that this package does not run yet, with
 #: the port slice (ROADMAP.md, Queue 1) that brings each.
 _UNPORTED = {
-    "segsum": "slice 7 (segmented-sum route)",
     "diahybrid": "slice 8 (DIA/CSR hybrid route)",
 }
 
@@ -78,9 +84,10 @@ class PreparedSpMV:
     ``perm`` maps new index → old index (A was symmetrically permuted), so for
     callers living in the original index space use :meth:`apply_original`.
     ``fingerprint`` is the content hash of the *source* matrix.  ``backend``
-    is "csrk" (``csrk``/``tiles``/``tile_buckets`` set) or "sellcs"
+    is "csrk" (``csrk``/``tiles``/``tile_buckets`` set), "sellcs"
     (``sell``/``sell_tiles`` set, ``perm`` the identity: the σ-sort is
-    internal to the container).
+    internal to the container) or "segsum" (``segsum`` set, ``perm`` the
+    identity).
     """
 
     csrk: Optional[CSRkMatrix]
@@ -97,6 +104,7 @@ class PreparedSpMV:
     spmm_width: Optional[int] = None
     sell: Optional[SELLCSMatrix] = None
     sell_tiles: Optional[SELLCSTiles] = None
+    segsum: Optional[SegSumCSR] = None
 
     def __post_init__(self):
         # Device-resident permutation arrays, built once so apply_original
@@ -152,6 +160,8 @@ class PreparedSpMV:
         """Backend kernel launch at x's natural width (no fixed-width pad)."""
         if self.backend == "sellcs":
             return kops.spmv_sellcs(self.sell_tiles, x)
+        if self.backend == "segsum":
+            return kops.spmv_segsum(self.segsum, x)
         if self.tile_buckets is not None:
             return kops.spmv_csrk_bucketed(self.tile_buckets, x)
         if self.tiles is not None:
@@ -177,23 +187,31 @@ class PreparedSpMV:
         if self.backend == "sellcs":
             base = (2 * self.sell.nnz + self.sell.m + 1) * 4
             return self.sell.overhead_bytes() / base
+        if self.backend == "segsum":
+            base = (2 * self.segsum.nnz + self.segsum.m + 1) * 4
+            return self.segsum.overhead_bytes() / base
         return self.csrk.overhead_fraction()
 
     def padding_overhead(self) -> float:
         if self.backend == "sellcs":
             return self.sell.padding_overhead()
+        if self.backend == "segsum":
+            return self.segsum.padding_overhead()
         return self.tiles.padding_overhead() if self.tiles is not None else 0.0
 
     def modeled_bytes(self) -> int:
         """Modeled HBM bytes one SpMV moves under the TPU design's accounting.
 
         Bucketed CSR-k sums per-bucket launches, monolithic uses worst-tile
-        padding, SELL-C-σ prices every chunk at the global padded width; the
+        padding, SELL-C-σ prices every chunk at the global padded width,
+        segmented sum prices all S slots and R partials of every chunk; the
         CSR-2 fallback counts the raw CSR streams.  Equal to the reference's
         value for the same operator.
         """
         if self.backend == "sellcs":
             return self.sell_tiles.modeled_bytes()
+        if self.backend == "segsum":
+            return self.segsum.modeled_bytes()
         if self.tile_buckets is not None:
             return self.tile_buckets.modeled_bytes()
         if self.tiles is not None:
@@ -205,7 +223,7 @@ class PreparedSpMV:
         """Total bytes of every tensor this operator keeps between calls."""
         leaves = tensor_leaves((
             self.csrk, self.tiles, self.tile_buckets, self.sell, self.sell_tiles,
-            self._perm_dev, self._inv_perm_dev,
+            self.segsum, self._perm_dev, self._inv_perm_dev,
         ))
         return sum(t.numel() * t.element_size() for t in leaves)
 
@@ -228,6 +246,8 @@ def _record_prepared(op: PreparedSpMV) -> PreparedSpMV:
     reg.gauge("prepare", "overhead_fraction", op.overhead_fraction(), unit="fraction")
     if op.backend == "sellcs":
         tile_count = op.sell_tiles.num_chunks              # C-row chunks
+    elif op.backend == "segsum":
+        tile_count = op.segsum.num_chunks                  # nnz chunks
     else:
         tile_count = op.tiles.num_tiles if op.tiles is not None else 0
     reg.gauge("prepare", "tile_count", tile_count, unit="count")
@@ -289,12 +309,13 @@ def prepare(
     device_model: str = "ampere",
     *,
     device="cuda",
-    format: str = "auto",             # "auto" | "csrk" | "sellcs"
+    format: str = "auto",             # "auto" | "csrk" | "sellcs" | "segsum"
     reorder: str = "bandk",           # "bandk" | "rcm" | "natural"
     params: tuner_mod.TuningParams | None = None,
     adaptive: bool = False,
     sell_c: int = 8,
     sell_sigma: int | None = None,
+    segsum_chunk: int = 512,
     value_dtype: str = "f32",         # "f32" | "bf16" | "int8" | "auto"
     tile_layout: str = "bucketed",    # "bucketed" | "monolithic"
     spmm_width: int | None = None,
@@ -314,9 +335,10 @@ def prepare(
       format: "auto" computes one-pass :class:`MatrixStats` and dispatches
         through the registry; "csrk" forces the paper's path; "sellcs"
         forces SELL-C-σ (σ-window sort → C-row chunks; no Band-k, ``perm``
-        stays the identity).  A selected or forced backend this package does
-        not run yet raises ``NotImplementedError`` naming the slice that
-        ports it.
+        stays the identity); "segsum" forces the segmented-sum CSR
+        (equal-nnz chunks + carry; no Band-k, ``perm`` the identity).  A
+        selected or forced backend this package does not run yet raises
+        ``NotImplementedError`` naming the slice that ports it.
       reorder: global reordering for the CSR-k path ("bandk" | "rcm" |
         "natural").
       params: explicit :class:`~repro_torch.core.tuner.TuningParams`; None
@@ -324,6 +346,8 @@ def prepare(
       adaptive: use the variance-aware bytes-model tuner (``"tpu_v5e"`` only).
       sell_c / sell_sigma: SELL-C-σ chunk height and sorting window
         (defaults: C=8, σ=16·C).
+      segsum_chunk: segmented-sum nnz slots per chunk (rounded up to a 128
+        multiple; segsum backend only).
       value_dtype: storage dtype of the kernel value stream ("f32" | "bf16" |
         "int8" | "auto"); accumulation is always f32.  The CSR-2 fallback
         always computes in f32.
@@ -355,7 +379,7 @@ def prepare(
             f"backend {format!r} is not ported yet; it arrives with port "
             f"{_UNPORTED[format]}"
         )
-    if format not in ("csrk", "sellcs"):
+    if format not in ("csrk", "sellcs", "segsum"):
         raise ValueError(
             f"unknown format {format!r} (expected auto|csrk|sellcs|segsum|diahybrid)"
         )
@@ -381,6 +405,23 @@ def prepare(
             spmm_width=spmm_width,
             sell=sell.to(dev),
             sell_tiles=sell_tiles.to(dev),
+        ))
+    if format == "segsum":
+        with reg.timer("prepare", "phase.tile_build"):
+            seg = segsum_from_csr(A, chunk_slots=segsum_chunk, value_dtype=value_dtype)
+        return _record_prepared(PreparedSpMV(
+            csrk=None,
+            tiles=None,
+            perm=np.arange(A.m),
+            params=tuner_mod.TuningParams(ssrs=1, srs=1, k=1, use_inner_parallel=True),
+            device_model=device_model,
+            device=dev,
+            backend="segsum",
+            stats=stats,
+            value_dtype=value_dtype,
+            fingerprint=fingerprint,
+            spmm_width=spmm_width,
+            segsum=seg.to(dev),
         ))
 
     with reg.timer("prepare", "phase.reorder"):

@@ -1,9 +1,11 @@
-"""Public wrappers around the CSR-k and SELL-C-σ kernels.
+"""Public wrappers around the CSR-k, SELL-C-σ and segmented-sum kernels.
 
-Port of the CSR-k and SELL-C-σ parts of ``repro.kernels.ops``: ``spmv_csrk``
-(monolithic tile view) and ``spmv_csrk_bucketed`` (one launch per slot
-bucket) run the CSR-k kernel and fold in the COO remainder; ``spmv_sellcs``
-runs the SELL-C-σ kernel, which writes rows in the original order itself.
+Port of the CSR-k, SELL-C-σ and segmented-sum parts of ``repro.kernels.ops``:
+``spmv_csrk`` (monolithic tile view) and ``spmv_csrk_bucketed`` (one launch
+per slot bucket) run the CSR-k kernel and fold in the COO remainder;
+``spmv_sellcs`` runs the SELL-C-σ kernel, which writes rows in the original
+order itself; ``spmv_segsum`` runs the segmented-sum kernel, whose carry
+pass sums the fragments of rows that span chunks.
 ``_pad_x_to_blocks`` and ``combine_tile_rows`` keep the reference's helpers:
 the CUDA kernel bounds its x reads and scatters bucket rows itself, so the
 CUDA path needs neither.
@@ -13,9 +15,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.obs import annotated
-from repro_torch.sparse import CSRkTileBuckets, CSRkTiles, SELLCSTiles
+from repro_torch.sparse import CSRkTileBuckets, CSRkTiles, SegSumCSR, SELLCSTiles
 
 
 def _pad_rows(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -124,4 +127,21 @@ def spmv_sellcs(tiles: SELLCSTiles, x: torch.Tensor) -> torch.Tensor:
     return spmv_sellcs_chunks(
         tiles.vals, tiles.col_idx, tiles.row_perm, tiles.chunk_width,
         x.contiguous(), tiles.val_scale, m=tiles.shape[0],
+    )
+
+
+@annotated("repro_torch.spmv_segsum", count_section="kernels")
+def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
+    """Speculative segmented-sum SpMV: ``[n]`` → ``[m]`` (``[n, B]`` →
+    ``[m, B]``) in row order, one wrapper call per SpMV.
+
+    The reference pads x to a 128 multiple, has the kernel emit ``[T · R]``
+    speculative partials and scatter-adds them through ``seg_row``.  The
+    CUDA kernel reads only in-range x rows and real slots, writes whole rows
+    to y, and sums the fragments of rows that span chunks in a fixed order
+    in its carry pass, so neither the padding nor the scatter remains.
+    """
+    return spmv_segsum_chunks(
+        mat.vals, mat.col_idx, mat.local_seg, mat.seg_row, mat.carry, x.contiguous(),
+        mat.val_scale, m=mat.m, nnz=mat.nnz_real,
     )

@@ -17,6 +17,7 @@ from repro_torch.sparse import (
     CSRkTileBuckets,
     CSRkTiles,
     CSRMatrix,
+    SegSumCSR,
     SELLCSMatrix,
     SELLCSTiles,
 )
@@ -181,3 +182,51 @@ def spmv_sellcs(mat: SELLCSMatrix, x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((m + 1,) + tail, dtype=x.dtype, device=x.device)
     out[mat.row_perm.long()] = y_sorted
     return out[:m]
+
+
+def segsum_chunk_rows(
+    vals: torch.Tensor,
+    col_idx: torch.Tensor,
+    local_seg: torch.Tensor,
+    seg_row: torch.Tensor,
+    x: torch.Tensor,
+    val_scale=None,
+    *,
+    m: int,
+) -> torch.Tensor:
+    """Plain version of the segmented-sum kernel and its carry: ``[m]``
+    (``[m, B]``) rows.
+
+    Per chunk t: the speculative partials ``p[t·R + k] = Σ_s [lseg[t,s] = k]
+    · dq(vals[t,s]) · x[col[t,s]]`` over all S slots (the tail chunk's
+    padding slots included, value 0); then the carry scatter-adds every
+    partial to row ``seg_row[t, k]``, summing the fragments of rows that span
+    chunks.  Unused and padding segments land on the dump row m, which is
+    dropped; rows no segment covers stay 0.
+    """
+    T, S = vals.shape
+    R = seg_row.shape[1]
+    tail = tuple(x.shape[1:])
+    v = _tile_vals_f32(vals, val_scale).to(x.dtype)
+    cols = col_idx.long().clamp(max=x.shape[0] - 1)
+    contrib = (v[..., None] if x.ndim == 2 else v) * x[cols]          # [T, S(, B)]
+    seg = (local_seg.long() + torch.arange(T, device=vals.device)[:, None] * R).reshape(-1)
+    partial = torch.zeros((T * R,) + tail, dtype=x.dtype, device=x.device)
+    partial.index_add_(0, seg, contrib.reshape((T * S,) + tail))
+    out = torch.zeros((m + 1,) + tail, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg_row.long().reshape(-1), partial)[:m]
+
+
+@annotated("repro_torch.oracle.spmv_segsum", count_section="oracles")
+def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
+    """Speculative segmented-sum oracle (value-dtype aware).
+
+    Per chunk t the slot contributions are segment-summed by local segment
+    id into ``[T, R]`` speculative partials — what the reference's Pallas
+    kernel emits — then the carry/patch pass scatter-adds every partial to
+    its segment's global row, summing the fragments of rows that span chunks
+    (padding segments land in the dump row m and are dropped).  ``x`` may
+    carry a trailing batch dimension ([n, B] → [m, B]).
+    """
+    return segsum_chunk_rows(mat.vals, mat.col_idx, mat.local_seg, mat.seg_row, x,
+                             mat.val_scale, m=mat.m)

@@ -1,0 +1,121 @@
+"""Segmented-sum SpMV: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``repro.kernels.spmv_segsum.spmv_segsum_pallas`` together with the
+carry scatter-add of ``repro.kernels.ops.spmv_segsum``.  On CUDA tensors
+:func:`spmv_segsum_chunks` launches the hand-written Hopper kernel in
+``csrc/spmv_segsum.cu`` (design notes there: a chunk pass and a carry
+pass); on CPU tensors it runs the plain PyTorch version
+:func:`repro_torch.kernels.ref.segsum_chunk_rows`.  There is no fallback
+from one to the other: a CUDA input the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.spmv_csrk import check_operand
+
+_VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built kernel library, with its C signature declared (once)."""
+    lib = build.load("spmv_segsum")
+    lib.repro_spmv_segsum.argtypes = [
+        _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _LL, _P,
+    ]
+    lib.repro_spmv_segsum.restype = _I
+    lib.repro_segsum_error_string.argtypes = [_I]
+    lib.repro_segsum_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def spmv_segsum_chunks(
+    vals: torch.Tensor,          # [T, S] f32 | bf16 | int8
+    col_idx: torch.Tensor,       # [T, S] int32
+    local_seg: torch.Tensor,     # [T, S] int32
+    seg_row: torch.Tensor,       # [T, R] int32, unused segments → m
+    carry: torch.Tensor,         # [P, 3] int32 rows spanning chunks (SegSumCSR.carry)
+    x: torch.Tensor,             # [n] or [n, B] f32
+    val_scale: Optional[torch.Tensor] = None,   # [T, S/group] f32, int8 only
+    *,
+    m: int,
+    nnz: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """y = A x over all T chunks, in row order: ``[m]`` (``[m, B]``).
+
+    ``nnz`` is the number of real slots (the container's ``nnz_real``): the
+    kernel reads slots ``[0, nnz)`` of the flat stream and skips the tail
+    chunk's padding.  ``carry`` lists the rows that span chunks, whose
+    fragments the carry pass sums.  The kernel writes every row of y, empty
+    rows as 0, so ``out`` (if given, ``[m]``/``[m, B]`` f32 on x's device)
+    need not be cleared.
+    CUDA calls add one to ``spmv_segsum_chunks.launches``; each is two CUDA
+    launches, the chunk pass and the carry pass.
+    """
+    if x.device.type == "cpu":
+        y = ref.segsum_chunk_rows(vals, col_idx, local_seg, seg_row, x, val_scale, m=m)
+        return y if out is None else out.copy_(y)
+
+    dev = x.device
+    if vals.ndim != 2 or seg_row.ndim != 2:
+        raise ValueError(f"vals must be [T, S] and seg_row [T, R], got shapes "
+                         f"{tuple(vals.shape)} and {tuple(seg_row.shape)}")
+    T, S = vals.shape
+    R = int(seg_row.shape[1])
+    if x.ndim not in (1, 2):
+        raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
+    if not 0 <= nnz <= T * S:
+        raise ValueError(f"nnz {nnz} does not fit {T} chunks of {S} slots")
+    B = 1 if x.ndim == 1 else int(x.shape[1])
+    check_operand("x", x, dev, (torch.float32,))
+    check_operand("vals", vals, dev, tuple(_VALUE_KIND))
+    check_operand("col_idx", col_idx, dev, (torch.int32,), (T, S))
+    check_operand("local_seg", local_seg, dev, (torch.int32,), (T, S))
+    check_operand("seg_row", seg_row, dev, (torch.int32,), (T, R))
+    if carry.ndim != 2 or carry.shape[1] != 3:
+        raise ValueError(f"carry must be [P, 3], got shape {tuple(carry.shape)}")
+    check_operand("carry", carry, dev, (torch.int32,))
+    groups = 0
+    if vals.dtype == torch.int8:
+        if val_scale is None:
+            raise ValueError("int8 values need val_scale")
+        groups = int(val_scale.shape[-1])
+        if groups == 0 or S % groups:
+            raise ValueError(f"val_scale has {groups} groups for {S} slots")
+        check_operand("val_scale", val_scale, dev, (torch.float32,), (T, groups))
+    elif val_scale is not None:
+        raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
+    if out is None:
+        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+    else:
+        check_operand("out", out, dev, (torch.float32,), (m,) + tuple(x.shape[1:]))
+    if out.numel() == 0:
+        return out
+    part = torch.empty((T, 2, B), dtype=torch.float32, device=dev)   # fragment sums
+
+    lib = _library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.repro_spmv_segsum(
+        _VALUE_KIND[vals.dtype], ptr(vals), ptr(col_idx), ptr(local_seg), ptr(seg_row),
+        ptr(carry), int(carry.shape[0]), ptr(val_scale), groups, ptr(x), int(x.shape[0]), B,
+        ptr(out), ptr(part), m, T, S, R, int(nnz), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"spmv_segsum kernel launch failed: {lib.repro_segsum_error_string(err).decode()}"
+        )
+    spmv_segsum_chunks.launches += 1
+    return out
+
+
+spmv_segsum_chunks.launches = 0

@@ -3,6 +3,7 @@
 * :mod:`repro_torch.sparse.coo` / :mod:`repro_torch.sparse.csr` — interchange formats
 * :mod:`repro_torch.sparse.csrk` — CSR-k + its padded tile view
 * :mod:`repro_torch.sparse.sellcs` — SELL-C-σ + its uniform-width chunk view
+* :mod:`repro_torch.sparse.segsum` — segmented-sum CSR (equal-nnz chunks)
 * :mod:`repro_torch.sparse.stats` — one-pass matrix statistics
 * :mod:`repro_torch.sparse.registry` — O(1) ``select_format`` dispatch
 * :mod:`repro_torch.sparse.convert` — containers from numpy arrays
@@ -23,6 +24,7 @@ from repro_torch.sparse.sellcs import (  # noqa: F401
     sellcs_from_csr,
     tiles_from_sellcs,
 )
+from repro_torch.sparse.segsum import SegSumCSR, segsum_from_csr  # noqa: F401
 from repro_torch.sparse.stats import (  # noqa: F401
     DIA_FRACTION_MIN,
     DIAG_OCCUPANCY,

@@ -1,11 +1,11 @@
 """Build the port's containers from plain numpy arrays.
 
-Any producer of CSR / CSR-k tile / SELL-C-σ arrays (a file, another framework) can hand
-its arrays to the port through these functions; the tests use them to push
-identical tiles through both packages' kernels and oracles.  Results live on
-the CPU; move them with ``.to(device)``.  bf16 values may arrive as an
-``ml_dtypes`` bfloat16 array (what ``np.asarray`` gives for a JAX bf16
-array) and are reinterpreted bit for bit.
+Any producer of CSR / CSR-k tile / SELL-C-σ / segmented-sum arrays (a file,
+another framework) can hand its arrays to the port through these functions;
+the tests use them to push identical tiles through both packages' kernels
+and oracles.  Results live on the CPU; move them with ``.to(device)``.  bf16
+values may arrive as an ``ml_dtypes`` bfloat16 array (what ``np.asarray``
+gives for a JAX bf16 array) and are reinterpreted bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
+from repro_torch.sparse.segsum import SegSumCSR, carry_spans
 from repro_torch.sparse.sellcs import SELLCSMatrix, SELLCSTiles
 
 
@@ -104,6 +105,23 @@ def sell_tiles_from_numpy(
     return SELLCSTiles(
         tensor_from_numpy(vals), i32(col_idx), i32(row_perm), i32(chunk_width),
         (int(shape[0]), int(shape[1])), int(C),
+        val_scale=None if val_scale is None else tensor_from_numpy(val_scale),
+        value_dtype=value_dtype,
+    )
+
+
+def segsum_from_numpy(
+    vals, col_idx, local_seg, seg_row, *, shape: Tuple[int, int], nnz_real: int,
+    val_scale=None, value_dtype: str = "f32",
+) -> SegSumCSR:
+    """A :class:`SegSumCSR` from its ``[T, S]`` slot and ``[T, R]`` segment
+    arrays; the port's ``carry`` list is derived from them."""
+    i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    local_seg, seg_row = np.asarray(local_seg, np.int32), np.asarray(seg_row, np.int32)
+    return SegSumCSR(
+        tensor_from_numpy(vals), i32(col_idx), i32(local_seg), i32(seg_row),
+        i32(carry_spans(local_seg, seg_row, nnz_real)),
+        (int(shape[0]), int(shape[1])), nnz_real=int(nnz_real),
         val_scale=None if val_scale is None else tensor_from_numpy(val_scale),
         value_dtype=value_dtype,
     )

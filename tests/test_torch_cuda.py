@@ -14,14 +14,23 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.spmv_suite import load_suite, pareto_rows
-from repro_torch.core import cg, jacobi_smoother, prepare
+from repro_torch.configs.spmv_suite import (
+    empty_margin_rows,
+    load_suite,
+    long_row_matrix,
+    pareto_rows,
+    powerlaw_zipf,
+    three_chunk_matrix,
+)
+from repro_torch.core import cg, jacobi_smoother, power_iteration, prepare
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.sparse import (
     CSRMatrix,
     bucket_tiles,
+    segsum_from_csr,
     sellcs_from_csr,
     tiles_from_csrk,
     tiles_from_sellcs,
@@ -216,3 +225,135 @@ def test_jacobi_on_card_matches_cpu(cuda, irregular):
     x_cpu = jacobi_smoother(op_cpu, diag, b, iters=40)
     rel = torch.linalg.norm(x_gpu.cpu() - x_cpu) / torch.linalg.norm(x_cpu)
     assert float(rel) <= 1e-5
+
+
+# --- segmented-sum route ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def powerlaw():
+    """powerlaw_zipf(2048) (routes to segsum) and a matrix whose first and
+    last rows are empty, with rows that span several 128-slot chunks."""
+    return {"powerlaw": powerlaw_zipf(2048), "margins": empty_margin_rows(300, seed=3)}
+
+
+def _seg_bound(seg, x, row_nnz):
+    prod = ref.spmv_segsum(dataclasses.replace(seg, vals=seg.vals.abs()), x.abs())
+    k = row_nnz.to(prod.dtype)
+    return (2 * (k[:, None] if prod.ndim == 2 else k) + 2) * EPS32 * prod
+
+
+@pytest.mark.parametrize("chunk_slots", [128, 512])
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["powerlaw", "margins"])
+def test_segsum_kernel_matches_plain_and_is_bit_stable(cuda, powerlaw, name, value_dtype,
+                                                       chunk_slots):
+    A = powerlaw[name]
+    seg = segsum_from_csr(A, chunk_slots=chunk_slots, value_dtype=value_dtype).to(cuda)
+    X = torch.randn((A.n, 16), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    row_nnz = A.row_lengths().to(cuda)
+    for xb in (X, X[:, :8].contiguous(), X[:, 0].contiguous(), X[:, :3].contiguous()):
+        Y = ops.spmv_segsum(seg, xb)
+        err = (Y - ref.spmv_segsum(seg, xb)).abs()
+        assert bool((err <= _seg_bound(seg, xb, row_nnz)).all())
+        assert torch.equal(Y, ops.spmv_segsum(seg, xb))
+    Y = ops.spmv_segsum(seg, X)
+    for j in range(16):
+        assert torch.equal(Y[:, j], ops.spmv_segsum(seg, X[:, j].contiguous()))
+
+
+def test_segsum_three_chunk_carry_is_exact(cuda):
+    seg = segsum_from_csr(three_chunk_matrix(), chunk_slots=128).to(cuda)
+    x = torch.from_numpy((np.arange(512) % 7 + 1).astype(np.float32)).to(cuda)
+    want = torch.tensor([1197.0, 0.0, 14.0, 17.0], device=cuda)
+    assert torch.equal(ops.spmv_segsum(seg, x), want)
+    assert torch.equal(ops.spmv_segsum(seg, torch.stack([x, 2 * x], 1)),
+                       torch.stack([want, 2 * want], 1))
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+def test_segsum_row_over_more_chunks_than_lanes_is_exact(cuda, value_dtype):
+    """Row 1 spans 40 chunks of 128 slots: the carry warp's lanes take more
+    than one fragment each.  Unit values and small integer x make every sum
+    exact, so a dropped or doubled fragment shows."""
+    A = long_row_matrix()
+    seg = segsum_from_csr(A, chunk_slots=128, value_dtype=value_dtype).to(cuda)
+    assert int((seg.carry[:, 2] - seg.carry[:, 1] // 2 + 1).max()) > 32
+    X = ((torch.arange(A.n) % 5 + 1)[:, None] * torch.arange(1, 9)).float()
+    want = (A.todense().double() @ X.double()).float().to(cuda)
+    X = X.to(cuda)
+    assert torch.equal(ops.spmv_segsum(seg, X), want)
+    for j in range(8):
+        assert torch.equal(ops.spmv_segsum(seg, X[:, j].contiguous()), want[:, j])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_segsum_empty_rows_are_zero_in_dirty_memory(cuda, powerlaw, B):
+    A = powerlaw["margins"]
+    seg = segsum_from_csr(A, chunk_slots=128).to(cuda)
+    empty = A.row_lengths().to(cuda) == 0
+    assert bool(empty[0]) and bool(empty[-1])
+    x = torch.randn((A.n, B), device=cuda)
+    x = x[:, 0].contiguous() if B == 1 else x
+    out = torch.full((A.m,) + tuple(x.shape[1:]), float("nan"), device=cuda)
+    y = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.local_seg, seg.seg_row, seg.carry, x,
+                           m=A.m, nnz=seg.nnz, out=out)
+    assert y is out and bool(torch.isfinite(y).all())
+    assert bool((y[empty] == 0).all())
+    assert torch.equal(y, ops.spmv_segsum(seg, x))
+    nothing = segsum_from_csr(CSRMatrix.fromdense(np.zeros((5, 3), np.float32))).to(cuda)
+    out = torch.full((5,), float("nan"), device=cuda)
+    spmv_segsum_chunks(nothing.vals, nothing.col_idx, nothing.local_seg, nothing.seg_row,
+                       nothing.carry, torch.ones(3, device=cuda), m=5, nnz=0, out=out)
+    assert torch.equal(out, torch.zeros(5, device=cuda))
+
+
+def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda, powerlaw):
+    A = powerlaw["powerlaw"]
+    s = segsum_from_csr(A).to(cuda)
+    x = torch.randn(A.n, device=cuda)
+    call = lambda **kw: spmv_segsum_chunks(  # noqa: E731
+        kw.get("vals", s.vals), kw.get("cols", s.col_idx), kw.get("lseg", s.local_seg),
+        kw.get("seg_row", s.seg_row), kw.get("carry", s.carry), kw.get("x", x),
+        kw.get("scale"), m=A.m,
+        nnz=kw.get("nnz", s.nnz))
+    with pytest.raises(TypeError):
+        call(x=x.double())
+    with pytest.raises(TypeError):
+        call(x=x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])      # not contiguous
+    with pytest.raises(ValueError):
+        call(lseg=s.local_seg[:, :128])                          # wrong shape
+    with pytest.raises(ValueError):
+        call(seg_row=s.seg_row.cpu())                            # CPU mixed with CUDA
+    with pytest.raises(TypeError):
+        call(cols=s.col_idx.long())
+    with pytest.raises(ValueError):
+        call(vals=s.vals.to(torch.int8))                         # int8 needs val_scale
+    with pytest.raises(ValueError):
+        call(scale=torch.ones((s.num_chunks, 4), device=cuda))   # only with int8
+    with pytest.raises(ValueError):
+        call(nnz=s.slots + 1)
+    before = spmv_segsum_chunks.launches
+    call()
+    assert spmv_segsum_chunks.launches == before + 1
+
+
+def test_segsum_route_launches_once_per_spmv(cuda, powerlaw):
+    op = prepare(powerlaw["powerlaw"], device=cuda)
+    assert op.backend == "segsum"
+    before = spmv_segsum_chunks.launches
+    op(torch.randn(op.segsum.n, device=cuda))
+    op(torch.randn((op.segsum.n, 8), device=cuda))
+    assert spmv_segsum_chunks.launches - before == 2
+
+
+def test_power_iteration_on_card_matches_cpu(cuda, powerlaw):
+    A = powerlaw["powerlaw"]
+    op_gpu = prepare(A, device=cuda)
+    op_cpu = prepare(A, device="cpu")
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n).astype(np.float32))
+    lam_gpu = power_iteration(op_gpu, A.n, iters=30, v0=v0.to(cuda), device=cuda)
+    lam_cpu = power_iteration(op_cpu, A.n, iters=30, v0=v0, device="cpu")
+    assert float(lam_gpu) == pytest.approx(float(lam_cpu), rel=1e-4)

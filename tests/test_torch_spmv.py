@@ -160,8 +160,9 @@ def test_prepare_rejects_and_routes(rng):
     assert_within_bound(op(torch.from_numpy(x)).numpy(), dense @ x, dense, x)
     op = t_prepare(A, "ampere", device="cpu", format="csrk", reorder="natural")
     assert op.backend == "csrk"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_prepare(A, "ampere", device="cpu", format="segsum")
+    op = t_prepare(A, "ampere", device="cpu", format="segsum")
+    assert op.backend == "segsum"
+    assert_within_bound(op(torch.from_numpy(x)).numpy(), dense @ x, dense, x)
     with pytest.raises(NotImplementedError, match="slice 8"):
         t_prepare(A, "ampere", device="cpu", format="diahybrid")
     with pytest.raises(ValueError):
