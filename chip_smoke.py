@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CSR-k, SELL-C-σ and segmented-sum paths on one NVIDIA GPU.
+"""Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths
+on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -52,7 +53,25 @@ Phases (any failure exits non-zero and prints no result line):
 11. at the powerlaw_zipf shapes, check that unit values give the row
     lengths exactly, then time the segmented-sum kernel, its plain version
     and cuSPARSE as in phase 5;
-12. print one JSON line describing the three kernels; then the card line
+12. DIA/CSR-hybrid kernel against its plain version on stencil_fringe(48)
+    and (64), a 130x200 matrix with offsets {0, 40} and remainder entries at
+    columns 0 and 199, a pure plane (a 9-point grid) and a pure remainder (no
+    dense diagonal): f32/bf16 x B in {1, 8}, within the same per-row bound,
+    repeat launches and B=8 columns bit-equal, every row written into an
+    output filled with NaN; the 8x8 integer hand case exactly; and with an
+    inf, a -inf and a NaN in x, NaN and inf in the same places as the plain
+    version;
+13. the DIA/CSR-hybrid path at stencil_fringe(side=2048) (4,194,304 rows,
+    40.4M nnz): ``prepare(format="auto")`` must route to "diahybrid";
+    ``apply_original`` against a plain CSR product at B=1 and B=8; 50 sweeps
+    of power iteration and of 8-column block power iteration, whose last
+    products through the operator must agree with a float64 CSR product
+    within the bound (the matrix is neither symmetric nor diagonally
+    dominant, so the iterations need not converge); exactly one CUDA launch
+    per SpMV;
+14. time the DIA/CSR-hybrid kernel, its plain version and cuSPARSE at the
+    stencil_fringe shapes, as in phase 5;
+15. print one JSON line describing the four kernels; then the card line
     and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -525,6 +544,13 @@ def segsum_pattern_exact(seg, row_nnz, what: str) -> None:
             raise AssertionError(f"{what} B={B}: unit-value product != row lengths")
 
 
+def csr_product(mat, v):
+    """Plain CSR product of ``mat`` with [n] or [n, B] ``v``."""
+    from repro_torch.kernels import ref
+
+    return ref.spmm_csr(mat, v) if v.ndim == 2 else ref.spmv_csr(mat, v)
+
+
 class Recorder:
     """A matvec that passes through to ``op`` and keeps its last input and output."""
 
@@ -538,6 +564,53 @@ class Recorder:
         return w
 
 
+def check_route_products(tag, op, A_dev, seed: int, iters: int = 50) -> int:
+    """``apply_original`` at B=1 and B=8 against a plain CSR product, then
+    ``iters`` sweeps of power and of 8-column block power iteration whose
+    last products through ``op`` must agree with a float64 CSR product
+    within the bound (the iterations need not converge).  Returns the
+    number of SpMVs made through ``op``."""
+    import torch
+
+    from repro_torch.core import block_power_iteration, power_iteration
+    from repro_torch.sparse import CSRMatrix
+
+    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
+    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.abs(), A_dev.shape)
+    row_nnz = A_dev.row_lengths()
+    n = A_dev.shape[1]
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).cuda()
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
+        err = check_close(op.apply_original(xb), csr_product(A_dev, xb),
+                          row_bound(csr_product(A_abs, xb.abs()), row_nnz),
+                          f"apply_original B={B} vs plain CSR")
+        log(f"[{tag}] apply_original (B={B}) vs plain CSR product: max |err| {err:.3e}")
+
+    for label, run in (
+            ("power_iteration",
+             lambda mv: power_iteration(mv, n, iters=iters, device="cuda")),
+            ("block_power_iteration (8)",
+             lambda mv: block_power_iteration(mv, n, 8, iters=iters, device="cuda"))):
+        rec = Recorder(op)
+        t0 = time.perf_counter()
+        est = run(rec)
+        torch.cuda.synchronize()
+        t_it = time.perf_counter() - t0
+        v, w = rec.last
+        err = check_close(w, csr_product(A64, v.double()),
+                          row_bound(csr_product(A_abs, v.abs()), row_nnz),
+                          f"{label}: last product vs float64 CSR")
+        est = est.reshape(-1).double().cpu()
+        if not bool(torch.isfinite(est).all()):
+            raise AssertionError(f"{label}: non-finite estimate {est.tolist()}")
+        log(f"[{tag}] {label}: {iters} sweeps in {t_it:.3f} s "
+            f"({t_it / iters * 1e3:.3f} ms/sweep), estimates "
+            + ", ".join(f"{e:.6g}" for e in est.tolist())
+            + f"; last product vs float64 CSR within bound, max |err| {err:.3e}")
+    return 2 + 2 * (iters + 1)
+
+
 def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
     """Phases 9-11: the segmented-sum kernel, its path at powerlaw_zipf's
     full size, timing.  Returns the kernel's entry of the ``kernels`` line."""
@@ -546,13 +619,13 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
     from repro_torch.configs.spmv_suite import (
         empty_margin_rows, load_adversarial, long_row_matrix, powerlaw_zipf,
         three_chunk_matrix)
-    from repro_torch.core import block_power_iteration, power_iteration, prepare
+    from repro_torch.core import prepare
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
     from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
     from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
     from repro_torch.obs import get_registry
-    from repro_torch.sparse import CSRMatrix, segsum_from_csr
+    from repro_torch.sparse import segsum_from_csr
 
     # 9. kernel vs plain on small matrices
     t0 = time.perf_counter()
@@ -618,44 +691,9 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
         f"boundaries cut a row; modeled_bytes() {op.modeled_bytes()} (prices all T*R "
         f"partials)")
     A_dev = A.to("cuda")
-    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
-    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.abs(), A_dev.shape)
     row_nnz = A_dev.row_lengths()
-
-    def product(mat, v):
-        return ref.spmm_csr(mat, v) if v.ndim == 2 else ref.spmv_csr(mat, v)
-
-    rng = np.random.default_rng(2)
-    X = torch.from_numpy(rng.standard_normal((A.n, 8)).astype(np.float32)).cuda()
-    for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
-        err = check_close(op.apply_original(xb), product(A_dev, xb),
-                          row_bound(product(A_abs, xb.abs()), row_nnz),
-                          f"apply_original B={B} vs plain CSR")
-        log(f"[segsum/main] apply_original (B={B}) vs plain CSR product: max |err| {err:.3e}")
-
-    iters = 50
-    for label, run in (
-            ("power_iteration",
-             lambda mv: power_iteration(mv, A.n, iters=iters, device="cuda")),
-            ("block_power_iteration (8)",
-             lambda mv: block_power_iteration(mv, A.n, 8, iters=iters, device="cuda"))):
-        rec = Recorder(op)
-        t0 = time.perf_counter()
-        est = run(rec)
-        torch.cuda.synchronize()
-        t_it = time.perf_counter() - t0
-        v, w = rec.last
-        err = check_close(w, product(A64, v.double()), row_bound(product(A_abs, v.abs()), row_nnz),
-                          f"{label}: last product vs float64 CSR")
-        est = est.reshape(-1).double().cpu()
-        if not bool(torch.isfinite(est).all()):
-            raise AssertionError(f"{label}: non-finite estimate {est.tolist()}")
-        log(f"[segsum/main] {label}: {iters} sweeps in {t_it:.3f} s "
-            f"({t_it / iters * 1e3:.3f} ms/sweep), estimates "
-            + ", ".join(f"{e:.6g}" for e in est.tolist())
-            + f"; last product vs float64 CSR within bound, max |err| {err:.3e}")
+    spmvs = check_route_products("segsum/main", op, A_dev, seed=2)
     launches = spmv_segsum_chunks.launches
-    spmvs = 2 + 2 * (iters + 1)
     log(f"[segsum/main] phase done in {time.perf_counter() - t_main:.1f} s")
     log(f"[segsum/main] spmv_segsum launches on the path: {launches} ({launches / spmvs:.2f} "
         f"wrapper calls per SpMV over {spmvs} SpMVs; each call is two CUDA launches, a chunk "
@@ -705,6 +743,181 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
         cuda_launches_per_call=2 if seg.carry.shape[0] else 1)
 
 
+def abs_dia(d):
+    """The same DIA-hybrid container with |values| (for the |A| |x| bound)."""
+    return dataclasses.replace(d, diag_vals=d.diag_vals.abs(), remainder=dataclasses.replace(
+        d.remainder, vals=d.remainder.vals.abs()))
+
+
+def dia_kernel_vs_plain(d, row_nnz, seed: int, what: str):
+    """Phase-12 checks for one container; returns {B: max_abs_err}."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((d.n, 8), generator=gen, device="cuda")
+    r = d.remainder
+    errs = {}
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
+        out = torch.full((d.m,) + tuple(xb.shape[1:]), float("nan"), device="cuda")
+        yb = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, r.row_ptr, r.col_idx, r.vals, xb,
+                                 m=d.m, n=d.n, out=out)
+        bound = row_bound(ref.spmv_diahybrid(abs_dia(d), xb.abs()), row_nnz)
+        errs[B] = check_close(yb, ref.spmv_diahybrid(d, xb), bound, f"{what} B={B}")
+        if not torch.equal(yb, ops.spmv_diahybrid(d, xb)):
+            raise AssertionError(f"{what} B={B}: repeat launch differs")
+    Y8 = ops.spmv_diahybrid(d, X)
+    for j in range(8):
+        if not torch.equal(Y8[:, j], ops.spmv_diahybrid(d, X[:, j].contiguous())):
+            raise AssertionError(f"{what}: column {j} of B=8 != B=1")
+    return errs
+
+
+def dia_phases(mem_rate: float, f32_rate: float) -> dict:
+    """Phases 12-14: the DIA/CSR-hybrid kernel, its path at
+    stencil_fringe(side=2048), timing.  Returns the kernel's entry of the
+    ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs.spmv_suite import (
+        dia_hand_matrix, dia_rectangular_matrix, grid_laplacian_2d, no_dense_diagonal_matrix,
+        stencil_fringe)
+    from repro_torch.core import prepare
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.obs import get_registry
+    from repro_torch.sparse import diahybrid_from_csr
+
+    # 12. kernel vs plain on small matrices
+    t0 = time.perf_counter()
+    errs = {}
+    cases = (("stencil_fringe(48)", stencil_fringe(48)),
+             ("stencil_fringe(64)", stencil_fringe(64)),
+             ("rectangular 130x200", dia_rectangular_matrix()),
+             ("pure plane (9-point grid 24x24)", grid_laplacian_2d(24, 24, stencil=9)),
+             ("pure remainder", no_dense_diagonal_matrix()))
+    for name, A_s in cases:
+        row_nnz = A_s.row_lengths().cuda()
+        for dt in ("f32", "bf16"):
+            d = diahybrid_from_csr(A_s, value_dtype=dt).to("cuda")
+            what = (f"{name} ({A_s.m}x{A_s.n}, offsets {list(d.offsets)}, remainder "
+                    f"{d.remainder.nnz}) {dt}")
+            errs.update({(name, dt, B): e for B, e in dia_kernel_vs_plain(
+                d, row_nnz, 7, what).items()})
+    A_h = dia_hand_matrix()
+    X = torch.arange(1, 9, dtype=torch.float32)[:, None] * torch.tensor([1.0, -2.0, 3.0])
+    want = (A_h.todense().double() @ X.double()).float().cuda()
+    X = X.cuda()
+    for dt in ("f32", "bf16"):
+        d = diahybrid_from_csr(A_h, occupancy=0.7, value_dtype=dt).to("cuda")
+        if d.offsets != (-2, 0, 2) or d.remainder.nnz != 1:
+            raise AssertionError(f"hand case split as {d.offsets}, {d.remainder.nnz} remainder")
+        if not (torch.equal(ops.spmv_diahybrid(d, X), want)
+                and torch.equal(ops.spmv_diahybrid(d, X[:, 0].contiguous()), want[:, 0])):
+            raise AssertionError(f"hand case {dt}: not exactly the integer product")
+    A_f = stencil_fringe(64)
+    d = diahybrid_from_csr(A_f).to("cuda")
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan")], device="cuda")
+    n_bad = {}
+    for B in (1, 8):
+        xb = torch.randn((A_f.n, B), device="cuda")
+        xb[[0, 100, A_f.n - 1]] = bad[:, None]
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        y, yp = ops.spmv_diahybrid(d, xb), ref.spmv_diahybrid(d, xb)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(y), test(yp)):
+                raise AssertionError(f"non-finite x, B={B}: {test.__name__} differs from plain")
+        n_bad[B] = (int(torch.isnan(y).sum()), int(torch.isinf(y).sum()))
+    torch.cuda.synchronize()
+    log(f"[dia/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
+        f"bit-equal, every row written into NaN-filled output; hand case exact "
+        f"(f32/bf16, B=1 and 3); inf/-inf/NaN in x: NaN and inf rows equal the plain "
+        f"version's (NaN, inf rows at B=1 {n_bad[1]}, B=8 {n_bad[8]}); max |err| "
+        f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+
+    # 13. the DIA/CSR-hybrid path at stencil_fringe(side=2048)
+    t0 = time.perf_counter()
+    A = stencil_fringe(side=2048)
+    lengths = A.row_lengths()
+    log(f"[dia/main] stencil_fringe(side=2048): {A.m} rows, {A.nnz} nnz, longest row "
+        f"{int(lengths.max())} (built in {time.perf_counter() - t0:.1f} s)")
+    t_main = time.perf_counter()
+    reg = get_registry()
+    reg.clear()
+    spmv_csrk_tiles.launches = 0
+    spmv_sellcs_chunks.launches = 0
+    spmv_segsum_chunks.launches = 0
+    spmv_diahybrid_rows.launches = 0
+    t0 = time.perf_counter()
+    op = prepare(A, device="cuda", format="auto")
+    t_prep = time.perf_counter() - t0
+    if op.backend != "diahybrid":
+        raise AssertionError(f"stencil_fringe routed to {op.backend}, expected diahybrid")
+    if not np.array_equal(op.perm, np.arange(A.m)):
+        raise AssertionError("the DIA/CSR-hybrid route must not reorder")
+    phases = {r["name"]: r["value"] for r in reg.records() if r["section"] == "prepare"}
+    log(f"[dia/main] prepare {t_prep:.1f} s: " + ", ".join(
+        f"{k[6:-3]} {v / 1e3:.2f} s" for k, v in sorted(phases.items())
+        if k.startswith("phase.") and k.endswith("_ms")))
+    dia = op.dia
+    rem_len = dia.remainder.row_lengths()
+    log(f"[dia/main] stats row_var {op.stats.row_var:.4g}, diag_fraction "
+        f"{op.stats.diag_fraction:.4f}, row_skew {op.stats.row_skew:.4g}; offsets "
+        f"{list(dia.offsets)}; diag_nnz {dia.diag_nnz}, remainder nnz {dia.remainder.nnz} "
+        f"in {int((rem_len > 0).sum())} rows (longest {int(rem_len.max())}); value_dtype "
+        f"{op.value_dtype}; padding_overhead {op.padding_overhead():.4f}; modeled_bytes() "
+        f"{op.modeled_bytes()} (prices one x read per plane slot)")
+    A_dev = A.to("cuda")
+    row_nnz = A_dev.row_lengths()
+    spmvs = check_route_products("dia/main", op, A_dev, seed=3)
+    launches = spmv_diahybrid_rows.launches
+    log(f"[dia/main] phase done in {time.perf_counter() - t_main:.1f} s")
+    log(f"[dia/main] spmv_diahybrid launches on the path: {launches} over {spmvs} SpMVs "
+        f"(one CUDA launch each); spmv_csrk_tiles {spmv_csrk_tiles.launches}, spmv_sellcs "
+        f"{spmv_sellcs_chunks.launches}, spmv_segsum {spmv_segsum_chunks.launches}")
+    if launches != spmvs:
+        raise AssertionError(f"the DIA/CSR-hybrid path made {launches} kernel launches for "
+                             f"{spmvs} SpMVs, expected one each")
+
+    # 14. timing at the stencil_fringe(2048) shapes
+    t0 = time.perf_counter()
+    m, n, nnz = A.m, A.n, A.nnz
+    sp = library_csr(A_dev)
+    views = {"f32": dia, "bf16": diahybrid_from_csr(A, value_dtype="bf16").to("cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rem_nnz = dia.remainder.nnz
+    variants = []
+    for dt in ("f32", "bf16"):
+        view = views[dt]
+        abs_view = abs_dia(view)
+        for B in (1, 8):
+            xb = torch.randn((n, B), generator=gen, device="cuda")
+            xb = xb[:, 0].contiguous() if B == 1 else xb
+            err = check_close(ops.spmv_diahybrid(view, xb), ref.spmv_diahybrid(view, xb),
+                              row_bound(ref.spmv_diahybrid(abs_view, xb.abs()), row_nnz),
+                              f"stencil_fringe(2048) {dt} B={B}")
+            # least bytes: the plane once, remainder values and columns, its
+            # row pointers, x and y once per column
+            nbytes = (view.n_diag * m * VALUE_BYTES[dt] + 8 * rem_nnz + 4 * (m + 1)
+                      + 4 * n * B + 4 * m * B)
+            variants.append(time_variant(
+                "dia/time", dt, B, err, lambda: ops.spmv_diahybrid(view, xb),
+                lambda: ref.spmv_diahybrid(view, xb),
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
+    log(f"[dia/time] done in {time.perf_counter() - t0:.1f} s")
+    return kernel_entry(
+        "spmv_diahybrid", "src/repro_torch/csrc/spmv_diahybrid.cu",
+        "src/repro/kernels/spmv_diahybrid.py:84", launches, variants,
+        {"matrix": "stencil_fringe(side=2048)", "m": m, "n": n, "nnz": nnz,
+         "n_diag": dia.n_diag, "diag_nnz": dia.diag_nnz, "remainder_nnz": rem_nnz,
+         "value_dtype": "f32", "B": 1})
+
+
 def main() -> int:
     import torch
 
@@ -725,7 +938,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # 1. build
-    build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum"))
+    build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum", "spmv_diahybrid"))
 
     # 2. card
     card = card_line()
@@ -851,12 +1064,15 @@ def main() -> int:
     # 9.-11. the segmented-sum kernel and its path
     segsum_entry = segsum_phases(mem_rate, f32_rate)
 
-    # 12. result lines
+    # 12.-14. the DIA/CSR-hybrid kernel and its path
+    dia_entry = dia_phases(mem_rate, f32_rate)
+
+    # 15. result lines
     kernels = {"kernels": [kernel_entry(
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
         "src/repro/kernels/spmv_csrk.py:131", launches, variants,
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
-    ), sell_entry, segsum_entry]}
+    ), sell_entry, segsum_entry, dia_entry]}
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

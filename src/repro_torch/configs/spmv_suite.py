@@ -324,6 +324,42 @@ def long_row_matrix(length: int = 5000) -> CSRMatrix:
     return csr_from_coo(_coo(rows, cols, np.ones(rows.shape[0], np.float32), (8, n)))
 
 
+def dia_hand_matrix() -> CSRMatrix:
+    """8×8 with integer values: diagonals −2 (ones), 0 (twos) and +2 (threes),
+    which fill 6/8, 8/8 and 6/8 of their rows, and one entry 5 at (0, 7).
+    At occupancy 0.7 the three diagonals form the DIA plane and (0, 7) is
+    the remainder; every product with small integer x is exact in float32
+    (the reference's hand case, ``tests/test_irregular_formats.py:119``)."""
+    m = 8
+    dense = np.zeros((m, m), np.float32)
+    np.fill_diagonal(dense, 2.0)
+    dense[np.arange(2, m), np.arange(m - 2)] = 1.0
+    dense[np.arange(m - 2), np.arange(2, m)] = 3.0
+    dense[0, 7] = 5.0
+    return CSRMatrix.fromdense(dense)
+
+
+def dia_rectangular_matrix(seed: int = 7) -> CSRMatrix:
+    """130×200: seeded normal values on diagonals 0 and +40, and ones at
+    columns 0 and 199 of row 5, which stay in the DIA remainder (the shape of
+    the reference's ``tests/test_irregular_formats.py:217``)."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((130, 200), np.float32)
+    dense[np.arange(130), np.arange(130)] = rng.standard_normal(130)
+    dense[np.arange(130), np.arange(130) + 40] = rng.standard_normal(130)
+    dense[5, [0, 199]] = 1.0
+    return CSRMatrix.fromdense(dense)
+
+
+def no_dense_diagonal_matrix() -> CSRMatrix:
+    """16×16 with nine entries and no dense diagonal: the whole matrix is a
+    DIA remainder.  Port-only, like :func:`long_row_matrix`."""
+    dense = np.zeros((16, 16), np.float32)
+    dense[0, :7] = 1.0
+    dense[9, [3, 15]] = [-2.0, 4.0]
+    return CSRMatrix.fromdense(dense)
+
+
 def stencil_fringe(
     side: int = 64,
     seed: int = 18,

@@ -1,7 +1,7 @@
 """Format-dispatching SpMV public API — the paper's contribution as a module.
 
-Port of ``repro.core.spmv`` for the CSR-k, SELL-C-σ and segmented-sum
-routes.
+Port of ``repro.core.spmv`` for the CSR-k, SELL-C-σ, segmented-sum and
+DIA/CSR-hybrid routes.
 ``prepare(A)`` runs the setup pipeline and returns a :class:`PreparedSpMV`
 whose ``__call__`` is the SpMV:
 
@@ -16,6 +16,11 @@ whose ``__call__`` is the SpMV:
   Segmented sum (row_var > 10 and row_skew ≥ 16: power-law rows, empty
   rows): the nnz stream cut into equal chunks of ``segsum_chunk`` slots →
   CUDA kernel per call (chunk pass + carry pass).  ``perm`` is the identity.
+
+  DIA/CSR hybrid (diag_fraction ≥ 0.9 and row_var > 10: stencils with a
+  fringe): diagonals filling ≥ ``diag_occupancy`` of their rows become a
+  ``[n_diag, m]`` plane, the rest a CSR remainder → one CUDA launch per
+  call for both.  ``perm`` is the identity.
 
 The JAX ``device=`` string named both the tuning model and where arrays
 live; here they are two arguments: ``device_model`` (a name the tuner knows,
@@ -42,6 +47,8 @@ from repro_torch.sparse import (
     CSRkTileBuckets,
     CSRkTiles,
     CSRMatrix,
+    DIAG_OCCUPANCY,
+    DIAHybridMatrix,
     MatrixStats,
     SegSumCSR,
     SELLCSMatrix,
@@ -49,21 +56,16 @@ from repro_torch.sparse import (
     bucket_tiles,
     build_csrk,
     compute_stats,
+    diahybrid_from_csr,
     segsum_from_csr,
     select_format,
     sellcs_from_csr,
     tiles_from_csrk,
     tiles_from_sellcs,
 )
-from repro_torch.sparse._tree import host, tensor_leaves
+from repro_torch.sparse._tree import host, tensor_leaves, to_device
 
 _CPU_MODELS = ("cpu", "rome", "icelake")
-
-#: Backends the registry can select that this package does not run yet, with
-#: the port slice (ROADMAP.md, Queue 1) that brings each.
-_UNPORTED = {
-    "diahybrid": "slice 8 (DIA/CSR hybrid route)",
-}
 
 
 def _resolve_device(device) -> torch.device:
@@ -86,8 +88,8 @@ class PreparedSpMV:
     ``fingerprint`` is the content hash of the *source* matrix.  ``backend``
     is "csrk" (``csrk``/``tiles``/``tile_buckets`` set), "sellcs"
     (``sell``/``sell_tiles`` set, ``perm`` the identity: the σ-sort is
-    internal to the container) or "segsum" (``segsum`` set, ``perm`` the
-    identity).
+    internal to the container), "segsum" (``segsum`` set, ``perm`` the
+    identity) or "diahybrid" (``dia`` set, ``perm`` the identity).
     """
 
     csrk: Optional[CSRkMatrix]
@@ -105,6 +107,7 @@ class PreparedSpMV:
     sell: Optional[SELLCSMatrix] = None
     sell_tiles: Optional[SELLCSTiles] = None
     segsum: Optional[SegSumCSR] = None
+    dia: Optional[DIAHybridMatrix] = None
 
     def __post_init__(self):
         # Device-resident permutation arrays, built once so apply_original
@@ -162,6 +165,8 @@ class PreparedSpMV:
             return kops.spmv_sellcs(self.sell_tiles, x)
         if self.backend == "segsum":
             return kops.spmv_segsum(self.segsum, x)
+        if self.backend == "diahybrid":
+            return kops.spmv_diahybrid(self.dia, x)
         if self.tile_buckets is not None:
             return kops.spmv_csrk_bucketed(self.tile_buckets, x)
         if self.tiles is not None:
@@ -190,6 +195,9 @@ class PreparedSpMV:
         if self.backend == "segsum":
             base = (2 * self.segsum.nnz + self.segsum.m + 1) * 4
             return self.segsum.overhead_bytes() / base
+        if self.backend == "diahybrid":
+            base = (2 * self.dia.nnz + self.dia.m + 1) * 4
+            return self.dia.overhead_bytes() / base
         return self.csrk.overhead_fraction()
 
     def padding_overhead(self) -> float:
@@ -197,6 +205,8 @@ class PreparedSpMV:
             return self.sell.padding_overhead()
         if self.backend == "segsum":
             return self.segsum.padding_overhead()
+        if self.backend == "diahybrid":
+            return self.dia.padding_overhead()
         return self.tiles.padding_overhead() if self.tiles is not None else 0.0
 
     def modeled_bytes(self) -> int:
@@ -204,14 +214,17 @@ class PreparedSpMV:
 
         Bucketed CSR-k sums per-bucket launches, monolithic uses worst-tile
         padding, SELL-C-σ prices every chunk at the global padded width,
-        segmented sum prices all S slots and R partials of every chunk; the
-        CSR-2 fallback counts the raw CSR streams.  Equal to the reference's
+        segmented sum prices all S slots and R partials of every chunk, the
+        DIA hybrid one shifted x read per plane slot; the CSR-2 fallback
+        counts the raw CSR streams.  Equal to the reference's
         value for the same operator.
         """
         if self.backend == "sellcs":
             return self.sell_tiles.modeled_bytes()
         if self.backend == "segsum":
             return self.segsum.modeled_bytes()
+        if self.backend == "diahybrid":
+            return self.dia.modeled_bytes()
         if self.tile_buckets is not None:
             return self.tile_buckets.modeled_bytes()
         if self.tiles is not None:
@@ -223,7 +236,7 @@ class PreparedSpMV:
         """Total bytes of every tensor this operator keeps between calls."""
         leaves = tensor_leaves((
             self.csrk, self.tiles, self.tile_buckets, self.sell, self.sell_tiles,
-            self.segsum, self._perm_dev, self._inv_perm_dev,
+            self.segsum, self.dia, self._perm_dev, self._inv_perm_dev,
         ))
         return sum(t.numel() * t.element_size() for t in leaves)
 
@@ -248,6 +261,8 @@ def _record_prepared(op: PreparedSpMV) -> PreparedSpMV:
         tile_count = op.sell_tiles.num_chunks              # C-row chunks
     elif op.backend == "segsum":
         tile_count = op.segsum.num_chunks                  # nnz chunks
+    elif op.backend == "diahybrid":
+        tile_count = op.dia.n_diag                         # dense diagonals
     else:
         tile_count = op.tiles.num_tiles if op.tiles is not None else 0
     reg.gauge("prepare", "tile_count", tile_count, unit="count")
@@ -309,13 +324,14 @@ def prepare(
     device_model: str = "ampere",
     *,
     device="cuda",
-    format: str = "auto",             # "auto" | "csrk" | "sellcs" | "segsum"
+    format: str = "auto",             # "auto" | "csrk" | "sellcs" | "segsum" | "diahybrid"
     reorder: str = "bandk",           # "bandk" | "rcm" | "natural"
     params: tuner_mod.TuningParams | None = None,
     adaptive: bool = False,
     sell_c: int = 8,
     sell_sigma: int | None = None,
     segsum_chunk: int = 512,
+    diag_occupancy: float = DIAG_OCCUPANCY,
     value_dtype: str = "f32",         # "f32" | "bf16" | "int8" | "auto"
     tile_layout: str = "bucketed",    # "bucketed" | "monolithic"
     spmm_width: int | None = None,
@@ -336,9 +352,9 @@ def prepare(
         through the registry; "csrk" forces the paper's path; "sellcs"
         forces SELL-C-σ (σ-window sort → C-row chunks; no Band-k, ``perm``
         stays the identity); "segsum" forces the segmented-sum CSR
-        (equal-nnz chunks + carry; no Band-k, ``perm`` the identity).  A
-        selected or forced backend this package does not run yet raises
-        ``NotImplementedError`` naming the slice that ports it.
+        (equal-nnz chunks + carry; no Band-k, ``perm`` the identity);
+        "diahybrid" forces the DIA plane + CSR remainder (no Band-k, ``perm``
+        the identity; f32 or bf16 values only).
       reorder: global reordering for the CSR-k path ("bandk" | "rcm" |
         "natural").
       params: explicit :class:`~repro_torch.core.tuner.TuningParams`; None
@@ -348,9 +364,13 @@ def prepare(
         (defaults: C=8, σ=16·C).
       segsum_chunk: segmented-sum nnz slots per chunk (rounded up to a 128
         multiple; segsum backend only).
+      diag_occupancy: dense-diagonal extraction threshold of the diahybrid
+        backend: a diagonal joins the plane when it fills at least this
+        fraction of the ``m`` rows.
       value_dtype: storage dtype of the kernel value stream ("f32" | "bf16" |
         "int8" | "auto"); accumulation is always f32.  The CSR-2 fallback
-        always computes in f32.
+        always computes in f32; diahybrid takes f32 or bf16 ("auto" probes
+        bf16 only) and raises ``ValueError`` for int8.
       tile_layout: "bucketed" (one launch per slot bucket) or "monolithic"
         (one launch, every tile padded to the worst tile's slots).
       spmm_width: when set to W ≥ 1, pad every kernel launch to exactly W
@@ -374,18 +394,15 @@ def prepare(
         with reg.timer("prepare", "phase.stats"):
             stats = compute_stats(A)
             format = select_format(stats, device_model)
-    if format in _UNPORTED:
-        raise NotImplementedError(
-            f"backend {format!r} is not ported yet; it arrives with port "
-            f"{_UNPORTED[format]}"
-        )
-    if format not in ("csrk", "sellcs", "segsum"):
+    if format not in ("csrk", "sellcs", "segsum", "diahybrid"):
         raise ValueError(
             f"unknown format {format!r} (expected auto|csrk|sellcs|segsum|diahybrid)"
         )
     if value_dtype == "auto":
         with reg.timer("prepare", "phase.value_dtype"):
-            value_dtype = _auto_value_dtype(A, stats, candidates=("int8", "bf16"))
+            # the diahybrid plane has no slot grouping, so no int8 scales
+            cands = ("bf16",) if format == "diahybrid" else ("int8", "bf16")
+            value_dtype = _auto_value_dtype(A, stats, candidates=cands)
         reg.counter("prepare", f"value_dtype.{value_dtype}")
     if format == "sellcs":
         with reg.timer("prepare", "phase.tile_build"):
@@ -406,9 +423,13 @@ def prepare(
             sell=sell.to(dev),
             sell_tiles=sell_tiles.to(dev),
         ))
-    if format == "segsum":
+    if format in ("segsum", "diahybrid"):
         with reg.timer("prepare", "phase.tile_build"):
-            seg = segsum_from_csr(A, chunk_slots=segsum_chunk, value_dtype=value_dtype)
+            seg = dia = None
+            if format == "segsum":
+                seg = segsum_from_csr(A, chunk_slots=segsum_chunk, value_dtype=value_dtype)
+            else:
+                dia = diahybrid_from_csr(A, occupancy=diag_occupancy, value_dtype=value_dtype)
         return _record_prepared(PreparedSpMV(
             csrk=None,
             tiles=None,
@@ -416,12 +437,13 @@ def prepare(
             params=tuner_mod.TuningParams(ssrs=1, srs=1, k=1, use_inner_parallel=True),
             device_model=device_model,
             device=dev,
-            backend="segsum",
+            backend=format,
             stats=stats,
             value_dtype=value_dtype,
             fingerprint=fingerprint,
             spmm_width=spmm_width,
-            segsum=seg.to(dev),
+            segsum=to_device(seg, dev),
+            dia=to_device(dia, dev),
         ))
 
     with reg.timer("prepare", "phase.reorder"):

@@ -1,11 +1,13 @@
-"""Public wrappers around the CSR-k, SELL-C-σ and segmented-sum kernels.
+"""Public wrappers around the CSR-k, SELL-C-σ, segmented-sum and DIA-hybrid kernels.
 
-Port of the CSR-k, SELL-C-σ and segmented-sum parts of ``repro.kernels.ops``:
+Port of the CSR-k, SELL-C-σ, segmented-sum and DIA-hybrid parts of
+``repro.kernels.ops``:
 ``spmv_csrk`` (monolithic tile view) and ``spmv_csrk_bucketed`` (one launch
 per slot bucket) run the CSR-k kernel and fold in the COO remainder;
 ``spmv_sellcs`` runs the SELL-C-σ kernel, which writes rows in the original
 order itself; ``spmv_segsum`` runs the segmented-sum kernel, whose carry
-pass sums the fragments of rows that span chunks.
+pass sums the fragments of rows that span chunks; ``spmv_diahybrid`` runs the
+DIA-hybrid kernel, which adds the CSR remainder itself.
 ``_pad_x_to_blocks`` and ``combine_tile_rows`` keep the reference's helpers:
 the CUDA kernel bounds its x reads and scatters bucket rows itself, so the
 CUDA path needs neither.
@@ -15,10 +17,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
 from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.obs import annotated
-from repro_torch.sparse import CSRkTileBuckets, CSRkTiles, SegSumCSR, SELLCSTiles
+from repro_torch.sparse import (
+    CSRkTileBuckets,
+    CSRkTiles,
+    DIAHybridMatrix,
+    SegSumCSR,
+    SELLCSTiles,
+)
 
 
 def _pad_rows(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -145,3 +154,18 @@ def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
         mat.vals, mat.col_idx, mat.local_seg, mat.seg_row, mat.carry, x.contiguous(),
         mat.val_scale, m=mat.m, nnz=mat.nnz_real,
     )
+
+
+@annotated("repro_torch.spmv_diahybrid", count_section="kernels")
+def spmv_diahybrid(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Partially-diagonal hybrid SpMV: ``[n]`` → ``[m]`` (``[n, B]`` →
+    ``[m, B]``), one kernel launch per call.
+
+    The reference extends x by a ``lead`` zero margin for its Pallas plane
+    kernel and adds the CSR remainder through its oracle afterwards.  The
+    CUDA kernel bounds its x reads and sums each row's plane and remainder
+    in one thread, so neither the padded copy nor the second pass remains.
+    """
+    r = mat.remainder
+    return spmv_diahybrid_rows(mat.diag_vals, mat.offset_vec, r.row_ptr, r.col_idx, r.vals,
+                               x.contiguous(), m=mat.m, n=mat.n)

@@ -17,6 +17,7 @@ from repro_torch.sparse import (
     CSRkTileBuckets,
     CSRkTiles,
     CSRMatrix,
+    DIAHybridMatrix,
     SegSumCSR,
     SELLCSMatrix,
     SELLCSTiles,
@@ -230,3 +231,73 @@ def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
     """
     return segsum_chunk_rows(mat.vals, mat.col_idx, mat.local_seg, mat.seg_row, x,
                              mat.val_scale, m=mat.m)
+
+
+def dia_plane_rows(
+    diag_vals: torch.Tensor,
+    offsets: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    m: int,
+    n: int,
+) -> torch.Tensor:
+    """The DIA plane's part of y: ``[m]`` (``[m, B]``) rows.
+
+    ``y[i] = Σ_k plane[k, i] · x[i + offsets[k]]`` with f32 products summed
+    over the diagonal axis, as the reference's ``_dia_plane``.  Where
+    ``i + offsets[k]`` falls outside ``[0, n)`` the product reads 0, which
+    is the reference's zero ``lead`` margin; every in-range slot is
+    multiplied, a 0 value included, so an inf or NaN in x reaches the rows
+    it reaches there.  ``offsets`` is an int tensor on x's device (no host
+    round trip, so the function can be captured in a CUDA graph).
+    """
+    tail = tuple(x.shape[1:])
+    if diag_vals.shape[0] == 0:
+        return torch.zeros((m,) + tail, dtype=x.dtype, device=x.device)
+    col = torch.arange(m, device=x.device)[None, :] + offsets.long()[:, None]  # [n_diag, m]
+    inside = (col >= 0) & (col < n)
+    xf = x.to(torch.float32)
+    xs = xf[col.clamp(0, max(n - 1, 0))]
+    xs = torch.where(inside[..., None] if x.ndim == 2 else inside, xs, xs.new_zeros(()))
+    vals = diag_vals.to(torch.float32)
+    contrib = (vals[..., None] if x.ndim == 2 else vals) * xs
+    return contrib.sum(dim=0).to(x.dtype)
+
+
+def diahybrid_rows(
+    diag_vals: torch.Tensor,
+    offsets: torch.Tensor,
+    rem_row_ptr: torch.Tensor,
+    rem_col_idx: torch.Tensor,
+    rem_vals: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    m: int,
+    n: int,
+) -> torch.Tensor:
+    """Plain version of the DIA-hybrid kernel: ``[m]`` (``[m, B]``) rows.
+
+    The plane part (:func:`dia_plane_rows`), then, when the remainder holds
+    any entry, the remainder's CSR product added to it: the reference's
+    two-part sum, ``ops.spmv_diahybrid`` in ``repro.kernels``.
+    """
+    y = dia_plane_rows(diag_vals, offsets, x, m=m, n=n)
+    if rem_vals.numel():
+        rem = CSRMatrix(rem_row_ptr, rem_col_idx, rem_vals, (m, n))
+        y = y + (spmm_csr(rem, x) if x.ndim == 2 else spmv_csr(rem, x)).to(y.dtype)
+    return y
+
+
+def _dia_plane(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
+    """DIA-plane partial y of a container (see :func:`dia_plane_rows`)."""
+    return dia_plane_rows(mat.diag_vals, mat.offset_vec, x, m=mat.m, n=mat.n)
+
+
+@annotated("repro_torch.oracle.spmv_diahybrid", count_section="oracles")
+def spmv_diahybrid(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Partially-diagonal hybrid oracle: the shifted DIA contraction plus the
+    CSR remainder through the CSR oracle, in that order.  ``x`` may carry a
+    trailing batch dimension ([n, B] → [m, B])."""
+    r = mat.remainder
+    return diahybrid_rows(mat.diag_vals, mat.offset_vec, r.row_ptr, r.col_idx, r.vals, x,
+                          m=mat.m, n=mat.n)

@@ -4,6 +4,7 @@
 * :mod:`repro_torch.sparse.csrk` — CSR-k + its padded tile view
 * :mod:`repro_torch.sparse.sellcs` — SELL-C-σ + its uniform-width chunk view
 * :mod:`repro_torch.sparse.segsum` — segmented-sum CSR (equal-nnz chunks)
+* :mod:`repro_torch.sparse.diahybrid` — dense-diagonal DIA plane + CSR remainder
 * :mod:`repro_torch.sparse.stats` — one-pass matrix statistics
 * :mod:`repro_torch.sparse.registry` — O(1) ``select_format`` dispatch
 * :mod:`repro_torch.sparse.convert` — containers from numpy arrays
@@ -25,6 +26,11 @@ from repro_torch.sparse.sellcs import (  # noqa: F401
     tiles_from_sellcs,
 )
 from repro_torch.sparse.segsum import SegSumCSR, segsum_from_csr  # noqa: F401
+from repro_torch.sparse.diahybrid import (  # noqa: F401
+    DIAHybridMatrix,
+    dense_diagonals,
+    diahybrid_from_csr,
+)
 from repro_torch.sparse.stats import (  # noqa: F401
     DIA_FRACTION_MIN,
     DIAG_OCCUPANCY,

@@ -1,6 +1,6 @@
 """Build the port's containers from plain numpy arrays.
 
-Any producer of CSR / CSR-k tile / SELL-C-σ / segmented-sum arrays (a file,
+Any producer of CSR / CSR-k tile / SELL-C-σ / segmented-sum / DIA-hybrid arrays (a file,
 another framework) can hand its arrays to the port through these functions;
 the tests use them to push identical tiles through both packages' kernels
 and oracles.  Results live on the CPU; move them with ``.to(device)``.  bf16
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
+from repro_torch.sparse.diahybrid import DIAHybridMatrix
 from repro_torch.sparse.segsum import SegSumCSR, carry_spans
 from repro_torch.sparse.sellcs import SELLCSMatrix, SELLCSTiles
 
@@ -124,6 +125,22 @@ def segsum_from_numpy(
         (int(shape[0]), int(shape[1])), nnz_real=int(nnz_real),
         val_scale=None if val_scale is None else tensor_from_numpy(val_scale),
         value_dtype=value_dtype,
+    )
+
+
+def diahybrid_from_numpy(
+    diag_vals, offsets, rem_row_ptr, rem_col_idx, rem_vals, *, shape: Tuple[int, int],
+    diag_nnz: int, value_dtype: str = "f32",
+) -> DIAHybridMatrix:
+    """A :class:`DIAHybridMatrix` from its ``[n_diag, m]`` plane (f32, or
+    bf16 bits), its ascending offsets and its CSR remainder arrays."""
+    offsets = tuple(int(o) for o in offsets)
+    return DIAHybridMatrix(
+        tensor_from_numpy(diag_vals), offsets,
+        csr_from_numpy(rem_row_ptr, rem_col_idx, np.asarray(rem_vals, np.float32), shape),
+        (int(shape[0]), int(shape[1])),
+        tensor_from_numpy(np.asarray(offsets, np.int32).reshape(-1)),
+        diag_nnz=int(diag_nnz), value_dtype=value_dtype,
     )
 
 

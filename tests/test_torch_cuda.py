@@ -15,21 +15,28 @@ import pytest
 import torch
 
 from repro_torch.configs.spmv_suite import (
+    dia_hand_matrix,
+    dia_rectangular_matrix,
     empty_margin_rows,
+    grid_laplacian_2d,
     load_suite,
     long_row_matrix,
+    no_dense_diagonal_matrix,
     pareto_rows,
     powerlaw_zipf,
+    stencil_fringe,
     three_chunk_matrix,
 )
 from repro_torch.core import cg, jacobi_smoother, power_iteration, prepare
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
 from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.sparse import (
     CSRMatrix,
     bucket_tiles,
+    diahybrid_from_csr,
     segsum_from_csr,
     sellcs_from_csr,
     tiles_from_csrk,
@@ -351,6 +358,129 @@ def test_segsum_route_launches_once_per_spmv(cuda, powerlaw):
 
 def test_power_iteration_on_card_matches_cpu(cuda, powerlaw):
     A = powerlaw["powerlaw"]
+    op_gpu = prepare(A, device=cuda)
+    op_cpu = prepare(A, device="cpu")
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n).astype(np.float32))
+    lam_gpu = power_iteration(op_gpu, A.n, iters=30, v0=v0.to(cuda), device=cuda)
+    lam_cpu = power_iteration(op_cpu, A.n, iters=30, v0=v0, device="cpu")
+    assert float(lam_gpu) == pytest.approx(float(lam_cpu), rel=1e-4)
+
+
+@pytest.fixture(scope="module")
+def diagonal():
+    return {"fringe": stencil_fringe(64), "rectangular": dia_rectangular_matrix(),
+            "plane": grid_laplacian_2d(24, 24, stencil=9), "remainder": no_dense_diagonal_matrix()}
+
+
+def _abs_dia(d):
+    return dataclasses.replace(d, diag_vals=d.diag_vals.abs(), remainder=dataclasses.replace(
+        d.remainder, vals=d.remainder.vals.abs()))
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["fringe", "rectangular", "plane", "remainder"])
+def test_dia_kernel_matches_plain_and_is_bit_stable(cuda, diagonal, name, value_dtype):
+    A = diagonal[name]
+    d = diahybrid_from_csr(A, value_dtype=value_dtype).to(cuda)
+    assert (d.n_diag == 0) == (name == "remainder") and (d.remainder.nnz == 0) == (name == "plane")
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    k = A.row_lengths().to(cuda).float()
+    for xb in (X[:, 0].contiguous(), X):
+        y = ops.spmv_diahybrid(d, xb)
+        prod = ref.spmv_diahybrid(_abs_dia(d), xb.abs())
+        bound = (2 * (k[:, None] if xb.ndim == 2 else k) + 2) * EPS32 * prod
+        assert bool(((y - ref.spmv_diahybrid(d, xb)).abs() <= bound).all())
+        assert torch.equal(y, ops.spmv_diahybrid(d, xb))
+    Y = ops.spmv_diahybrid(d, X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_diahybrid(d, X[:, j].contiguous()))
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16"])
+def test_dia_hand_case_is_exact(cuda, value_dtype):
+    A = dia_hand_matrix()
+    d = diahybrid_from_csr(A, occupancy=0.7, value_dtype=value_dtype).to(cuda)
+    assert d.offsets == (-2, 0, 2) and d.remainder.nnz == 1
+    X = (torch.arange(1, 9, dtype=torch.float32)[:, None] * torch.tensor([1.0, -2.0, 3.0]))
+    want = (A.todense().double() @ X.double()).float().to(cuda)
+    X = X.to(cuda)
+    assert torch.equal(ops.spmv_diahybrid(d, X), want)
+    assert torch.equal(ops.spmv_diahybrid(d, X[:, 0].contiguous()), want[:, 0])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_dia_non_finite_x_reaches_the_plain_versions_rows(cuda, diagonal, B):
+    A = diagonal["fringe"]
+    d = diahybrid_from_csr(A).to(cuda)
+    x = torch.randn((A.n, B), device=cuda)
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan")], device=cuda)
+    x[[0, 100, A.n - 1]] = bad[:, None]
+    x = x[:, 0].contiguous() if B == 1 else x
+    y, want = ops.spmv_diahybrid(d, x), ref.spmv_diahybrid(d, x)
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    assert torch.equal(torch.isposinf(y), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(y), torch.isneginf(want))
+    assert bool(torch.isnan(y).any()) and bool(torch.isinf(y).any())
+
+
+def test_dia_wrapper_rejects_what_the_kernel_does_not_take(cuda, diagonal):
+    A = diagonal["fringe"]
+    d = diahybrid_from_csr(A).to(cuda)
+    r = d.remainder
+    x = torch.randn(A.n, device=cuda)
+    call = lambda **kw: spmv_diahybrid_rows(  # noqa: E731
+        kw.get("vals", d.diag_vals), kw.get("offsets", d.offset_vec), kw.get("rp", r.row_ptr),
+        kw.get("cols", r.col_idx), kw.get("rv", r.vals), kw.get("x", x), m=A.m,
+        n=kw.get("n", A.n), out=kw.get("out"))
+    with pytest.raises(TypeError):
+        call(x=x.double())
+    with pytest.raises(TypeError):
+        call(x=x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])       # not contiguous
+    with pytest.raises(ValueError):
+        call(x=x[:-1])                                            # wrong row count
+    with pytest.raises(ValueError):
+        call(n=A.n + 1)
+    with pytest.raises(TypeError):
+        call(vals=d.diag_vals.half())
+    with pytest.raises(ValueError):
+        call(vals=d.diag_vals[:, :-1])                            # wrong shape
+    with pytest.raises(ValueError):
+        call(offsets=d.offset_vec.cpu())                          # offsets on the host
+    with pytest.raises(TypeError):
+        call(offsets=d.offset_vec.long())
+    with pytest.raises(ValueError):
+        call(offsets=d.offset_vec[:-1])
+    with pytest.raises(ValueError):
+        call(rp=r.row_ptr[:-1])
+    with pytest.raises(TypeError):
+        call(cols=r.col_idx.long())
+    with pytest.raises(ValueError):
+        call(cols=r.col_idx[:-1])
+    with pytest.raises(TypeError):
+        call(rv=r.vals.double())
+    with pytest.raises(ValueError):
+        call(out=torch.empty(A.m - 1, device=cuda))
+    before = spmv_diahybrid_rows.launches
+    out = torch.full((A.m,), float("nan"), device=cuda)
+    assert call(out=out) is out and bool(torch.isfinite(out).all())
+    assert spmv_diahybrid_rows.launches == before + 1
+
+
+def test_dia_route_launches_once_per_spmv(cuda, diagonal):
+    op = prepare(diagonal["fringe"], device=cuda)
+    assert op.backend == "diahybrid"
+    assert op.dia.offset_vec.device.type == "cuda"
+    before = spmv_diahybrid_rows.launches
+    op(torch.randn(op.dia.n, device=cuda))
+    op(torch.randn((op.dia.n, 8), device=cuda))
+    op.apply_original(torch.randn(op.dia.n, device=cuda))
+    assert spmv_diahybrid_rows.launches - before == 3
+
+
+def test_dia_power_iteration_on_card_matches_cpu(cuda, diagonal):
+    A = diagonal["fringe"]
     op_gpu = prepare(A, device=cuda)
     op_cpu = prepare(A, device="cpu")
     v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n).astype(np.float32))

@@ -163,8 +163,9 @@ def test_prepare_rejects_and_routes(rng):
     op = t_prepare(A, "ampere", device="cpu", format="segsum")
     assert op.backend == "segsum"
     assert_within_bound(op(torch.from_numpy(x)).numpy(), dense @ x, dense, x)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        t_prepare(A, "ampere", device="cpu", format="diahybrid")
+    op = t_prepare(A, "ampere", device="cpu", format="diahybrid")
+    assert op.backend == "diahybrid"
+    assert_within_bound(op(torch.from_numpy(x)).numpy(), dense @ x, dense, x)
     with pytest.raises(ValueError):
         t_prepare(A, "ampere", device="cpu", format="nope")
     with pytest.raises(ValueError):
