@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths
-on one NVIDIA GPU.
+and the ELL baseline path on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -71,7 +71,23 @@ Phases (any failure exits non-zero and prints no result line):
     per SpMV;
 14. time the DIA/CSR-hybrid kernel, its plain version and cuSPARSE at the
     stencil_fringe shapes, as in phase 5;
-15. print one JSON line describing the four kernels; then the card line
+15. ELL kernel against its plain version on bmwcra_1 at 1/64 and on slabs of
+    kmax 1, 5, 33, 80 and 129 with m = 1003 (no multiple of any block size),
+    two slabs cut at an explicit kmax and an all-empty matrix: within the
+    per-row bound, a repeat launch bit-equal, every row written into an
+    output filled with NaN; with an inf (at x[0], which every padding slot
+    reads), a -inf and a NaN in x, NaN and inf in the same rows as the plain
+    version;
+16. the ELL path at bmwcra_1's full size, on the matrix phase 7 built:
+    ``ell_from_csr`` -> ``to`` -> ``ops.spmv_ell`` against a plain CSR
+    product and against the SELL-C-σ route's output within the bound; 40
+    Jacobi sweeps through ``ops.spmv_ell`` with phase 7's diagonal and
+    right-hand side to a true relative residual <= 1e-5 and within 1e-5 of
+    the SELL-C-σ route's iterate; exactly one CUDA launch per SpMV;
+17. time the ELL kernel, its plain version and cuSPARSE on bmwcra_1 and on
+    phase 13's stencil_fringe(2048) (kmax 73: 7.6x its nnz in slots), as in
+    phase 5, beside the SELL-C-σ and DIA kernels' times;
+18. print one JSON line describing the five kernels; then the card line
     and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -360,10 +376,11 @@ def csr_diagonal(A):
     return diag
 
 
-def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
+def sellcs_phases(mem_rate: float, f32_rate: float):
     """Phases 6-8: the SELL-C-σ kernel, its path at bmwcra_1's size, timing.
 
-    Returns the kernel's entry of the ``kernels`` line.
+    Returns the kernel's entry of the ``kernels`` line, and bmwcra_1 with its
+    operator, diagonal and one-column right-hand side for the ELL phases.
     """
     import torch
 
@@ -433,8 +450,9 @@ def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
     diag = csr_diagonal(A_dev)
     sweeps = 40
     X_true = torch.from_numpy(rng.standard_normal((A.n, 8)).astype(np.float32)).cuda()
+    b1 = ref.spmv_csr(A_dev, X_true[:, 0].contiguous())
     for label, xt in (("1 rhs", X_true[:, 0].contiguous()), ("8 rhs", X_true)):
-        b = ref.spmm_csr(A_dev, xt) if xt.ndim == 2 else ref.spmv_csr(A_dev, xt)
+        b = ref.spmm_csr(A_dev, xt) if xt.ndim == 2 else b1
         d = diag[:, None] if xt.ndim == 2 else diag
         t0 = time.perf_counter()
         xs = jacobi_smoother(op, d, b, iters=sweeps)
@@ -488,11 +506,12 @@ def sellcs_phases(mem_rate: float, f32_rate: float) -> dict:
                 lambda: ref.spmv_sellcs_tiles(view, xb),
                 (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
     log(f"[sellcs/time] done in {time.perf_counter() - t0:.1f} s")
-    return kernel_entry(
+    entry = kernel_entry(
         "spmv_sellcs", "src/repro_torch/csrc/spmv_sellcs.cu",
         "src/repro/kernels/spmv_sellcs.py:103", launches, variants,
         {"matrix": "bmwcra_1", "m": m, "n": n, "nnz": nnz, "C": tiles.C, "chunks": T,
          "W": tiles.width, "value_dtype": "f32", "B": 1})
+    return entry, {"A": A, "A_dev": A_dev, "op": op, "diag": diag, "b": b1}
 
 
 def segsum_kernel_vs_plain(seg, row_nnz, n, seed: int, what: str):
@@ -775,10 +794,11 @@ def dia_kernel_vs_plain(d, row_nnz, seed: int, what: str):
     return errs
 
 
-def dia_phases(mem_rate: float, f32_rate: float) -> dict:
+def dia_phases(mem_rate: float, f32_rate: float):
     """Phases 12-14: the DIA/CSR-hybrid kernel, its path at
     stencil_fringe(side=2048), timing.  Returns the kernel's entry of the
-    ``kernels`` line."""
+    ``kernels`` line and the matrix (on the host), which the ELL timing
+    reuses."""
     import torch
 
     from repro_torch.configs.spmv_suite import (
@@ -910,12 +930,186 @@ def dia_phases(mem_rate: float, f32_rate: float) -> dict:
                 lambda: ref.spmv_diahybrid(view, xb),
                 (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
     log(f"[dia/time] done in {time.perf_counter() - t0:.1f} s")
-    return kernel_entry(
+    entry = kernel_entry(
         "spmv_diahybrid", "src/repro_torch/csrc/spmv_diahybrid.cu",
         "src/repro/kernels/spmv_diahybrid.py:84", launches, variants,
         {"matrix": "stencil_fringe(side=2048)", "m": m, "n": n, "nnz": nnz,
          "n_diag": dia.n_diag, "diag_nnz": dia.diag_nnz, "remainder_nnz": rem_nnz,
          "value_dtype": "f32", "B": 1})
+    return entry, A
+
+
+def ell_bound(e, x):
+    """Per-row bound over the slab's own slots: (2 k_i + 2) eps32 (|vals| |x[col]|)_i,
+    k_i the row's nonzero slots."""
+    from repro_torch.kernels import ref
+
+    return row_bound(ref.ell_rows(e.col_idx, e.vals.abs(), x.abs()), (e.vals != 0).sum(dim=1))
+
+
+def ell_kernel_vs_plain(e, n, seed: int, what: str) -> float:
+    """Phase-15 checks for one slab: within the bound of the plain version,
+    every row written into NaN-filled output, a repeat launch bit-equal."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_ell import spmv_ell_rows
+
+    m = e.shape[0]
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    out = torch.full((m,), float("nan"), device="cuda")
+    y = spmv_ell_rows(e.col_idx, e.vals, x, m=m, n=n, out=out)
+    err = check_close(y, ref.ell_rows(e.col_idx, e.vals, x), ell_bound(e, x), what)
+    if not torch.equal(y, ops.spmv_ell(e, x)):
+        raise AssertionError(f"{what}: repeat launch differs")
+    return err
+
+
+def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict) -> dict:
+    """Phases 15-17: the ELL kernel, the ELL path at bmwcra_1's full size,
+    timing on bmwcra_1 and stencil_fringe(2048).  ``bmw`` is what the
+    SELL-C-σ phase built, ``fringe`` the DIA phase's matrix (host) and
+    ``others`` the other kernels' entries.  Returns the kernel's entry of the
+    ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs.spmv_suite import ell_width_matrix, load_suite
+    from repro_torch.core import jacobi_smoother
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+    from repro_torch.kernels.spmv_ell import spmv_ell_rows
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.obs import get_registry
+    from repro_torch.sparse import CSRMatrix, ell_from_csr
+
+    # 15. kernel vs plain on small slabs
+    t0 = time.perf_counter()
+    bmw64 = load_suite(scale=64, ids=[16])["bmwcra_1"]
+    widths = {k: ell_width_matrix(1003, 700, k, seed=k) for k in (1, 5, 33, 80, 129)}
+    cases = [("bmwcra_1/64", bmw64, None), ("bmwcra_1/64 cut at 50", bmw64, 50)]
+    cases += [(f"m 1003, kmax {k}", A_s, None) for k, A_s in widths.items()]
+    cases += [("m 1003, kmax 129 cut at 40", widths[129], 40),
+              ("all empty 37x20", CSRMatrix.fromdense(np.zeros((37, 20), np.float32)), None)]
+    errs = {}
+    for name, A_s, cut in cases:
+        e = ell_from_csr(A_s, cut).to("cuda")
+        errs[name] = ell_kernel_vs_plain(e, A_s.n, 10, f"{name} (kmax {e.kmax})")
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan")], device="cuda")
+    n_bad = {}
+    for name, A_s in (("bmwcra_1/64", bmw64), ("kmax 80", widths[80])):
+        e = ell_from_csr(A_s).to("cuda")
+        x = torch.randn(A_s.n, device="cuda")
+        x[[0, 100, A_s.n - 1]] = bad
+        y, yp = ops.spmv_ell(e, x), ref.ell_rows(e.col_idx, e.vals, x)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(y), test(yp)):
+                raise AssertionError(f"{name}, non-finite x: {test.__name__} differs from plain")
+        n_bad[name] = (int(torch.isnan(y).sum()), int(torch.isinf(y).sum()))
+    torch.cuda.synchronize()
+    log(f"[ell/kernel] {len(errs)} slabs (kmax 1..129, two cut, one all padding) within "
+        f"bound, repeat launches bit-equal, every row written into NaN-filled output; "
+        f"inf/-inf/NaN in x (inf at x[0]): NaN and inf rows equal the plain version's "
+        f"(NaN, inf rows {n_bad}); max |err| {max(errs.values()):.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 16. the ELL path at bmwcra_1's full size
+    A, A_dev, op, diag, b = (bmw[k] for k in ("A", "A_dev", "op", "diag", "b"))
+    t0 = time.perf_counter()
+    ell_host = ell_from_csr(A)
+    t_build = time.perf_counter() - t0
+    ell = ell_host.to("cuda")
+    slots = ell.vals.numel()
+    log(f"[ell/main] bmwcra_1: {A.m} rows, {A.nnz} nnz; ell_from_csr {t_build:.2f} s: kmax "
+        f"{ell.kmax}, {slots} slots, padding_overhead {ell_host.padding_overhead():.4f}")
+    sweeps = 40
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(A.n).astype(np.float32)).cuda()
+    y_sell = op.apply_original(x)
+    x_sell = jacobi_smoother(op, diag, b, iters=sweeps)
+    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.abs(), A_dev.shape)
+    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
+    bound = row_bound(ref.spmv_csr(A_abs, x.abs()), A_dev.row_lengths())
+    t_main = time.perf_counter()
+    reg = get_registry()
+    reg.clear()
+    for counted in (spmv_csrk_tiles, spmv_sellcs_chunks, spmv_segsum_chunks,
+                    spmv_diahybrid_rows, spmv_ell_rows):
+        counted.launches = 0
+    y = ops.spmv_ell(ell, x)
+    err_csr = check_close(y, ref.spmv_csr(A_dev, x), bound, "ELL vs plain CSR")
+    err_sell = check_close(y, y_sell, bound, "ELL vs the SELL-C-σ route")
+    t0 = time.perf_counter()
+    xs = jacobi_smoother(lambda v: ops.spmv_ell(ell, v), diag, b, iters=sweeps)
+    torch.cuda.synchronize()
+    t_j = time.perf_counter() - t0
+    launches = spmv_ell_rows.launches
+    other = {f.__name__: f.launches for f in (spmv_csrk_tiles, spmv_sellcs_chunks,
+                                              spmv_segsum_chunks, spmv_diahybrid_rows)}
+    true_res = float(torch.linalg.norm(b.double() - ref.spmv_csr(A64, xs.double()))
+                     / torch.linalg.norm(b.double()))
+    vs_sell = float(torch.linalg.norm(xs - x_sell) / torch.linalg.norm(x_sell))
+    spmvs = 1 + sweeps
+    log(f"[ell/main] spmv_ell vs plain CSR product: max |err| {err_csr:.3e}; vs the SELL-C-σ "
+        f"route: max |diff| {err_sell:.3e}")
+    log(f"[ell/main] jacobi through ops.spmv_ell: {sweeps} sweeps, true relative residual "
+        f"{true_res:.3e}, relative difference from the SELL-C-σ route's iterate "
+        f"{vs_sell:.3e}, {t_j:.3f} s ({t_j / sweeps * 1e3:.3f} ms/sweep)")
+    log(f"[ell/main] phase done in {time.perf_counter() - t_main:.1f} s; spmv_ell launches on "
+        f"the path: {launches} over {spmvs} SpMVs (one CUDA launch each); others {other}")
+    if not true_res <= 1e-5 or not vs_sell <= 1e-5:
+        raise AssertionError("jacobi through ELL did not match the SELL-C-σ route to 1e-5")
+    if launches != spmvs or any(other.values()):
+        raise AssertionError(f"the ELL path made {launches} ELL launches for {spmvs} SpMVs "
+                             f"and {other} others, expected one ELL launch each")
+
+    # 17. timing on bmwcra_1 and stencil_fringe(2048)
+    def time_ell(label, A_t, A_t_dev, ell_t):
+        xt = torch.randn(A_t.n, generator=torch.Generator(device="cuda").manual_seed(11),
+                         device="cuda")
+        A_abs_t = CSRMatrix(A_t_dev.row_ptr, A_t_dev.col_idx, A_t_dev.vals.abs(), A_t_dev.shape)
+        err = check_close(ops.spmv_ell(ell_t, xt), ref.spmv_csr(A_t_dev, xt),
+                          row_bound(ref.spmv_csr(A_abs_t, xt.abs()), A_t_dev.row_lengths()),
+                          f"{label} ELL vs plain CSR")
+        err = max(err, check_close(ops.spmv_ell(ell_t, xt), ref.ell_rows(
+            ell_t.col_idx, ell_t.vals, xt), ell_bound(ell_t, xt), f"{label} ELL vs plain"))
+        sp = library_csr(A_t_dev)
+        # least bytes: the slab (value and column of every slot, padding
+        # included: it is the function's input), x and y once
+        slots_t = ell_t.vals.numel()
+        nbytes = 8 * slots_t + 4 * A_t.n + 4 * A_t.m
+        rec = time_variant(
+            "ell/time", "f32", 1, err, lambda: ops.spmv_ell(ell_t, xt),
+            lambda: ref.ell_rows(ell_t.col_idx, ell_t.vals, xt), lambda: sp @ xt, nbytes,
+            slots_t, (mem_rate, f32_rate))
+        rec["matrix"] = label
+        beside = others["spmv_sellcs" if label == "bmwcra_1" else "spmv_diahybrid"]
+        log(f"[ell/time] {label}: ELL {rec['ms']:.4f} ms beside {beside['name']} "
+            f"{beside['ms']:.4f} ms and cuSPARSE {rec['library_ms']:.4f} ms (this run)")
+        return rec
+
+    t0 = time.perf_counter()
+    variants = [time_ell("bmwcra_1", A, A_dev, ell)]
+    t1 = time.perf_counter()
+    ell_f = ell_from_csr(fringe)
+    t_build = time.perf_counter() - t1
+    log(f"[ell/time] stencil_fringe(2048): {fringe.m} rows, {fringe.nnz} nnz; ell_from_csr "
+        f"{t_build:.2f} s: kmax {ell_f.kmax}, {ell_f.vals.numel()} slots "
+        f"({ell_f.vals.numel() / fringe.nnz:.2f} x nnz), padding_overhead "
+        f"{ell_f.padding_overhead():.4f}, slab {8 * ell_f.vals.numel() / 1e9:.2f} GB")
+    # the 2.45 GB slab lives on the card only inside this call
+    variants.append(time_ell("stencil_fringe(2048)", fringe, fringe.to("cuda"),
+                             ell_f.to("cuda")))
+    del ell_f
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[ell/time] done in {time.perf_counter() - t0:.1f} s")
+    return kernel_entry(
+        "spmv_ell", "src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:29",
+        launches, variants,
+        {"matrix": "bmwcra_1", "m": A.m, "n": A.n, "nnz": A.nnz, "kmax": ell.kmax,
+         "slots": slots, "value_dtype": "f32", "B": 1})
 
 
 def main() -> int:
@@ -938,7 +1132,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # 1. build
-    build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum", "spmv_diahybrid"))
+    build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum", "spmv_diahybrid", "spmv_ell"))
 
     # 2. card
     card = card_line()
@@ -1059,20 +1253,24 @@ def main() -> int:
     log(f"[time] done in {time.perf_counter() - t0:.1f} s")
 
     # 6.-8. the SELL-C-σ kernel and its path
-    sell_entry = sellcs_phases(mem_rate, f32_rate)
+    sell_entry, bmw = sellcs_phases(mem_rate, f32_rate)
 
     # 9.-11. the segmented-sum kernel and its path
     segsum_entry = segsum_phases(mem_rate, f32_rate)
 
     # 12.-14. the DIA/CSR-hybrid kernel and its path
-    dia_entry = dia_phases(mem_rate, f32_rate)
+    dia_entry, fringe = dia_phases(mem_rate, f32_rate)
 
-    # 15. result lines
+    # 15.-17. the ELL kernel and its path
+    ell_entry = ell_phases(mem_rate, f32_rate, bmw, fringe,
+                           {e["name"]: e for e in (sell_entry, dia_entry)})
+
+    # 18. result lines
     kernels = {"kernels": [kernel_entry(
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
         "src/repro/kernels/spmv_csrk.py:131", launches, variants,
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
-    ), sell_entry, segsum_entry, dia_entry]}
+    ), sell_entry, segsum_entry, dia_entry, ell_entry]}
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -360,6 +360,27 @@ def no_dense_diagonal_matrix() -> CSRMatrix:
     return CSRMatrix.fromdense(dense)
 
 
+def ell_width_matrix(m: int, n: int, kmax: int, seed: int = 0) -> CSRMatrix:
+    """m×n with rows of 0..``kmax`` distinct random columns and normal values.
+
+    Row 0 holds exactly ``kmax`` entries (so the ELL slab is ``kmax`` wide),
+    about 10% of the rows are empty, the rest draw their lengths uniformly.
+    Port-only: the ELL kernel checks of ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py`` use it with slab widths on both sides of a
+    warp and an m that is not a multiple of any block size.
+    """
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, kmax + 1, size=m)
+    lengths[rng.random(m) < 0.1] = 0
+    lengths[0] = kmax
+    rows = np.repeat(np.arange(m), lengths)
+    cols = np.concatenate(
+        [np.sort(rng.choice(n, size=L, replace=False)) for L in lengths] + [np.zeros(0, int)]
+    )
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return csr_from_coo(_coo(rows, cols, vals, (m, n)))
+
+
 def stencil_fringe(
     side: int = 64,
     seed: int = 18,

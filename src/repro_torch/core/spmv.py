@@ -1,7 +1,7 @@
 """Format-dispatching SpMV public API — the paper's contribution as a module.
 
 Port of ``repro.core.spmv`` for the CSR-k, SELL-C-σ, segmented-sum and
-DIA/CSR-hybrid routes.
+DIA/CSR-hybrid routes, and the one-shot plain-CSR ``spmv``/``spmm``.
 ``prepare(A)`` runs the setup pipeline and returns a :class:`PreparedSpMV`
 whose ``__call__`` is the SpMV:
 
@@ -493,3 +493,33 @@ def prepare(
         fingerprint=fingerprint,
         spmm_width=spmm_width,
     ))
+
+
+def spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """One-shot CSR SpMV (no setup) — the plain-CSR baseline.
+
+    Args:
+      A: CSR matrix of shape [m, n].
+      x: vector of shape [n], on A's device.
+
+    Returns:
+      y = A x of shape [m], computed with the plain PyTorch CSR oracle on
+      whatever device A and x live on.
+    """
+    return kref.spmv_csr(A, x)
+
+
+def spmm(A: CSRMatrix, X: torch.Tensor) -> torch.Tensor:
+    """One-shot CSR SpMM (no setup): Y = A X.
+
+    Args:
+      A: CSR matrix of shape [m, n].
+      X: multi-vector block of shape [n, B] (raises ``ValueError`` otherwise).
+
+    Returns:
+      Y of shape [m, B]; the matrix nnz stream is read once for all B
+      right-hand sides.
+    """
+    if X.ndim != 2:
+        raise ValueError(f"spmm expects X of shape [n, B], got {tuple(X.shape)}")
+    return kref.spmm_csr(A, X)

@@ -1,13 +1,15 @@
-"""Public wrappers around the CSR-k, SELL-C-σ, segmented-sum and DIA-hybrid kernels.
+"""Public wrappers around the CSR-k, SELL-C-σ, segmented-sum, DIA-hybrid and
+ELL kernels.
 
-Port of the CSR-k, SELL-C-σ, segmented-sum and DIA-hybrid parts of
-``repro.kernels.ops``:
+Port of ``repro.kernels.ops``:
 ``spmv_csrk`` (monolithic tile view) and ``spmv_csrk_bucketed`` (one launch
 per slot bucket) run the CSR-k kernel and fold in the COO remainder;
 ``spmv_sellcs`` runs the SELL-C-σ kernel, which writes rows in the original
 order itself; ``spmv_segsum`` runs the segmented-sum kernel, whose carry
 pass sums the fragments of rows that span chunks; ``spmv_diahybrid`` runs the
-DIA-hybrid kernel, which adds the CSR remainder itself.
+DIA-hybrid kernel, which adds the CSR remainder itself; ``spmv_ell`` runs
+the ELL baseline's kernel.  The ``*_ref`` names re-export the oracles, so a
+caller can flip kernel and oracle at one import site.
 ``_pad_x_to_blocks`` and ``combine_tile_rows`` keep the reference's helpers:
 the CUDA kernel bounds its x reads and scatters bucket rows itself, so the
 CUDA path needs neither.
@@ -16,8 +18,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
 from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+from repro_torch.kernels.spmv_ell import spmv_ell_rows
 from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.obs import annotated
@@ -25,6 +29,7 @@ from repro_torch.sparse import (
     CSRkTileBuckets,
     CSRkTiles,
     DIAHybridMatrix,
+    ELLMatrix,
     SegSumCSR,
     SELLCSTiles,
 )
@@ -169,3 +174,26 @@ def spmv_diahybrid(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
     r = mat.remainder
     return spmv_diahybrid_rows(mat.diag_vals, mat.offset_vec, r.row_ptr, r.col_idx, r.vals,
                                x.contiguous(), m=mat.m, n=mat.n)
+
+
+@annotated("repro_torch.spmv_ell", count_section="kernels")
+def spmv_ell(mat: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV: ``[n]`` → ``[m]``, one kernel launch per call; ``[n, B]``
+    raises, as the reference has no batched ELL body.
+
+    The reference pads the slab's rows to a multiple of its Pallas
+    ``row_tile`` and slices y back; the CUDA kernel masks the last rows
+    itself, so no padded copy remains (and neither do the TPU knobs
+    ``row_tile`` and ``interpret``).
+    """
+    return spmv_ell_rows(mat.col_idx, mat.vals, x.contiguous(), m=mat.shape[0],
+                         n=mat.shape[1])
+
+
+# re-export oracles so callers can flip kernel↔oracle with one import site
+spmv_csrk_ref = ref.spmv_csrk_tiles
+spmv_ell_ref = ref.spmv_ell
+spmv_sellcs_ref = ref.spmv_sellcs
+spmv_segsum_ref = ref.spmv_segsum
+spmv_diahybrid_ref = ref.spmv_diahybrid
+spmm_csr_ref = ref.spmm_csr

@@ -10,14 +10,20 @@ agree with the kernel within rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.obs import annotated
 from repro_torch.sparse import (
+    BCSRMatrix,
+    COOMatrix,
+    CSR5LikeMatrix,
+    CSRkMatrix,
     CSRkTileBuckets,
     CSRkTiles,
     CSRMatrix,
     DIAHybridMatrix,
+    ELLMatrix,
     SegSumCSR,
     SELLCSMatrix,
     SELLCSTiles,
@@ -58,6 +64,85 @@ def spmm_csr(mat: CSRMatrix, X: torch.Tensor) -> torch.Tensor:
     contrib = mat.vals[:, None] * X[mat.col_idx.long()]
     out = torch.zeros((mat.m, X.shape[1]), dtype=contrib.dtype, device=contrib.device)
     return out.index_add_(0, _csr_rows(mat), contrib)
+
+
+def spmv_dense(dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return dense @ x
+
+
+def spmv_coo(mat: COOMatrix, x: torch.Tensor) -> torch.Tensor:
+    """COO SpMV: scatter-add (the paper's 'needs atomics' baseline)."""
+    contrib = mat.vals * x[mat.col_idx.long()]
+    out = torch.zeros(mat.shape[0], dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, mat.row_idx.long(), contrib)
+
+
+def spmv_csrk_loops(mat: CSRkMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Direct transcription of the paper's Listing 1 (CSR-3 CPU kernel).
+
+    Nested SSR→SR→row→nnz Python loops, each row summed in slot order in the
+    values' dtype: slow by design, a structural oracle for the hierarchy at
+    test sizes only.  Rows no super-row covers stay 0.
+    """
+    row_ptr, col_idx = (t.tolist() for t in (mat.row_ptr, mat.col_idx))
+    sr_ptr, ssr_ptr = mat.sr_ptr.tolist(), mat.ssr_ptr.tolist()
+    vals = mat.vals.cpu().numpy()
+    xv = x.cpu().numpy().astype(vals.dtype)
+    y = np.zeros(mat.m, vals.dtype)
+    for i in range(mat.num_ssr):
+        for j in range(ssr_ptr[i], ssr_ptr[i + 1]):
+            for k in range(sr_ptr[j], sr_ptr[j + 1]):
+                temp = vals.dtype.type(0)
+                for l in range(row_ptr[k], row_ptr[k + 1]):  # noqa: E741
+                    temp = temp + vals[l] * xv[col_idx[l]]
+                y[k] = temp
+    return torch.from_numpy(y).to(x.device)
+
+
+def spmv_ell(mat: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV: dense gather + row sum (paper Sec. 2.3)."""
+    return (mat.vals * x[mat.col_idx.long()]).sum(dim=1)
+
+
+def ell_rows(col_idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ELL kernel: ``y[i] = Σ_k vals[i,k]·x[col[i,k]]``.
+
+    Every slot is multiplied, padding included (column 0, value 0), with f32
+    products summed in f32 and y in x's dtype, as the reference's Pallas
+    kernel: an inf or NaN at ``x[0]`` reaches every row that holds padding.
+    """
+    xf = x.to(torch.float32)
+    y = (vals.to(torch.float32) * xf[col_idx.long()]).sum(dim=1)
+    return y.to(x.dtype)
+
+
+def spmv_bcsr(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """BCSR SpMV: per-block dense matvec + segmented add.  ``x`` has the
+    padded column count ``mat.shape[1]``."""
+    bR, bC = mat.block_shape
+    mb = int(mat.block_row_ptr.shape[0]) - 1
+    lengths = (mat.block_row_ptr[1:] - mat.block_row_ptr[:-1]).long()
+    brow = torch.repeat_interleave(
+        torch.arange(mb, device=mat.blocks.device), lengths,
+        output_size=int(mat.blocks.shape[0]),
+    )
+    xb = x.reshape(-1, bC)[mat.block_col_idx.long()]            # [nblocks, bC]
+    contrib = torch.einsum("brc,bc->br", mat.blocks, xb)        # [nblocks, bR]
+    yb = torch.zeros((mb, bR), dtype=contrib.dtype, device=contrib.device)
+    yb.index_add_(0, brow, contrib)
+    return yb.reshape(-1)[: mat.shape[0]]
+
+
+def spmv_csr5_like(mat: CSR5LikeMatrix, x: torch.Tensor) -> torch.Tensor:
+    """CSR5-like SpMV: rows rebuilt from the bit-flag prefix sum (the
+    format's defining trick), then a segmented sum (padded slots carry value
+    0 and are inert)."""
+    compact = (torch.cumsum(mat.row_flag.to(torch.int64), 0) - 1).clamp(
+        0, mat.nonempty_rows.shape[0] - 1)
+    rows = mat.nonempty_rows.long()[compact]
+    contrib = mat.vals * x[mat.col_idx.long()]
+    out = torch.zeros(mat.shape[0], dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, rows, contrib)
 
 
 def csrk_tile_rows(

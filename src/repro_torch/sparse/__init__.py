@@ -5,6 +5,7 @@
 * :mod:`repro_torch.sparse.sellcs` — SELL-C-σ + its uniform-width chunk view
 * :mod:`repro_torch.sparse.segsum` — segmented-sum CSR (equal-nnz chunks)
 * :mod:`repro_torch.sparse.diahybrid` — dense-diagonal DIA plane + CSR remainder
+* :mod:`repro_torch.sparse.baselines` — ELL / BCSR / CSR5-like baselines
 * :mod:`repro_torch.sparse.stats` — one-pass matrix statistics
 * :mod:`repro_torch.sparse.registry` — O(1) ``select_format`` dispatch
 * :mod:`repro_torch.sparse.convert` — containers from numpy arrays
@@ -30,6 +31,14 @@ from repro_torch.sparse.diahybrid import (  # noqa: F401
     DIAHybridMatrix,
     dense_diagonals,
     diahybrid_from_csr,
+)
+from repro_torch.sparse.baselines import (  # noqa: F401
+    BCSRMatrix,
+    CSR5LikeMatrix,
+    ELLMatrix,
+    bcsr_from_csr,
+    csr5_from_csr,
+    ell_from_csr,
 )
 from repro_torch.sparse.stats import (  # noqa: F401
     DIA_FRACTION_MIN,

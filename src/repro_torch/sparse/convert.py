@@ -1,9 +1,9 @@
 """Build the port's containers from plain numpy arrays.
 
-Any producer of CSR / CSR-k tile / SELL-C-σ / segmented-sum / DIA-hybrid arrays (a file,
-another framework) can hand its arrays to the port through these functions;
-the tests use them to push identical tiles through both packages' kernels
-and oracles.  Results live on the CPU; move them with ``.to(device)``.  bf16
+Any producer of CSR / CSR-k tile / SELL-C-σ / segmented-sum / DIA-hybrid /
+ELL / BCSR / CSR5-like arrays (a file, another framework) can hand its
+arrays to the port through these functions; the tests use them to push
+identical tiles through both packages' kernels and oracles.  Results live on the CPU; move them with ``.to(device)``.  bf16
 values may arrive as an ``ml_dtypes`` bfloat16 array (what ``np.asarray``
 gives for a JAX bf16 array) and are reinterpreted bit for bit.
 """
@@ -14,6 +14,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sparse.baselines import BCSRMatrix, CSR5LikeMatrix, ELLMatrix
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
 from repro_torch.sparse.diahybrid import DIAHybridMatrix
@@ -141,6 +142,37 @@ def diahybrid_from_numpy(
         (int(shape[0]), int(shape[1])),
         tensor_from_numpy(np.asarray(offsets, np.int32).reshape(-1)),
         diag_nnz=int(diag_nnz), value_dtype=value_dtype,
+    )
+
+
+def ell_from_numpy(col_idx, vals, *, shape: Tuple[int, int]) -> ELLMatrix:
+    """An :class:`ELLMatrix` from its ``[m, kmax]`` column and value slabs."""
+    return ELLMatrix(
+        tensor_from_numpy(np.asarray(col_idx, np.int32)), tensor_from_numpy(vals),
+        (int(shape[0]), int(shape[1])),
+    )
+
+
+def bcsr_from_numpy(block_row_ptr, block_col_idx, blocks, *,
+                    shape: Tuple[int, int]) -> BCSRMatrix:
+    """A :class:`BCSRMatrix` from its block pointers, block columns and
+    ``[nblocks, bR, bC]`` blocks; ``shape`` is the padded shape."""
+    i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return BCSRMatrix(i32(block_row_ptr), i32(block_col_idx), tensor_from_numpy(blocks),
+                      (int(shape[0]), int(shape[1])))
+
+
+def csr5_from_numpy(
+    vals, col_idx, row_flag, tile_ptr, nonempty_rows, *, shape: Tuple[int, int],
+    sigma: int, omega: int, nnz_real: int,
+) -> CSR5LikeMatrix:
+    """A :class:`CSR5LikeMatrix` from its padded slot arrays, bit flags, tile
+    pointer and non-empty row list."""
+    i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return CSR5LikeMatrix(
+        tensor_from_numpy(vals), i32(col_idx), tensor_from_numpy(np.asarray(row_flag, bool)),
+        i32(tile_ptr), i32(nonempty_rows), (int(shape[0]), int(shape[1])),
+        int(sigma), int(omega), int(nnz_real),
     )
 
 

@@ -1,10 +1,12 @@
 """Sparse-format registry + O(1) auto-selection.
 
 Port of ``repro.sparse.registry`` with the full predicate set, so that
-:func:`select_format` agrees with the reference on irregular matrices too,
-even though this package so far executes only the ``csrk`` backend
-(``core.spmv.prepare`` raises for the others, naming the slice that ports
-them).
+:func:`select_format` agrees with the reference on every matrix.
+``core.spmv.prepare`` runs the four selectable formats below.  The baselines
+``ell``, ``bcsr`` and ``csr5`` are registered by name but never selected, and
+``prepare`` refuses them, as in the reference: their containers live in
+:mod:`repro_torch.sparse.baselines`, the ELL kernel behind
+``kernels.ops.spmv_ell`` and the others' plain versions in ``kernels.ref``.
 
 =================  =========================================  ==============
 format             matches                                    role

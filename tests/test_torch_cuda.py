@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.spmv_suite import (
     dia_hand_matrix,
     dia_rectangular_matrix,
+    ell_width_matrix,
     empty_margin_rows,
     grid_laplacian_2d,
     load_suite,
@@ -31,12 +32,14 @@ from repro_torch.core import cg, jacobi_smoother, power_iteration, prepare
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
 from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+from repro_torch.kernels.spmv_ell import spmv_ell_rows
 from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.sparse import (
     CSRMatrix,
     bucket_tiles,
     diahybrid_from_csr,
+    ell_from_csr,
     segsum_from_csr,
     sellcs_from_csr,
     tiles_from_csrk,
@@ -487,3 +490,102 @@ def test_dia_power_iteration_on_card_matches_cpu(cuda, diagonal):
     lam_gpu = power_iteration(op_gpu, A.n, iters=30, v0=v0.to(cuda), device=cuda)
     lam_cpu = power_iteration(op_cpu, A.n, iters=30, v0=v0, device="cpu")
     assert float(lam_gpu) == pytest.approx(float(lam_cpu), rel=1e-4)
+
+
+# --- ELL baseline -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ell_cases():
+    """Slab widths on both sides of a warp with m = 1003 (no multiple of any
+    block size), bmwcra_1 at 1/64 (kmax 80) and an all-empty matrix."""
+    cases = {f"kmax {k}": ell_width_matrix(1003, 700, k, seed=k) for k in (1, 5, 33, 80, 129)}
+    cases["bmwcra_1"] = load_suite(scale=64, ids=[16])["bmwcra_1"]
+    cases["empty"] = CSRMatrix.fromdense(np.zeros((37, 20), np.float32))
+    return cases
+
+
+def _ell_bound(e, x):
+    k = (e.vals != 0).sum(dim=1).to(torch.float32)
+    return (2 * k + 2) * EPS32 * ref.ell_rows(e.col_idx, e.vals.abs(), x.abs())
+
+
+@pytest.mark.parametrize("cut", [None, 3])
+@pytest.mark.parametrize("name", ["kmax 1", "kmax 5", "kmax 33", "kmax 80", "kmax 129",
+                                  "bmwcra_1", "empty"])
+def test_ell_kernel_matches_plain_and_is_bit_stable(cuda, ell_cases, name, cut):
+    A = ell_cases[name]
+    e = ell_from_csr(A, cut).to(cuda)
+    x = torch.randn(A.n, generator=torch.Generator(cuda).manual_seed(9), device=cuda)
+    y = ops.spmv_ell(e, x)
+    assert bool(((y - ref.ell_rows(e.col_idx, e.vals, x)).abs() <= _ell_bound(e, x)).all())
+    assert torch.equal(y, ops.spmv_ell(e, x))
+    out = torch.full((A.m,), float("nan"), device=cuda)
+    assert spmv_ell_rows(e.col_idx, e.vals, x, m=A.m, n=A.n, out=out) is out
+    assert torch.equal(out, y)
+
+
+@pytest.mark.parametrize("name", ["kmax 5", "kmax 80", "bmwcra_1"])
+def test_ell_non_finite_x_reaches_the_plain_versions_rows(cuda, ell_cases, name):
+    """Padding slots are multiplied by x[0], as in the reference."""
+    A = ell_cases[name]
+    e = ell_from_csr(A).to(cuda)
+    x = torch.randn(A.n, device=cuda)
+    x[[0, 100, A.n - 1]] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                                        device=cuda)
+    y, want = ops.spmv_ell(e, x), ref.ell_rows(e.col_idx, e.vals, x)
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    assert torch.equal(torch.isposinf(y), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(y), torch.isneginf(want))
+    assert bool(torch.isnan(y).any())
+
+
+def test_ell_wrapper_rejects_what_the_kernel_does_not_take(cuda, ell_cases):
+    A = ell_cases["kmax 33"]
+    e = ell_from_csr(A).to(cuda)
+    x = torch.randn(A.n, device=cuda)
+    call = lambda **kw: spmv_ell_rows(  # noqa: E731
+        kw.get("cols", e.col_idx), kw.get("vals", e.vals), kw.get("x", x), m=A.m,
+        n=kw.get("n", A.n), out=kw.get("out"))
+    with pytest.raises(TypeError):
+        call(x=x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        call(x=x.double())
+    with pytest.raises(ValueError):
+        call(x=torch.randn((A.n, 2), device=cuda))                # no batched body
+    with pytest.raises(ValueError):
+        call(x=x[:-1])
+    with pytest.raises(ValueError):
+        call(n=A.n + 1)
+    with pytest.raises(TypeError):
+        call(vals=e.vals.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        call(vals=e.vals.cpu())                                   # CPU mixed with CUDA
+    with pytest.raises(ValueError):
+        call(cols=e.col_idx.cpu())
+    with pytest.raises(TypeError):
+        call(cols=e.col_idx.long())
+    with pytest.raises(ValueError):
+        call(cols=e.col_idx[:, :-1])
+    with pytest.raises(ValueError):
+        call(vals=e.vals.t().contiguous().t())                    # not contiguous
+    with pytest.raises(ValueError):
+        call(out=torch.empty(A.m - 1, device=cuda))
+    before = spmv_ell_rows.launches
+    call()
+    assert spmv_ell_rows.launches == before + 1
+
+
+def test_ell_jacobi_on_card_matches_cpu(cuda, ell_cases):
+    A = ell_cases["bmwcra_1"]
+    e_cpu = ell_from_csr(A)
+    e_gpu = e_cpu.to(cuda)
+    diag = A.todense().diagonal().contiguous()
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n).astype(np.float32))
+    before = spmv_ell_rows.launches
+    x_gpu = jacobi_smoother(lambda v: ops.spmv_ell(e_gpu, v), diag.to(cuda), b.to(cuda),
+                            iters=40)
+    assert spmv_ell_rows.launches - before == 40
+    x_cpu = jacobi_smoother(lambda v: ops.spmv_ell(e_cpu, v), diag, b, iters=40)
+    rel = torch.linalg.norm(x_gpu.cpu() - x_cpu) / torch.linalg.norm(x_cpu)
+    assert float(rel) <= 1e-5
