@@ -14,16 +14,23 @@ Phases (any failure exits non-zero and prints no result line):
 3. hold the kernel against its plain PyTorch version on a small suite matrix:
    f32/bf16/int8 x B in {1, 8} x monolithic/bucketed layouts, within the
    per-row bound |y - y_plain| <= (2 k_i + 2) eps32 (|A| |x|)_i, with repeat
-   launches bit-equal and column j of a B=8 launch bit-equal to a B=1 launch;
+   launches bit-equal, column j of a B=8 launch bit-equal to a B=1 launch
+   and every launch bit-equal to ``ref.csrk_tile_rows_in_order`` (each row's
+   f32 products added from +0 in slot order);
 4. run the main path at the paper's size of ecology1 (1M rows, 5M nnz):
    ``prepare(format="auto")`` -> ``apply_original`` against a plain CSR
-   product -> CG and 8-column block CG to a true relative residual <= 1e-4,
-   counting kernel launches;
+   product -> the kernel bit-equal to ``ref.csrk_tile_rows_in_order`` at
+   B = 1 and 8 -> CG and 8-column block CG to a true relative residual
+   <= 1e-4 (logged beside the 129 and 133 iterations and the 9.855e-06
+   residual of the earlier kernel, whose sums were the same), counting
+   kernel launches;
 5. time the kernel, its plain version and ``torch.sparse`` CSR (cuSPARSE
    with int32 indices, the yardstick; the port never calls it) at the
    ecology1 shapes, as device time from CUDA-graph replays between CUDA
-   events, beside the memory-bound least time; the eager per-call time
-   (host overhead included) is logged;
+   events, beside the memory-bound least time, with the achieved GB/s and
+   the time as a multiple of the bound and of cuSPARSE (f32 at the same B
+   for every value type); the eager per-call time (host overhead included)
+   is logged;
 6. SELL-C-σ kernel against its plain version on bmwcra_1 at 1/64 and on a
    Pareto matrix with empty rows and m not a multiple of C: f32/bf16/int8 x
    B in {1, 8}, within the same per-row bound, repeat launches and B=8
@@ -35,7 +42,7 @@ Phases (any failure exits non-zero and prints no result line):
    (bmwcra_1's values are not symmetric, but it is strictly diagonally
    dominant), counting kernel launches;
 8. time the SELL-C-σ kernel, its plain version and cuSPARSE at the bmwcra_1
-   shapes, as in phase 5;
+   shapes, as in phase 5 (GB/s, x bound and x cuSPARSE logged as there);
 9. segmented-sum kernel against its plain version on powerlaw_zipf(2048)
    at 128- and 512-slot chunks, on a matrix whose first and last rows are
    empty, on a row that spans three chunks (which must come out exactly)
@@ -230,12 +237,46 @@ def kernel_vs_plain(views, row_nnz, n, seed: int, what: str):
                     yb, plain[layout](view, xb), bound, f"{what} {dtype} {layout} B={B}")
                 if not torch.equal(yb, run[layout](view, xb)):
                     raise AssertionError(f"{what} {dtype} {layout} B={B}: repeat launch differs")
+                y_k, y_in_order = csrk_in_order(view, xb)
+                if not torch.equal(y_k, y_in_order):
+                    raise AssertionError(f"{what} {dtype} {layout} B={B}: kernel != "
+                                         f"ref.csrk_tile_rows_in_order bits")
             for j in range(8):
                 if not torch.equal(Y8[layout][:, j], run[layout](view, X[:, j].contiguous())):
                     raise AssertionError(f"{what} {dtype} {layout}: column {j} of B=8 != B=1")
         if len(Y8) == 2 and not torch.equal(Y8["monolithic"], Y8["bucketed"]):
             raise AssertionError(f"{what} {dtype}: bucketed != monolithic bits")
     return errs
+
+
+def csrk_in_order(view, x):
+    """The CSR-k kernel's tile rows (no remainder) and
+    ``ref.csrk_tile_rows_in_order`` over the same monolithic or bucketed
+    view; returns (kernel, plain), rows placed as the kernel places them."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+
+    R, W = view.rows_per_tile, view.window
+    tail = tuple(x.shape[1:])
+
+    def plain(b):
+        return ref.csrk_tile_rows_in_order(b.vals, b.local_col, b.local_row, b.win_block, x,
+                                           b.val_scale, rows_per_tile=R, window=W,
+                                           tile_nnz=b.tile_nnz)
+
+    if not hasattr(view, "buckets"):
+        return spmv_csrk_tiles(view.vals, view.local_col, view.local_row, view.win_block, x,
+                               view.val_scale, rows_per_tile=R, window=W,
+                               tile_nnz=view.tile_nnz), plain(view)
+    y = torch.full((view.num_tiles * R,) + tail, float("nan"), device=x.device)
+    want = torch.full((view.num_tiles, R) + tail, float("nan"), device=x.device)
+    for b, ids in zip(view.buckets, view.tile_ids):
+        spmv_csrk_tiles(b.vals, b.local_col, b.local_row, b.win_block, x, b.val_scale,
+                        rows_per_tile=R, window=W, tile_nnz=b.tile_nnz, tile_ids=ids, out=y)
+        want[ids.long()] = plain(b).view((b.num_tiles, R) + tail)
+    return y, want.view_as(y)
 
 
 def views_for(csrk, dtypes, layouts=("monolithic", "bucketed")):
@@ -254,12 +295,15 @@ def views_for(csrk, dtypes, layouts=("monolithic", "bucketed")):
 
 
 def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
-                 read_bytes=None) -> dict:
+                 read_bytes=None, yardstick=None) -> dict:
     """Time one (value dtype, B) case: kernel, eager call, plain version and,
     where there is one, the library call; log it and return its record.
 
     ``nbytes`` is the least the function must move, which sets the bound;
-    ``read_bytes``, where given, is what the kernel moves, if more."""
+    ``read_bytes``, where given, is what the kernel moves, if more.  Where
+    ``yardstick`` (a dict) is given, the line also logs the time as a
+    multiple of the bound and of the library call at this B (the f32 one,
+    which ``yardstick`` keeps, for the other value types)."""
     mem_rate, f32_rate = rates
     ms = time_ms(run)
     call_ms = eager_ms(run)
@@ -271,10 +315,17 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
     read_txt = "" if read_bytes is None else (
         f"; the kernel reads {read_bytes / 1e6:.1f} MB, "
         f"{read_bytes / ms / 1e6:.0f} GB/s, {read_bytes / mem_rate * 1e3:.4f} ms at the rate")
+    ratio_txt = ""
+    if yardstick is not None:
+        if lib_ms is not None:
+            yardstick[B] = lib_ms
+        ratio_txt = f"; {ms / max(t_bytes, t_ops):.2f} x bound"
+        if B in yardstick:
+            ratio_txt += f", {ms / yardstick[B]:.2f} x cuSPARSE f32"
     log(f"[{tag}] {dt:4s} B={B}: kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, cuSPARSE {lib_txt} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB; "
-        f"{nbytes / ms / 1e6:.0f} GB/s achieved{read_txt}), max |err| {err:.3e}")
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved{read_txt}{ratio_txt}), max |err| {err:.3e}")
     rec = {
         "value_dtype": dt, "B": B, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "eager_call_ms": call_ms,
@@ -488,6 +539,7 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
     scale_reads = int((real_rows * -(-w_t // 128)).sum())
     gen = torch.Generator(device="cuda").manual_seed(3)
     variants = []
+    yardstick = {}
     for dt in ("f32", "bf16", "int8"):
         view = views[dt]
         abs_view = dataclasses.replace(view, vals=view.vals.abs())
@@ -504,7 +556,8 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
             variants.append(time_variant(
                 "sellcs/time", dt, B, err, lambda: ops.spmv_sellcs(view, xb),
                 lambda: ref.spmv_sellcs_tiles(view, xb),
-                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
+                yardstick=yardstick))
     log(f"[sellcs/time] done in {time.perf_counter() - t0:.1f} s")
     entry = kernel_entry(
         "spmv_sellcs", "src/repro_torch/csrc/spmv_sellcs.cu",
@@ -1151,7 +1204,8 @@ def main() -> int:
                            f"ecology1/64 ({A_small.m} rows)")
     torch.cuda.synchronize()
     log(f"[kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
-        f"bit-equal; max |err| {max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+        f"bit-equal, every launch bit-equal to ref.csrk_tile_rows_in_order; max |err| "
+        f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
 
     # 4. main path at the paper's ecology1 size
     t0 = time.perf_counter()
@@ -1223,6 +1277,16 @@ def main() -> int:
         f"({launches / spmvs:.2f} per SpMV over {spmvs} SpMVs)")
     if launches == 0:
         raise AssertionError("the main path never launched the CUDA kernel")
+    log(f"[main] cg {res.iters} and block_cg {bres.iters} iterations, true relative residual "
+        f"{true_res:.3e}; the earlier kernel, whose sums were the same, took 129 and 133 "
+        f"iterations to 9.855e-06")
+    for xb in (x, X_true):
+        y_k, y_in_order = csrk_in_order(op.tile_buckets, xb)
+        if not torch.equal(y_k, y_in_order):
+            raise AssertionError(f"ecology1 B={xb.shape[1:] or 1}: kernel != "
+                                 f"ref.csrk_tile_rows_in_order bits")
+    log("[main] at full size the kernel equals ref.csrk_tile_rows_in_order bit for bit "
+        "(B = 1 and 8, both buckets)")
 
     # 5. timing at the ecology1 shapes
     t0 = time.perf_counter()
@@ -1233,6 +1297,7 @@ def main() -> int:
     views["f32"] = {"bucketed": op.tile_buckets}
     gen = torch.Generator(device="cuda").manual_seed(1)
     variants = []
+    yardstick = {}
     for dt in ("f32", "bf16", "int8"):
         view = views[dt]["bucketed"]
         scale_bytes = sum(4 * b.val_scale.numel() for b in view.buckets
@@ -1249,7 +1314,8 @@ def main() -> int:
             variants.append(time_variant(
                 "time", dt, B, err, lambda: ops.spmv_csrk_bucketed(view, xb),
                 lambda: ref.spmv_csrk_buckets(view, xb),
-                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
+                yardstick=yardstick))
     log(f"[time] done in {time.perf_counter() - t0:.1f} s")
 
     # 6.-8. the SELL-C-σ kernel and its path

@@ -12,35 +12,53 @@
 // Bound: bytes.  SpMV does 2 flops per nonzero and column and reads 8-12
 // bytes per nonzero, far below the card's ~20 flops per byte of float32
 // balance, so the least time is the bytes the work must move over the
-// memory rate.
+// memory rate.  At B = 1 every x gather waits on its column load, so what
+// sets the time is how many bytes each SM keeps in flight.
 //
 // Design:
-//   * One thread block per tile (super-super-row).  The Pallas kernel staged
-//     a contiguous 2*W x-window per tile in VMEM and gathered from it with
+//   * One thread block per tile (super-super-row), as in the paper's GPU
+//     mapping.  The grid holds as many blocks as fit on the card at once and
+//     each block walks tiles t, t + gridDim.x, ...; a tile's slot count,
+//     window and home are fetched while the previous tile is summed, so the
+//     slot loads are the first loads of a tile.  The Pallas kernel staged a
+//     contiguous 2*W x-window per tile in VMEM and gathered from it with
 //     one-hot matmuls on the MXU.  Here x is read directly from global memory
 //     through the read-only cache: the per-tile window would re-read x once
-//     per tile (it is most of the TPU design's modeled bytes), and at B=8 it
-//     is larger than a block's shared memory, while the whole x of the suite
-//     matrices fits in the 50 MB L2.
+//     per tile, and at B=8 it is larger than a block's shared memory, while
+//     the whole x of the suite matrices fits in the 50 MB L2.
 //   * Only the tile's real slots [0, tile_nnz[t]) are read: padding slots
 //     hold value 0 and would add nothing.
-//   * The per-row reduction is deterministic and uses no float atomics.  The
-//     contributions of one chunk of slots are staged in shared memory; then
-//     one thread per (row, column) sums that row's slots in slot order,
-//     scanning only the slot range the row occupies (found with integer
-//     shared-memory atomicMin/atomicMax, whose results do not depend on
-//     order).  Two launches give the same bits, and column j of a [n, B]
-//     launch is summed in the same order and with the same operations as a
-//     [n] launch, so it is bit-equal to a B=1 launch on x[:, j].
-//   * Reads of x past x_rows return 0 (the reference zero-pads x); rows
-//     outside [0, R) are dropped (the one-hot reduce drops them).
+//   * A pass covers up to 640 slots at B = 1 (128 threads x 5, held to 32
+//     registers so that 16 blocks share an SM) and 768 at B > 1 (256
+//     threads x 3), fewer where shared memory is short.
+//     Every thread issues the loads of all its slots, at B = 1 also their x
+//     gathers, then stages one f32 product per slot and column in shared
+//     memory (__fmul_rn) with the slot's row.  On ecology1 (about 525 slots
+//     per tile) a tile is one pass.
+//   * Rows are summed without atomics.  The tiles that tiles_from_csrk
+//     builds keep each tile's real slots in CSR order, so a row's slots are
+//     contiguous: once the pass is staged, every thread marks where the rows
+//     of its slots start (a slot whose row differs from the slot before it)
+//     and the barrier after it votes whether the rows are sorted and in
+//     [0, R).  Then one thread per (row, column) adds the row's products in
+//     slot order from +0 with __fadd_rn.  A pass whose rows are not sorted
+//     (the wrapper takes any local_row; a monolithic view read without
+//     tile_nnz ends in padding slots of row 0) is summed by scanning all of
+//     its slots for the row instead: the same sums in the same order, only
+//     slower.  Rows outside [0, R) are dropped (the one-hot reduce drops
+//     them).  Three barriers per pass.
+//   * Each row's sum is the same chain of operations whatever the slot
+//     order, B or launch: repeat launches are bit-equal, column j of an
+//     [n, B] launch equals an [n] launch on x[:, j], and the output equals
+//     ref.csrk_tile_rows_in_order bit for bit.
+//   * int8 scales: one divide per pass, none per slot.
+//   * Reads of x past x_rows return 0 (the reference zero-pads x).
 //   * With tile_ids, tile t writes its rows at tile_ids[t]*R of y, which
 //     folds the bucketed layout's row scatter into the kernel.
 //
 // Plain C interface (loaded with ctypes); the launch is asynchronous on the
 // caller's stream and the function returns cudaGetLastError().
 
-#include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -48,123 +66,201 @@
 
 namespace {
 
-constexpr int kUnroll = 4;  // slots whose loads a thread keeps in flight
+constexpr int kSmemBudget = 48 * 1024;   // no opt-in attribute needed below this
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i, float) {
-  return __ldg(v + i);
+// Threads per block and slots per thread per pass: B = 1 keeps each slot's
+// product in a register until it is staged, B > 1 stages products as it goes.
+__host__ __device__ constexpr int threads_for(bool one_col) { return one_col ? 128 : 256; }
+__host__ __device__ constexpr int unroll_for(bool one_col) { return one_col ? 5 : 3; }
+
+__device__ __forceinline__ float load_value(const float* v, int64_t i) { return __ldg(v + i); }
+
+__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i) {
+  const unsigned bits = __ldg(reinterpret_cast<const unsigned short*>(v) + i);
+  return __uint_as_float(bits << 16);
 }
 
-__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i, float) {
-  return __bfloat162float(v[i]);
+__device__ __forceinline__ float load_value(const int8_t* v, int64_t i) {
+  return static_cast<float>(__ldg(reinterpret_cast<const signed char*>(v) + i));
 }
 
-__device__ __forceinline__ float load_value(const int8_t* v, int64_t i, float scale) {
-  return __fmul_rn(static_cast<float>(__ldg(v + i)), scale);
-}
-
-template <typename V, bool kScaled>
-__global__ void csrk_tiles_kernel(
-    const V* __restrict__ vals, const int* __restrict__ lc, const int* __restrict__ lr,
-    const int* __restrict__ win_block, const float* __restrict__ val_scale,
-    int groups, int group, const int* __restrict__ tile_nnz,
-    const int* __restrict__ tile_ids, int out_tiles, const float* __restrict__ x,
-    long long x_rows, int B, float* __restrict__ y, int S, int R, int W, int chunk) {
+template <typename V, bool kScaled, bool kOneCol>
+__global__ void __launch_bounds__(threads_for(kOneCol), kOneCol ? 16 : 6)
+csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
+                  const int* __restrict__ lr, const int* __restrict__ win_block,
+                  const float* __restrict__ val_scale, int groups, int group,
+                  const int* __restrict__ tile_nnz, const int* __restrict__ tile_ids,
+                  int out_tiles, const float* __restrict__ x, long long x_rows, int B,
+                  float* __restrict__ y, int T, int S, int R, int W, int chunk) {
+  constexpr int kThreads = threads_for(kOneCol);
+  constexpr int kU = unroll_for(kOneCol);
   extern __shared__ __align__(16) float smem[];
-  float* contrib = smem;                                  // [chunk * B]
-  float* acc = contrib + chunk * B;                       // [R * B]
-  int* slot_row = reinterpret_cast<int*>(acc + R * B);    // [chunk]
-  int* row_lo = slot_row + chunk;                         // [R]
-  int* row_hi = row_lo + R;                               // [R]
+  float* prod = smem;                                    // [chunk * B]
+  float* acc = prod + chunk * B;                         // [R * B]
+  int* slot_row = reinterpret_cast<int*>(acc + R * B);   // [chunk]
+  int* row_start = slot_row + chunk;                     // [R + 1]
 
-  const int t = blockIdx.x;
-  const int64_t base = static_cast<int64_t>(t) * S;
-  const int nslots = tile_nnz ? min(max(tile_nnz[t], 0), S) : S;
-  const int64_t x0 = static_cast<int64_t>(win_block[t]) * W;
+  const int tid = threadIdx.x;
   const int RB = R * B;
-  // x rows can be read as float4 when 16-byte aligned (contrib rows then are)
-  const bool vec4 = B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // x rows can be read as float4 when 16-byte aligned (prod rows then are)
+  const bool x4 = !kOneCol && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 
-  for (int i = threadIdx.x; i < RB; i += blockDim.x) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < nslots; c0 += chunk) {
-    const int cn = min(chunk, nslots - c0);
-    for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      row_lo[r] = INT_MAX;
-      row_hi[r] = -1;
+  for (int w = tid; w < RB; w += kThreads) acc[w] = 0.f;
+  int t = blockIdx.x;
+  int nslots_next = 0, win_next = 0, home_next = t;
+  if (t < T) {
+    nslots_next = tile_nnz ? __ldg(tile_nnz + t) : S;
+    win_next = __ldg(win_block + t);
+    if (tile_ids) home_next = __ldg(tile_ids + t);
+  }
+  for (; t < T; t += gridDim.x) {
+    const int nslots = min(max(nslots_next, 0), S);
+    const int64_t x0 = static_cast<int64_t>(win_next) * W;
+    const int home = home_next;
+    const int t_next = t + gridDim.x;
+    if (t_next < T) {                    // the next tile's, while this one runs
+      nslots_next = tile_nnz ? __ldg(tile_nnz + t_next) : S;
+      win_next = __ldg(win_block + t_next);
+      home_next = tile_ids ? __ldg(tile_ids + t_next) : t_next;
     }
-    __syncthreads();
+    const int64_t base = static_cast<int64_t>(t) * S;
+    const float* scales = kScaled ? val_scale + static_cast<int64_t>(t) * groups : nullptr;
 
-    // Phase 1: one f32 product per (slot, column), staged in slot order.  A
-    // thread takes whole slots (all B columns: one contiguous x row each) and
-    // issues the loads of kUnroll slots before using any of them.
-    for (int s0 = threadIdx.x; s0 < cn; s0 += blockDim.x * kUnroll) {
-      float v[kUnroll];
-      int64_t col[kUnroll];
-      int row[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * blockDim.x;
-        col[u] = -1;
-        if (s < cn) {
-          const int64_t slot = base + c0 + s;
-          const float scale =
-              kScaled ? __ldg(val_scale + static_cast<int64_t>(t) * groups + (c0 + s) / group)
-                      : 1.f;
-          v[u] = load_value(vals, slot, scale);
-          col[u] = x0 + __ldg(lc + slot);
-          row[u] = __ldg(lr + slot);
-        }
+    for (int c0 = 0; c0 < nslots; c0 += chunk) {
+      const int cn = min(chunk, nslots - c0);
+      // 1. the loads of all this thread's slots (B = 1: and their x gathers);
+      //    staged once the previous pass's sums are done
+      float v[kU];
+      int col[kU], row[kU];
+      int sg = 0, sr = 0;                // scale group and offset of slot c0 + tid
+      if (kScaled) {
+        sg = (c0 + tid) / group;
+        sr = (c0 + tid) - sg * group;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * blockDim.x;
-        if (s >= cn) continue;
-        const bool in = col[u] >= 0 && col[u] < x_rows;
-        const float* xr = x + (in ? col[u] : 0) * B;
-        float* cr = contrib + s * B;
-        if (vec4) {
-          for (int j = 0; j < B; j += 4) {
-            const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + j))
+      for (int u = 0; u < kU; ++u) {
+        const int j = tid + u * kThreads;
+        v[u] = 0.f;
+        col[u] = 0;
+        row[u] = -1;
+        if (j < cn) {
+          const int64_t slot = base + c0 + j;
+          v[u] = load_value(vals, slot);
+          if (kScaled) v[u] = __fmul_rn(v[u], __ldg(scales + sg));
+          col[u] = __ldg(lc + slot);
+          row[u] = __ldg(lr + slot);
+        }
+        if (kScaled) {
+          for (sr += kThreads; sr >= group; sr -= group) ++sg;
+        }
+      }
+      if (kOneCol) {                     // B = 1: the products stay in registers
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int64_t c = x0 + col[u];
+          const bool in = c >= 0 && c < x_rows;
+          if (tid + u * kThreads < cn) v[u] = __fmul_rn(v[u], in ? __ldg(x + c) : 0.f);
+        }
+      }
+      __syncthreads();                   // the previous pass's sums are done
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int j = tid + u * kThreads;
+        if (j >= cn) break;
+        slot_row[j] = row[u];
+        if (kOneCol) {
+          prod[j] = v[u];
+          continue;
+        }
+        const int64_t c = x0 + col[u];
+        const bool in = c >= 0 && c < x_rows;
+        const float* xr = x + (in ? c : 0) * B;
+        float* pr = prod + j * B;
+        if (x4) {
+          for (int k = 0; k < B; k += 4) {
+            const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-            *reinterpret_cast<float4*>(cr + j) =
+            *reinterpret_cast<float4*>(pr + k) =
                 make_float4(__fmul_rn(v[u], xv.x), __fmul_rn(v[u], xv.y),
                             __fmul_rn(v[u], xv.z), __fmul_rn(v[u], xv.w));
           }
         } else {
-          for (int j = 0; j < B; ++j) cr[j] = __fmul_rn(v[u], in ? __ldg(xr + j) : 0.f);
+          for (int k = 0; k < B; ++k) pr[k] = __fmul_rn(v[u], in ? __ldg(xr + k) : 0.f);
         }
+      }
+      __syncthreads();
+
+      // 2. where each row's slots start; vote whether the rows are sorted
+      int unsorted = 0;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int j = tid + u * kThreads;
+        if (j >= cn) break;
         const int r = row[u];
-        slot_row[s] = r;
-        if (r >= 0 && r < R) {
-          atomicMin(&row_lo[r], s);
-          atomicMax(&row_hi[r], s);
+        const int before = j > 0 ? slot_row[j - 1] : -1;
+        if (r < 0 || r >= R || before > r) {
+          unsorted = 1;
+          continue;
         }
+        for (int q = max(before + 1, 0); q <= r; ++q) row_start[q] = j;
+        if (j == cn - 1)
+          for (int q = r + 1; q <= R; ++q) row_start[q] = cn;
       }
-    }
-    __syncthreads();
+      unsorted = __syncthreads_or(unsorted);
 
-    // Phase 2: each (row, column) adds its slots in slot order.
-    for (int w = threadIdx.x; w < RB; w += blockDim.x) {
-      const int r = w / B;
-      const int j = w - r * B;
-      float a = acc[w];
-      const int hi = row_hi[r];
-      for (int s = row_lo[r]; s <= hi; ++s) {
-        if (slot_row[s] == r) a = __fadd_rn(a, contrib[s * B + j]);
+      // 3. each (row, column) adds its products in slot order
+      for (int w = tid; w < RB; w += kThreads) {
+        const int r = w / B;
+        const int k = w - r * B;
+        float a = acc[w];
+        if (!unsorted) {
+          const int end = row_start[r + 1];
+          for (int j = row_start[r]; j < end; ++j) a = __fadd_rn(a, prod[j * B + k]);
+        } else {
+          for (int j = 0; j < cn; ++j)
+            if (slot_row[j] == r) a = __fadd_rn(a, prod[j * B + k]);
+        }
+        acc[w] = a;
       }
-      acc[w] = a;
     }
-    __syncthreads();
+
+    // each thread stores and clears the (row, column) sums it owns
+    const bool home_ok = home >= 0 && home < out_tiles;   // never write outside y
+    const int64_t out0 = static_cast<int64_t>(home) * R * B;
+    for (int w = tid; w < RB; w += kThreads) {
+      if (home_ok) y[out0 + w] = acc[w];
+      acc[w] = 0.f;
+    }
   }
-
-  const int home = tile_ids ? tile_ids[t] : t;
-  if (home < 0 || home >= out_tiles) return;  // never write outside y
-  const int64_t row0 = static_cast<int64_t>(home) * R;
-  for (int w = threadIdx.x; w < RB; w += blockDim.x) y[row0 * B + w] = acc[w];
 }
 
-constexpr int kSmemBudget = 48 * 1024;  // no opt-in attribute needed below this
-constexpr int kMaxChunk = 2048;
+// Blocks of one kernel instance that fit on the current card at once with
+// smem bytes of shared memory each: the grid of a launch that walks the tiles.
+template <typename V, bool kScaled, bool kOneCol>
+int resident_blocks(int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, csrk_tiles_kernel<V, kScaled, kOneCol>, threads, smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+template <typename V, bool kScaled, bool kOneCol>
+cudaError_t launch_cols(const void* vals, const int* lc, const int* lr, const int* win_block,
+                        const float* val_scale, int groups, const int* tile_nnz,
+                        const int* tile_ids, int out_tiles, const float* x, long long x_rows,
+                        int B, float* y, int T, int S, int R, int W, int chunk,
+                        cudaStream_t stream) {
+  const int threads = threads_for(kOneCol);
+  const size_t smem = 4 * ((static_cast<size_t>(chunk) + R) * (B + 1) + 1);
+  const int group = groups > 0 ? S / groups : 1;
+  const int cap = resident_blocks<V, kScaled, kOneCol>(threads, smem);
+  csrk_tiles_kernel<V, kScaled, kOneCol><<<T < cap ? T : cap, threads, smem, stream>>>(
+      static_cast<const V*>(vals), lc, lr, win_block, val_scale, groups, group, tile_nnz,
+      tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W, chunk);
+  return cudaGetLastError();
+}
 
 template <typename V, bool kScaled>
 cudaError_t launch(const void* vals, const int* lc, const int* lr, const int* win_block,
@@ -172,27 +268,27 @@ cudaError_t launch(const void* vals, const int* lc, const int* lr, const int* wi
                    const int* tile_ids, int out_tiles, const float* x, long long x_rows,
                    int B, float* y, int T, int S, int R, int W, int chunk,
                    cudaStream_t stream) {
-  const int threads = B == 1 ? 128 : 256;
-  const size_t smem =
-      static_cast<size_t>(chunk) * (B + 1) * 4 + static_cast<size_t>(R) * (B + 2) * 4;
-  const int group = groups > 0 ? S / groups : 1;
-  csrk_tiles_kernel<V, kScaled><<<T, threads, smem, stream>>>(
-      static_cast<const V*>(vals), lc, lr, win_block, val_scale, groups, group, tile_nnz,
-      tile_ids, out_tiles, x, x_rows, B, y, S, R, W, chunk);
-  return cudaGetLastError();
+  if (B == 1)
+    return launch_cols<V, kScaled, true>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
+                                         tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
+                                         chunk, stream);
+  return launch_cols<V, kScaled, false>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
+                                        tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
+                                        chunk, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Slots staged per chunk for this geometry, or 0 if even the smallest chunk
-// does not fit the shared-memory budget.
+// Slots staged per pass for this geometry, or 0 if even one slot does not
+// fit the shared-memory budget.
 int repro_csrk_chunk(int S, int R, int B) {
-  const long long fixed = static_cast<long long>(R) * (B + 2) * 4;
-  const long long per_slot = static_cast<long long>(B + 1) * 4;
+  const long long fixed = 4LL * (static_cast<long long>(R) * (B + 1) + 1);
+  const long long per_slot = 4LL * (B + 1);
   long long chunk = (kSmemBudget - fixed) / per_slot;
-  chunk = chunk < kMaxChunk ? chunk : kMaxChunk;
+  const long long most = static_cast<long long>(threads_for(B == 1)) * unroll_for(B == 1);
+  chunk = chunk < most ? chunk : most;
   if (chunk > S) chunk = S > 0 ? S : 1;
   return chunk < 1 ? 0 : static_cast<int>(chunk);
 }
@@ -209,19 +305,20 @@ int repro_spmv_csrk_tiles(int value_kind, const void* vals, const int* lc, const
   cudaError_t err;
   switch (value_kind) {
     case 0:
-      err = launch<float, false>(vals, lc, lr, win_block, nullptr, 0, tile_nnz, tile_ids,
-                                 out_tiles, x, x_rows, B, y, T, S, R, W, chunk, st);
-      break;
-    case 1:
-      err = launch<__nv_bfloat16, false>(vals, lc, lr, win_block, nullptr, 0, tile_nnz,
+      err = launch<float, false>(vals, lc, lr, win_block, nullptr, 0, tile_nnz,
                                          tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
                                          chunk, st);
+      break;
+    case 1:
+      err = launch<__nv_bfloat16, false>(vals, lc, lr, win_block, nullptr, 0,
+                                                 tile_nnz, tile_ids, out_tiles, x, x_rows, B,
+                                                 y, T, S, R, W, chunk, st);
       break;
     case 2:
       if (val_scale == nullptr || groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
       err = launch<int8_t, true>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
-                                 tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W, chunk,
-                                 st);
+                                         tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
+                                         chunk, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

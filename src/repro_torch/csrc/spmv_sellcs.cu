@@ -13,30 +13,45 @@
 // Bound: bytes.  SpMV does 2 flops per stored slot and column and reads
 // 5-8 bytes per slot, far below the card's ~20 flops per byte of float32
 // balance, so the least time is the bytes the work must move over the
-// memory rate.
+// memory rate.  At B = 1 a row's x gathers wait on its column loads, so
+// what sets the time is how many bytes each SM keeps in flight.
 //
 // Design:
-//   * One warp per sorted row, eight rows per block.  Rows inside a chunk
-//     are independent (no segmented reduction), and a row's lanes are
-//     contiguous in the [T, C, W] view, so neighbouring threads read
-//     neighbouring slots: 128-byte loads of values and columns.
+//   * A row's slots are summed as 8 strands: strand l adds the 4-slot
+//     vectors l, l + 8, l + 16, ... (slots 4l..4l+3, then 4l+32..) in order
+//     with fused multiply-adds, and a fixed xor tree folds the strands
+//     (l + 4, then l + 2, then l + 1).  At B = 1 each strand has a thread:
+//     8 threads per row, four rows per warp.  At B > 1 a thread carries two
+//     strands (4 threads per row) and gathers whole 32-byte x rows.  Either
+//     way column j takes the same operations in the same order whatever B
+//     is: repeat launches are bit-equal and column j of an [n, B] launch
+//     equals an [n] launch on x[:, j].  No float atomics.
+//   * The [T, C, W] view's rows start W * sizeof(V) bytes apart with W a
+//     multiple of 128, so a vector is one 16-byte load of columns and one
+//     16-, 8- or 4-byte load of values, kept packed until it is summed.  A
+//     thread issues the loads of a whole 128-slot batch before its first x
+//     gather: on bmwcra_1 (w_t <= 80) every load of a row is in flight at
+//     once.  A vector that crosses w_t, or a view whose pointers are not
+//     aligned, is read slot by slot.  At B = 1 the kernel is held to 64
+//     registers, four blocks of 256 threads per SM.
 //   * Only the chunk's real lanes [0, w_t) are read.  The [T, C, W] view
 //     pads every chunk to the global maximum width rounded up to 128 (the
 //     Pallas kernel's static block); walking all W lanes would move the
 //     padding too (1.61x the slots on bmwcra_1).
+//   * No serial loads before the slots: the grid holds as many blocks as
+//     fit on the card at once and each row group walks rows i, i + stride,
+//     ...; a row's chunk_width and row_perm are fetched while the previous
+//     row is summed.  C-alignment pad rows (row_perm == m, the dump row)
+//     are summed like any row (their lanes are padding) and only their
+//     store is skipped, so no row of y is written twice.
+//   * int8: a scale group of 128 lanes or more (every container's is 128)
+//     meets a batch in at most two scales, loaded once per batch, with no
+//     divide in the slot loop.  Smaller groups take one scale load per slot.
 //   * x is read straight from global memory through the read-only path and
 //     L2 (the Pallas kernel held the whole padded x in VMEM).  Reads of x
 //     past x_rows return 0, so x needs no padding.
-//   * Each thread issues the loads of kUnroll slots before it uses any.
-//   * Deterministic sums, no float atomics: lane l adds its slots
-//     l, l+32, l+64, ... in increasing order with fused multiply-adds, then
-//     a fixed shuffle tree sums the 32 lanes.  Column j takes the same
-//     operations in the same order whatever B is, so repeat launches are
-//     bit-equal and column j of an [n, B] launch equals an [n] launch on
-//     x[:, j].  At B > 1 a warp takes up to 8 columns per pass.
 //   * Each row is written straight to y[row_perm[i]]: this folds in the
-//     reference's scatter, and C-alignment pad rows (row_perm == m, the
-//     dump row) are skipped, so no row of y is written twice.
+//     reference's scatter.
 //
 // Plain C interface (loaded with ctypes); the launch is asynchronous on the
 // caller's stream and the function returns cudaGetLastError().
@@ -48,99 +63,228 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;  // one warp per row
-constexpr int kUnroll = 4;        // slots whose loads a thread keeps in flight
-constexpr int kMaxCols = 8;       // columns a warp sums per pass at B > 1
+constexpr int kThreads = 256;
+constexpr int kMaxCols = 8;                    // columns a group sums per pass at B > 1
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i, float) {
-  return __ldg(v + i);
-}
+constexpr int kSum = 8;                        // strands per row (design notes)
+constexpr int kBatch = 128;                    // slots of a row per batch
+// Threads per row by columns per pass: one strand each at B = 1, two at B > 1.
+__host__ __device__ constexpr int lanes_for(int nb) { return nb == 1 ? 8 : 4; }
 
-__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i, float) {
-  return __bfloat162float(v[i]);
-}
+// Four consecutive slots of values as loaded, unpacked only when summed, so
+// a load in flight holds 4 (f32), 2 (bf16) or 1 (int8) registers: f32 as a
+// float4, bf16 as a uint2, int8 codes as an int (the scale comes later).
+template <typename V> struct Values4;
 
-__device__ __forceinline__ float load_value(const int8_t* v, int64_t i, float scale) {
-  return __fmul_rn(static_cast<float>(__ldg(v + i)), scale);
-}
+template <> struct Values4<float> {
+  float4 r;
+  __device__ void clear() { r = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ void load(const float* v, int i) { r = __ldg(reinterpret_cast<const float4*>(v + i)); }
+  __device__ void load_one(const float* v, int i, int e) {
+    const float f = __ldg(v + i);
+    if (e == 0) r.x = f;
+    if (e == 1) r.y = f;
+    if (e == 2) r.z = f;
+    if (e == 3) r.w = f;
+  }
+  __device__ float get(int e) const { return e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w; }
+};
 
-// Fixed reduction tree over the warp; lane 0 holds the sum.
-__device__ __forceinline__ float warp_sum(float a) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) a = __fadd_rn(a, __shfl_down_sync(0xffffffffu, a, off));
-  return a;
+template <> struct Values4<__nv_bfloat16> {
+  uint2 r;
+  __device__ void clear() { r = make_uint2(0u, 0u); }
+  __device__ void load(const __nv_bfloat16* v, int i) {
+    r = __ldg(reinterpret_cast<const uint2*>(v + i));
+  }
+  __device__ void load_one(const __nv_bfloat16* v, int i, int e) {
+    const unsigned h = __ldg(reinterpret_cast<const unsigned short*>(v) + i);
+    unsigned& word = e < 2 ? r.x : r.y;
+    word = e % 2 ? (word & 0xffffu) | (h << 16) : (word & 0xffff0000u) | h;
+  }
+  __device__ float get(int e) const {
+    const unsigned word = e < 2 ? r.x : r.y;
+    return __uint_as_float(e % 2 ? word & 0xffff0000u : word << 16);
+  }
+};
+
+template <> struct Values4<int8_t> {
+  int r;
+  __device__ void clear() { r = 0; }
+  __device__ void load(const int8_t* v, int i) { r = __ldg(reinterpret_cast<const int*>(v + i)); }
+  __device__ void load_one(const int8_t* v, int i, int e) {
+    const int b = __ldg(reinterpret_cast<const unsigned char*>(v) + i);
+    r = (r & ~(0xff << (8 * e))) | (b << (8 * e));
+  }
+  __device__ float get(int e) const { return static_cast<float>((r << (24 - 8 * e)) >> 24); }
+};
+
+__device__ __forceinline__ int pick(const int4& c, int e) {
+  return e == 0 ? c.x : e == 1 ? c.y : e == 2 ? c.z : c.w;
 }
 
 template <typename V, bool kScaled, int NB>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+__global__ void __launch_bounds__(kThreads, NB == 1 ? 4 : 2)
 sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
               const int* __restrict__ row_perm, const int* __restrict__ chunk_width,
               const float* __restrict__ val_scale, int groups, int group,
               const float* __restrict__ x, long long x_rows, int B, float* __restrict__ y,
-              int m, long long m_pad, int C, int W) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
-  if (i >= m_pad) return;                 // the whole warp leaves together
-  const int orig = __ldg(row_perm + i);
-  if (orig < 0 || orig >= m) return;      // pad row: its dump row is never written
-  const int wt = min(max(__ldg(chunk_width + i / C), 0), W);
-  const int64_t base = i * W;
+              int m, long long m_pad, int C, int W, bool vec) {
+  constexpr int kG = lanes_for(NB);             // threads per row
+  constexpr int kH = kSum / kG;                 // strands per thread
+  constexpr int kU = kBatch / (4 * kG);         // vectors a thread loads per batch
+  constexpr int kRowsPerBlock = kThreads / kG;
+  const int lane = threadIdx.x % kG;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kG;
+  // a warp's rows are consecutive: it runs while its first row is in range,
+  // so all 32 lanes take part in every shuffle
+  int64_t warp_first = i - (threadIdx.x % 32) / kG;
   // x rows can be read as float4 when 16-byte aligned
-  const bool vec4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool x4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // int8 groups of at least a batch (128 lanes in every container): a batch
+  // spans at most two of them, so it loads at most two scales
+  const bool few_scales = kScaled && group >= kBatch;
 
-  for (int j0 = 0; j0 < B; j0 += NB) {
-    const int nb = min(NB, B - j0);
-    float acc[NB];
-#pragma unroll
-    for (int k = 0; k < NB; ++k) acc[k] = 0.f;
-
-    for (int w0 = lane; w0 < wt; w0 += 32 * kUnroll) {
-      float v[kUnroll];
-      int64_t col[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int w = w0 + u * 32;
-        v[u] = 0.f;
-        col[u] = -1;
-        if (w < wt) {
-          const float scale =
-              kScaled ? __ldg(val_scale + i * groups + w / group) : 1.f;
-          v[u] = load_value(vals, base + w, scale);
-          col[u] = __ldg(cols + base + w);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (w0 + u * 32 >= wt) break;
-        const bool in = col[u] >= 0 && col[u] < x_rows;
-        const float* xr = x + (in ? col[u] : 0) * B + j0;
-        if (NB == 1) {
-          acc[0] = __fmaf_rn(v[u], in ? __ldg(xr) : 0.f, acc[0]);
-        } else if (vec4 && nb == NB) {
-#pragma unroll
-          for (int k = 0; k < NB; k += 4) {
-            const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-            acc[k] = __fmaf_rn(v[u], xv.x, acc[k]);
-            acc[k + 1] = __fmaf_rn(v[u], xv.y, acc[k + 1]);
-            acc[k + 2] = __fmaf_rn(v[u], xv.z, acc[k + 2]);
-            acc[k + 3] = __fmaf_rn(v[u], xv.w, acc[k + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < NB; ++k) {
-            if (k < nb) acc[k] = __fmaf_rn(v[u], in ? __ldg(xr + k) : 0.f, acc[k]);
-          }
-        }
-      }
+  int wt_cur = 0, orig_cur = m;               // row i's chunk width and home
+  if (i < m_pad) {
+    wt_cur = __ldg(chunk_width + i / C);
+    orig_cur = __ldg(row_perm + i);
+  }
+  for (; warp_first < m_pad; warp_first += stride, i += stride) {
+    const bool active = i < m_pad;
+    const int wt = active ? min(max(wt_cur, 0), W) : 0;
+    const int orig = orig_cur;
+    if (i + stride < m_pad) {                 // the next row's, while this one runs
+      wt_cur = __ldg(chunk_width + (i + stride) / C);
+      orig_cur = __ldg(row_perm + i + stride);
     }
+    const V* vrow = vals + i * W;
+    const int* crow = cols + i * W;
+    const float* scales = kScaled ? val_scale + i * groups : nullptr;
+
+    for (int j0 = 0; j0 < B; j0 += NB) {
+      const int nb = min(NB, B - j0);
+      float acc[kH][NB];
+#pragma unroll
+      for (int h = 0; h < kH; ++h)
+#pragma unroll
+        for (int k = 0; k < NB; ++k) acc[h][k] = 0.f;
+
+      int g = 0, g_end = group;               // scale group of the batch's first slot
+      for (int w0 = 0; w0 < wt; w0 += kBatch) {
+        float s_lo = 1.f, s_hi = 1.f;
+        if (few_scales) {
+          if (w0 >= g_end) {
+            ++g;
+            g_end += group;
+          }
+          s_lo = __ldg(scales + g);
+          if (g_end < min(w0 + kBatch, wt)) s_hi = __ldg(scales + g + 1);
+        }
+        Values4<V> v[kU];
+        int4 c[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int w = w0 + 4 * (lane + kG * u);
+          if (vec && w + 4 <= wt) {
+            v[u].load(vrow, w);
+            c[u] = __ldg(reinterpret_cast<const int4*>(crow + w));
+          } else {
+            v[u].clear();
+            c[u] = make_int4(0, 0, 0, 0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (w + e < wt) {
+                v[u].load_one(vrow, w + e, e);
+                if (e == 0) c[u].x = __ldg(crow + w);
+                if (e == 1) c[u].y = __ldg(crow + w + 1);
+                if (e == 2) c[u].z = __ldg(crow + w + 2);
+                if (e == 3) c[u].w = __ldg(crow + w + 3);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int w = w0 + 4 * (lane + kG * u);
+          const int h = u % kH;                   // vector lane + kG u: strand h kG + lane
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (w + e >= wt) break;
+            float val = v[u].get(e);
+            if (kScaled)
+              val = __fmul_rn(val, few_scales ? (w + e < g_end ? s_lo : s_hi)
+                                              : __ldg(scales + (w + e) / group));
+            const int cc = pick(c[u], e);
+            const bool in = cc >= 0 && cc < x_rows;
+            if (NB == 1) {
+              acc[h][0] = __fmaf_rn(val, in ? __ldg(x + cc) : 0.f, acc[h][0]);
+              continue;
+            }
+            const float* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
+            if (x4 && nb == NB) {
+#pragma unroll
+              for (int k = 0; k < NB; k += 4) {
+                const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+                acc[h][k] = __fmaf_rn(val, xv.x, acc[h][k]);
+                acc[h][k + 1] = __fmaf_rn(val, xv.y, acc[h][k + 1]);
+                acc[h][k + 2] = __fmaf_rn(val, xv.z, acc[h][k + 2]);
+                acc[h][k + 3] = __fmaf_rn(val, xv.w, acc[h][k + 3]);
+              }
+            } else {
+#pragma unroll
+              for (int k = 0; k < NB; ++k) {
+                if (k < nb)
+                  acc[h][k] = __fmaf_rn(val, in ? __ldg(xr + k) : 0.f, acc[h][k]);
+              }
+            }
+          }
+        }
+      }
 
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const float s = warp_sum(acc[k]);
-      if (lane == 0 && k < nb) y[static_cast<int64_t>(orig) * B + j0 + k] = s;
+      for (int k = 0; k < NB; ++k) {
+        float s = acc[0][k];
+        if (kH == 2) s = __fadd_rn(s, acc[1][k]);   // the tree's first step: l and l + 4
+#pragma unroll
+        for (int off = kG / 2; off > 0; off >>= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off, kG));
+        if (lane == 0 && k < nb && active && orig >= 0 && orig < m)
+          y[static_cast<int64_t>(orig) * B + j0 + k] = s;
+      }
     }
   }
+}
+
+// Blocks of one kernel instance that fit on the current card at once: the
+// grid of a launch that walks the rows.
+template <typename V, bool kScaled, int NB>
+int resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sellcs_kernel<V, kScaled, NB>,
+                                                kThreads, 0);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+template <typename V, bool kScaled, int NB>
+cudaError_t launch_cols(const V* v, const int* cols, const int* row_perm,
+                        const int* chunk_width, const float* val_scale, int groups,
+                        const float* x, long long x_rows, int B, float* y, int m,
+                        long long m_pad, int C, int W, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kThreads / lanes_for(NB);
+  const long long need = (m_pad + kRowsPerBlock - 1) / kRowsPerBlock;
+  const long long cap = resident_blocks<V, kScaled, NB>();
+  const int group = groups > 0 ? W / groups : 1;
+  // 16-byte column vectors and 4-slot value vectors need aligned bases
+  const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v) & (4 * sizeof(V) - 1)) == 0;
+  sellcs_kernel<V, kScaled, NB><<<static_cast<unsigned>(need < cap ? need : cap), kThreads, 0,
+                                  stream>>>(v, cols, row_perm, chunk_width, val_scale, groups,
+                                            group, x, x_rows, B, y, m, m_pad, C, W, vec);
+  return cudaGetLastError();
 }
 
 template <typename V, bool kScaled>
@@ -149,21 +293,12 @@ cudaError_t launch(const void* vals, const int* cols, const int* row_perm,
                    const float* x, long long x_rows, int B, float* y, int m, int T, int C,
                    int W, cudaStream_t stream) {
   const long long m_pad = static_cast<long long>(T) * C;
-  const long long blocks = (m_pad + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int group = groups > 0 ? W / groups : 1;
   const V* v = static_cast<const V*>(vals);
-  if (B == 1) {
-    sellcs_kernel<V, kScaled, 1><<<static_cast<unsigned>(blocks), kRowsPerBlock * 32, 0,
-                                   stream>>>(v, cols, row_perm, chunk_width, val_scale,
-                                             groups, group, x, x_rows, B, y, m, m_pad, C, W);
-  } else {
-    sellcs_kernel<V, kScaled, kMaxCols><<<static_cast<unsigned>(blocks),
-                                          kRowsPerBlock * 32, 0, stream>>>(
-        v, cols, row_perm, chunk_width, val_scale, groups, group, x, x_rows, B, y, m, m_pad,
-        C, W);
-  }
-  return cudaGetLastError();
+  if (B == 1)
+    return launch_cols<V, kScaled, 1>(v, cols, row_perm, chunk_width, val_scale, groups, x,
+                                      x_rows, B, y, m, m_pad, C, W, stream);
+  return launch_cols<V, kScaled, kMaxCols>(v, cols, row_perm, chunk_width, val_scale, groups,
+                                           x, x_rows, B, y, m, m_pad, C, W, stream);
 }
 
 }  // namespace

@@ -6,7 +6,8 @@ the tests against the JAX oracles), the path a kernel wrapper takes for CPU
 tensors, and the "plain CSR" baseline.  They repeat the kernel's arithmetic
 (f32 dequantize, f32 products, f32 sums) but not its summation order:
 ``index_add_`` sums in an order of its own (on CUDA with atomics), so they
-agree with the kernel within rounding, not bit for bit.
+agree with the kernel within rounding, not bit for bit.  The one exception,
+:func:`csrk_tile_rows_in_order`, keeps the CSR-k kernel's order too.
 """
 from __future__ import annotations
 
@@ -175,6 +176,56 @@ def csrk_tile_rows(
         contrib = (v * x[col]).reshape(-1)
         out = torch.zeros(T * R, dtype=x.dtype, device=x.device)
     return out.index_add_(0, seg, contrib)
+
+
+def csrk_tile_rows_in_order(
+    vals: torch.Tensor,
+    local_col: torch.Tensor,
+    local_row: torch.Tensor,
+    win_block: torch.Tensor,
+    x: torch.Tensor,
+    val_scale=None,
+    *,
+    rows_per_tile: int,
+    window: int,
+    tile_nnz=None,
+) -> torch.Tensor:
+    """The CSR-k kernel's own summation order: ``[T·R]`` (``[T·R, B]``) f32 rows.
+
+    The same function as :func:`csrk_tile_rows`, computed as the CUDA kernel
+    computes it: per tile and row, the f32 products ``dq(vals[t,s]) ·
+    x[win_block[t]·W + lc[t,s]]`` of the slots ``s < tile_nnz[t]`` (all S
+    without ``tile_nnz``) with ``lr[t,s] = r``, added from +0 in slot order.
+    Every product and every sum is its own rounded f32 operation, so nothing
+    fuses and the kernel's output is matched bit for bit.  As in the kernel,
+    x reads outside ``[0, n)`` see 0 and rows outside ``[0, R)`` are dropped.
+    """
+    T, S = vals.shape
+    R = rows_per_tile
+    n = x.shape[0]
+    tail = tuple(x.shape[1:])
+    xf = x.to(torch.float32).reshape(n, -1)
+    v = _tile_vals_f32(vals, val_scale)
+    nslots = (torch.full((T,), S, device=vals.device) if tile_nnz is None
+              else tile_nnz.long().clamp(0, S))
+    lr = local_row.long()
+    keep = ((torch.arange(S, device=vals.device)[None, :] < nslots[:, None])
+            & (lr >= 0) & (lr < R))
+    t_idx, s_idx = keep.nonzero(as_tuple=True)           # tile-major, slot order inside
+    col = win_block.long()[t_idx] * window + local_col.long()[t_idx, s_idx]
+    inside = (col >= 0) & (col < n)
+    xg = torch.where(inside[:, None], xf[col.clamp(0, max(n - 1, 0))], 0.0)
+    prod = v[t_idx, s_idx][:, None] * xg                   # [slots, B], rounded f32
+    key, order = torch.sort(t_idx * R + lr[t_idx, s_idx], stable=True)
+    prod = prod[order]
+    counts = torch.bincount(key, minlength=T * R)
+    pos = torch.arange(key.numel(), device=key.device) - (torch.cumsum(counts, 0) - counts)[key]
+    out = torch.zeros((T * R, xf.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(int(counts.max()) if key.numel() else 0):
+        at = pos == k
+        rows = key[at]
+        out[rows] = out[rows] + prod[at]
+    return out.reshape((T * R,) + tail)
 
 
 def _add_remainder(y, rem_row, rem_col, rem_val, x):

@@ -589,3 +589,193 @@ def test_ell_jacobi_on_card_matches_cpu(cuda, ell_cases):
     x_cpu = jacobi_smoother(lambda v: ops.spmv_ell(e_cpu, v), diag, b, iters=40)
     rel = torch.linalg.norm(x_gpu.cpu() - x_cpu) / torch.linalg.norm(x_cpu)
     assert float(rel) <= 1e-5
+
+
+# --- the CSR-k kernel's row-sorted and general paths --------------------------
+
+
+def _in_order(view, x):
+    """``ref.csrk_tile_rows_in_order`` over a monolithic or bucketed view, rows
+    placed as the kernel places them."""
+    kw = dict(rows_per_tile=view.rows_per_tile, window=view.window)
+    if not hasattr(view, "buckets"):
+        return ref.csrk_tile_rows_in_order(view.vals, view.local_col, view.local_row,
+                                           view.win_block, x, view.val_scale,
+                                           tile_nnz=view.tile_nnz, **kw)
+    R = view.rows_per_tile
+    out = torch.zeros((view.num_tiles, R) + tuple(x.shape[1:]), device=x.device)
+    for b, ids in zip(view.buckets, view.tile_ids):
+        y = ref.csrk_tile_rows_in_order(b.vals, b.local_col, b.local_row, b.win_block, x,
+                                        b.val_scale, tile_nnz=b.tile_nnz, **kw)
+        out[ids.long()] = y.reshape((b.num_tiles, R) + tuple(x.shape[1:]))
+    return out.reshape((view.num_tiles * R,) + tuple(x.shape[1:]))
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+def test_csrk_kernel_equals_in_order_plain_version(cuda, ecology, value_dtype):
+    """Row-sorted tiles: each row is its products added from +0 in slot order."""
+    op = prepare(ecology, device=cuda)
+    tiles = tiles_from_csrk(op.csrk, value_dtype=value_dtype)
+    X = torch.randn((ecology.n, 8), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    for view in (tiles.to(cuda), bucket_tiles(tiles).to(cuda)):
+        R = view.rows_per_tile
+        for xb in (X[:, 0].contiguous(), X):
+            if hasattr(view, "buckets"):
+                y = torch.full((view.num_tiles * R,) + tuple(xb.shape[1:]), float("nan"),
+                               device=cuda)
+                for b, ids in zip(view.buckets, view.tile_ids):
+                    spmv_csrk_tiles(b.vals, b.local_col, b.local_row, b.win_block, xb,
+                                    b.val_scale, rows_per_tile=R, window=view.window,
+                                    tile_nnz=b.tile_nnz, tile_ids=ids, out=y)
+            else:
+                y = spmv_csrk_tiles(view.vals, view.local_col, view.local_row, view.win_block,
+                                    xb, view.val_scale, rows_per_tile=R, window=view.window,
+                                    tile_nnz=view.tile_nnz)
+            assert torch.equal(y, _in_order(view, xb))
+
+
+def _shuffled(tiles, seed):
+    """The same tiles with each tile's real slots in a random order."""
+    vals, lc, lr = tiles.vals.clone(), tiles.local_col.clone(), tiles.local_row.clone()
+    rng = np.random.default_rng(seed)
+    for t in range(tiles.num_tiles):
+        k = int(tiles.tile_nnz[t])
+        p = torch.from_numpy(rng.permutation(k))
+        vals[t, :k], lc[t, :k], lr[t, :k] = vals[t, :k][p], lc[t, :k][p], lr[t, :k][p]
+    return dataclasses.replace(tiles, vals=vals, local_col=lc, local_row=lr)
+
+
+def _check_csrk_call(call, view, X, row_nnz, tile_nnz):
+    """Within the plain version's bound and equal to the in-order version, at
+    B = 1, 3 and 8; repeat launches and B = 8 columns bit-equal."""
+    kw = dict(rows_per_tile=view.rows_per_tile, window=view.window)
+    args = (view.vals, view.local_col, view.local_row, view.win_block)
+    absv = (view.vals.abs(),) + args[1:]
+    for xb in (X[:, 0].contiguous(), X[:, :3].contiguous(), X):
+        y = call(xb)
+        want = ref.csrk_tile_rows(*args, xb, view.val_scale, **kw)
+        prod = ref.csrk_tile_rows(*absv, xb.abs(), view.val_scale, **kw)
+        k = row_nnz.to(prod.dtype)
+        bound = (2 * (k[:, None] if prod.ndim == 2 else k) + 2) * EPS32 * prod
+        assert bool(((y - want).abs() <= bound).all())
+        assert torch.equal(y, ref.csrk_tile_rows_in_order(*args, xb, view.val_scale,
+                                                          tile_nnz=tile_nnz, **kw))
+        assert torch.equal(y, call(xb))
+    Y = call(X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], call(X[:, j].contiguous()))
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "int8"])
+def test_csrk_unsorted_tiles_take_the_general_path(cuda, ecology, value_dtype):
+    op = prepare(ecology, device=cuda)
+    t = _shuffled(tiles_from_csrk(op.csrk, value_dtype=value_dtype), seed=5).to(cuda)
+    row_nnz = torch.bincount(
+        (t.local_row.long() + torch.arange(t.num_tiles, device=cuda)[:, None]
+         * t.rows_per_tile)[torch.arange(t.slots, device=cuda)[None, :] < t.tile_nnz[:, None]],
+        minlength=t.num_tiles * t.rows_per_tile)
+    call = lambda xb: spmv_csrk_tiles(  # noqa: E731
+        t.vals, t.local_col, t.local_row, t.win_block, xb, t.val_scale,
+        rows_per_tile=t.rows_per_tile, window=t.window, tile_nnz=t.tile_nnz)
+    X = torch.randn((ecology.n, 8), generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    _check_csrk_call(call, t, X, row_nnz, t.tile_nnz)
+
+
+def test_csrk_monolithic_view_without_tile_nnz(cuda, ecology):
+    """All S slots: each tile's padding (value 0, row 0) follows its sorted
+    real slots, so the kernel's general path sums them into row 0."""
+    op = prepare(ecology, device=cuda, tile_layout="monolithic")
+    t = op.tiles
+    row_nnz = torch.bincount(
+        (t.local_row.long() + torch.arange(t.num_tiles, device=cuda)[:, None]
+         * t.rows_per_tile).reshape(-1), minlength=t.num_tiles * t.rows_per_tile)
+    call = lambda xb: spmv_csrk_tiles(  # noqa: E731
+        t.vals, t.local_col, t.local_row, t.win_block, xb, t.val_scale,
+        rows_per_tile=t.rows_per_tile, window=t.window)
+    X = torch.randn((ecology.n, 8), generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    _check_csrk_call(call, t, X, row_nnz, None)
+    y = call(X[:, 0].contiguous())
+    assert torch.equal(y[: ecology.m], ops.spmv_csrk(t, X[:, 0].contiguous()))
+
+
+# --- SELL-C-σ views of other widths and chunk heights -------------------------
+
+
+@pytest.fixture(scope="module")
+def sell_shapes():
+    """Views whose widest chunk holds 1, 3, 5 or 127 lanes (W = 128), one
+    whose rows reach 200 lanes (W = 256: two int8 scale groups), and C = 32."""
+    cases = {f"width {k}": (ell_width_matrix(203, 300, k, seed=k), 8) for k in (1, 3, 5, 127)}
+    cases["W 256"] = (ell_width_matrix(150, 400, 200, seed=7), 8)
+    cases["C 32"] = (pareto_rows(1003, seed=5), 32)
+    return cases
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["width 1", "width 3", "width 5", "width 127", "W 256",
+                                  "C 32"])
+def test_sellcs_kernel_on_other_widths_and_heights(cuda, sell_shapes, name, value_dtype):
+    A, C = sell_shapes[name]
+    s = sellcs_from_csr(A, C=C)
+    tiles = tiles_from_sellcs(s, value_dtype=value_dtype).to(cuda)
+    widths = s.chunk_widths()
+    if name.startswith("width"):
+        assert int(widths.max()) == int(name.split()[1]) and tiles.width == 128
+    elif name == "W 256":
+        assert tiles.width == 256 and int(widths.max()) > 128
+        if value_dtype == "int8":
+            assert tiles.val_scale.shape[-1] == 2
+    else:
+        assert tiles.C == 32
+    row_nnz = A.row_lengths().to(cuda)
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    for xb in (X[:, 0].contiguous(), X[:, :3].contiguous(), X):
+        Y = ops.spmv_sellcs(tiles, xb)
+        err = (Y - ref.spmv_sellcs_tiles(tiles, xb)).abs()
+        assert bool((err <= _sell_bound(tiles, xb, row_nnz)).all())
+        assert torch.equal(Y, ops.spmv_sellcs(tiles, xb))
+    Y = ops.spmv_sellcs(tiles, X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_sellcs(tiles, X[:, j].contiguous()))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned address."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+def test_sellcs_misaligned_view_gives_the_same_bits(cuda, irregular, value_dtype):
+    """Values and columns that 16-byte loads cannot read are read slot by slot,
+    in the same order."""
+    A = irregular["bmwcra_1"]
+    tiles = tiles_from_sellcs(sellcs_from_csr(A), value_dtype=value_dtype).to(cuda)
+    odd = dataclasses.replace(tiles, vals=_misaligned(tiles.vals),
+                              col_idx=_misaligned(tiles.col_idx))
+    assert odd.col_idx.data_ptr() % 16 != 0
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(9), device=cuda)
+    for xb in (X[:, 0].contiguous(), X):
+        assert torch.equal(ops.spmv_sellcs(odd, xb), ops.spmv_sellcs(tiles, xb))
+
+
+@pytest.mark.parametrize("per_group", [32, 1])
+def test_sellcs_int8_scale_groups_smaller_than_a_batch(cuda, irregular, per_group):
+    """int8 scales for every 32 lanes or every lane (the wrapper takes any
+    group that divides W; containers use 128) take the one-scale-per-slot path."""
+    A = irregular["bmwcra_1"]
+    t = tiles_from_sellcs(sellcs_from_csr(A), value_dtype="int8")
+    rep = 128 // per_group
+    scale = t.val_scale.repeat_interleave(rep, dim=-1)
+    scale = scale * (1 + 0.01 * torch.arange(scale.shape[-1], dtype=torch.float32))
+    tiles = dataclasses.replace(t, val_scale=scale.contiguous()).to(cuda)
+    row_nnz = A.row_lengths().to(cuda)
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(10), device=cuda)
+    for xb in (X[:, 0].contiguous(), X):
+        Y = ops.spmv_sellcs(tiles, xb)
+        err = (Y - ref.spmv_sellcs_tiles(tiles, xb)).abs()
+        assert bool((err <= _sell_bound(tiles, xb, row_nnz)).all())
+        assert torch.equal(Y, ops.spmv_sellcs(tiles, xb))
+    Y = ops.spmv_sellcs(tiles, X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_sellcs(tiles, X[:, j].contiguous()))

@@ -237,3 +237,74 @@ def test_convert_round_trips_bf16_bits(rng):
     tt = port_tiles(tj)
     assert tt.vals.dtype == torch.bfloat16
     np.testing.assert_array_equal(to_numpy(tt.vals), np.asarray(tj.vals).view(np.uint16))
+
+
+# --- the CSR-k kernel's own summation order ----------------------------------
+
+
+def _loop_in_order(tiles, x, tile_nnz):
+    """Numpy float32 loop over every tile and slot in order: the kernel's sums."""
+    v = t_ref._tile_vals_f32(tiles.vals, tiles.val_scale).numpy()
+    lc, lr = tiles.local_col.numpy(), tiles.local_row.numpy()
+    win = tiles.win_block.numpy()
+    T, S = v.shape
+    R, W = tiles.rows_per_tile, tiles.window
+    xs = np.asarray(x, np.float32).reshape(x.shape[0], -1)
+    y = np.zeros((T * R, xs.shape[1]), np.float32)
+    for t in range(T):
+        for s in range(int(tile_nnz[t]) if tile_nnz is not None else S):
+            r, c = int(lr[t, s]), int(win[t]) * W + int(lc[t, s])
+            if 0 <= r < R:
+                xc = xs[c] if 0 <= c < xs.shape[0] else np.zeros(xs.shape[1], np.float32)
+                y[t * R + r] = y[t * R + r] + v[t, s] * xc
+    return y.reshape((T * R,) + tuple(x.shape[1:]))
+
+
+def _in_order_case(name, value_dtype):
+    from repro_torch.configs.spmv_suite import load_suite
+    from repro_torch.core import prepare
+    from repro_torch.sparse import CSRMatrix, build_csrk, tiles_from_csrk
+
+    if name == "ecology1/256":
+        A = load_suite(scale=256, ids=[8])["ecology1"]
+        csrk = prepare(A, device="cpu").csrk
+        return A, tiles_from_csrk(csrk, value_dtype=value_dtype)
+    dense = far_entries_matrix()
+    A = CSRMatrix.fromdense(dense)
+    csrk = build_csrk(A, srs=4, ssrs=2, k=3)
+    return A, tiles_from_csrk(csrk, window=128, value_dtype=value_dtype)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["ecology1/256", "64x1024 remainder"])
+def test_csrk_in_order_plain_version(name, value_dtype, B):
+    """``ref.csrk_tile_rows_in_order`` equals a float32 loop over the slots bit
+    for bit, and ``ref.csrk_tile_rows`` within the per-row bound."""
+    A, tiles = _in_order_case(name, value_dtype)
+    if name != "ecology1/256":
+        assert tiles.remainder_nnz == 64
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((A.n,) if B == 1 else (A.n, B)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    kw = dict(rows_per_tile=tiles.rows_per_tile, window=tiles.window)
+    args = (tiles.vals, tiles.local_col, tiles.local_row, tiles.win_block)
+    y = t_ref.csrk_tile_rows_in_order(*args, xt, tiles.val_scale, tile_nnz=tiles.tile_nnz, **kw)
+    assert y.dtype == torch.float32
+    assert y.shape == (tiles.num_tiles * tiles.rows_per_tile,) + x.shape[1:]
+    np.testing.assert_array_equal(y.numpy(), _loop_in_order(tiles, x, tiles.tile_nnz.numpy()))
+    # all S slots: the padding (value 0, row 0) adds +-0 after the real slots
+    y_all = t_ref.csrk_tile_rows_in_order(*args, xt, tiles.val_scale, **kw)
+    np.testing.assert_array_equal(y_all.numpy(), _loop_in_order(tiles, x, None))
+
+    want = t_ref.csrk_tile_rows(*args, xt, tiles.val_scale, **kw)
+    absA = t_ref.csrk_tile_rows(tiles.vals.abs(), *args[1:], torch.from_numpy(np.abs(x)),
+                                None if tiles.val_scale is None else tiles.val_scale.abs(),
+                                **kw).numpy()
+    lr = tiles.local_row.long() + torch.arange(tiles.num_tiles)[:, None] * tiles.rows_per_tile
+    real = torch.arange(tiles.slots)[None, :] < tiles.tile_nnz[:, None]
+    k = torch.bincount(lr[real], minlength=y.shape[0]).numpy().astype(np.float64)
+    if B > 1:
+        k = k[:, None]
+    err = np.abs(y.numpy().astype(np.float64) - want.numpy())
+    assert not (err > (2 * k + 2) * EPS32 * absA).any()
