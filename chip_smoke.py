@@ -43,13 +43,15 @@ Phases (any failure exits non-zero and prints no result line):
    dominant), counting kernel launches;
 8. time the SELL-C-σ kernel, its plain version and cuSPARSE at the bmwcra_1
    shapes, as in phase 5 (GB/s, x bound and x cuSPARSE logged as there);
-9. segmented-sum kernel against its plain version on powerlaw_zipf(2048)
-   at 128- and 512-slot chunks, on a matrix whose first and last rows are
-   empty, on a row that spans three chunks (which must come out exactly)
-   and on a row that spans 40: f32/bf16/int8 x B in {1, 8}, within the
-   same per-row bound, repeat launches and B=8 columns bit-equal, empty
-   rows 0 in an output filled with NaN before the call, and with unit
-   values the row lengths exactly;
+9. segmented-sum kernel against its plain versions (``ref.spmv_segsum``,
+   and ``ref.segsum_table_rows``, which reads the segment-start table the
+   kernel reads in place of ``local_seg``) on powerlaw_zipf(2048) at 128-
+   and 512-slot chunks, on a matrix whose first and last rows are empty, on
+   a row that spans three chunks (which must come out exactly) and on a row
+   that spans 40: f32/bf16/int8 x B in {1, 8}, within the same per-row
+   bound, repeat launches and B=8 columns bit-equal, empty rows 0 in an
+   output filled with NaN before the call, and with unit values the row
+   lengths exactly;
 10. the segmented-sum path at powerlaw_zipf's full size (262,144 rows,
     32.6M nnz): ``prepare(format="auto")`` must route to "segsum";
     ``apply_original`` against a plain CSR product at B=1 and B=8; 50 sweeps
@@ -59,7 +61,10 @@ Phases (any failure exits non-zero and prints no result line):
     need not converge), counting kernel launches;
 11. at the powerlaw_zipf shapes, check that unit values give the row
     lengths exactly, then time the segmented-sum kernel, its plain version
-    and cuSPARSE as in phase 5;
+    and cuSPARSE as in phase 5; log the bytes the kernel is modeled to read
+    (its loads counted) beside the least bytes and the earlier kernel's,
+    which read ``local_seg``, and the split of a call between the chunk pass
+    and the carry pass (``torch.profiler``);
 12. DIA/CSR-hybrid kernel against its plain version on stencil_fringe(48)
     and (64), a 130x200 matrix with offsets {0, 40} and remainder entries at
     columns 0 and 199, a pure plane (a 9-point grid) and a pure remainder (no
@@ -79,12 +84,14 @@ Phases (any failure exits non-zero and prints no result line):
 14. time the DIA/CSR-hybrid kernel, its plain version and cuSPARSE at the
     stencil_fringe shapes, as in phase 5;
 15. ELL kernel against its plain version on bmwcra_1 at 1/64 and on slabs of
-    kmax 1, 5, 33, 80 and 129 with m = 1003 (no multiple of any block size),
-    two slabs cut at an explicit kmax and an all-empty matrix: within the
+    kmax 1, 3, 5, 7, 33, 73, 80 and 129 with m = 1003 (no multiple of any
+    block size; rows of an odd kmax are not 16-byte aligned), two slabs cut
+    at an explicit kmax, an all-empty matrix and views of ``col_idx`` and
+    ``vals`` whose base pointers are off 16-byte boundaries: within the
     per-row bound, a repeat launch bit-equal, every row written into an
     output filled with NaN; with an inf (at x[0], which every padding slot
     reads), a -inf and a NaN in x, NaN and inf in the same rows as the plain
-    version;
+    version, on aligned and unaligned slabs;
 16. the ELL path at bmwcra_1's full size, on the matrix phase 7 built:
     ``ell_from_csr`` -> ``to`` -> ``ops.spmv_ell`` against a plain CSR
     product and against the SELL-C-σ route's output within the bound; 40
@@ -182,6 +189,29 @@ def eager_ms(fn, iters: int = 100) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def pass_split_ms(fn, iters: int = 20) -> dict:
+    """Device milliseconds per ``fn()`` of each CUDA kernel it launches, by
+    kernel name, from ``torch.profiler`` over ``iters`` calls; {} where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = getattr(e, "cuda_time_total", 0)
+        if total:
+            out[e.key] = total / iters / 1e3
+    return out
 
 
 def row_bound(abs_prod, row_nnz):
@@ -300,7 +330,8 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
     where there is one, the library call; log it and return its record.
 
     ``nbytes`` is the least the function must move, which sets the bound;
-    ``read_bytes``, where given, is what the kernel moves, if more.  Where
+    ``read_bytes``, where given, is what the kernel is modeled to move (its
+    loads counted, not measured), if more.  Where
     ``yardstick`` (a dict) is given, the line also logs the time as a
     multiple of the bound and of the library call at this B (the f32 one,
     which ``yardstick`` keeps, for the other value types)."""
@@ -313,7 +344,7 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
     t_ops = 2 * nnz * B / f32_rate * 1e3
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
     read_txt = "" if read_bytes is None else (
-        f"; the kernel reads {read_bytes / 1e6:.1f} MB, "
+        f"; modeled kernel reads {read_bytes / 1e6:.1f} MB, "
         f"{read_bytes / ms / 1e6:.0f} GB/s, {read_bytes / mem_rate * 1e3:.4f} ms at the rate")
     ratio_txt = ""
     if yardstick is not None:
@@ -334,7 +365,7 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
         "bytes": nbytes,
     }
     if read_bytes is not None:
-        rec["bytes_read"] = read_bytes
+        rec["modeled_bytes_read"] = read_bytes
     return rec
 
 
@@ -581,12 +612,15 @@ def segsum_kernel_vs_plain(seg, row_nnz, n, seed: int, what: str):
     errs = {}
     for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
         out = torch.full((seg.m,) + tuple(xb.shape[1:]), float("nan"), device="cuda")
-        yb = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.local_seg, seg.seg_row, seg.carry,
+        yb = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.seg_row, seg.seg_start, seg.carry,
                                 xb, seg.val_scale, m=seg.m, nnz=seg.nnz, out=out)
         if not bool((yb[empty] == 0).all()):
             raise AssertionError(f"{what} B={B}: an empty row is not 0")
         bound = row_bound(ref.spmv_segsum(abs_seg, xb.abs()), row_nnz)
         errs[B] = check_close(yb, ref.spmv_segsum(seg, xb), bound, f"{what} B={B}")
+        check_close(yb, ref.segsum_table_rows(seg.vals, seg.col_idx, seg.seg_row, seg.seg_start,
+                                              xb, seg.val_scale, m=seg.m, nnz=seg.nnz),
+                    bound, f"{what} B={B} vs the table's plain version")
         if not torch.equal(yb, ops.spmv_segsum(seg, xb)):
             raise AssertionError(f"{what} B={B}: repeat launch differs")
     Y8 = ops.spmv_segsum(seg, X)
@@ -782,6 +816,7 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
     views["f32"] = seg
     gen = torch.Generator(device="cuda").manual_seed(5)
     n_real = int(real.sum())
+    n_carry = int(seg.carry.shape[0])
     variants = []
     for dt in ("f32", "bf16", "int8"):
         view = views[dt]
@@ -798,13 +833,31 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
             # L_t seg_row entries; x and y once per column
             nbytes = (nnz * (VALUE_BYTES[dt] + 4) + (4 * -(-nnz // 128) if dt == "int8" else 0)
                       + 4 * (2 * n_real + T) + 4 * n * B + 4 * m * B)
-            # the kernel finds the offsets from local_seg, 4 bytes a slot
-            read_bytes = nbytes + 4 * nnz - 4 * (n_real + T)
-            variants.append(time_variant(
+            # modeled, not measured: every load the kernel issues counted
+            # once (x too).  Beyond the least bytes a warp loads three table
+            # offsets and two neighbour rows a chunk, writes and reads back
+            # two fragment sums a chunk, and the carry pass reads the carry
+            # list; the earlier kernel read local_seg, 4 bytes a slot, in
+            # place of the offsets
+            read_bytes = nbytes + 16 * T + 16 * T * B + 12 * n_carry
+            old_bytes = nbytes + 4 * nnz - 4 * (n_real + T)
+            rec = time_variant(
                 "segsum/time", dt, B, err, lambda: ops.spmv_segsum(view, xb),
                 lambda: ref.spmv_segsum(view, xb),
                 (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
-                read_bytes=read_bytes))
+                read_bytes=read_bytes)
+            split = pass_split_ms(lambda: ops.spmv_segsum(view, xb))
+            chunk_ms = sum(v for k, v in split.items() if "segsum_chunk_kernel" in k)
+            carry_ms = sum(v for k, v in split.items() if "segsum_carry_kernel" in k)
+            rec.update(chunk_pass_ms=chunk_ms or None, carry_pass_ms=carry_ms or None)
+            split_txt = (f"chunk pass {chunk_ms:.4f} ms, carry pass {carry_ms:.4f} ms "
+                         f"({100 * carry_ms / (chunk_ms + carry_ms):.1f}% of the two; "
+                         f"torch.profiler)" if chunk_ms and carry_ms else
+                         "pass split not measured (the profiler saw no device time)")
+            log(f"[segsum/time] {dt:4s} B={B}: {split_txt}; modeled reads "
+                f"{read_bytes / 1e6:.1f} MB against {nbytes / 1e6:.1f} MB least, "
+                f"{old_bytes / 1e6:.1f} MB for the earlier kernel, which read local_seg")
+            variants.append(rec)
     log(f"[segsum/time] unit-value products exactly the row lengths at full size "
         f"(f32/bf16/int8, B=1 and 8); done in {time.perf_counter() - t0:.1f} s")
     return kernel_entry(
@@ -1005,7 +1058,7 @@ def ell_kernel_vs_plain(e, n, seed: int, what: str) -> float:
     every row written into NaN-filled output, a repeat launch bit-equal."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.spmv_ell import spmv_ell_rows
 
     m = e.shape[0]
@@ -1013,9 +1066,20 @@ def ell_kernel_vs_plain(e, n, seed: int, what: str) -> float:
     out = torch.full((m,), float("nan"), device="cuda")
     y = spmv_ell_rows(e.col_idx, e.vals, x, m=m, n=n, out=out)
     err = check_close(y, ref.ell_rows(e.col_idx, e.vals, x), ell_bound(e, x), what)
-    if not torch.equal(y, ops.spmv_ell(e, x)):
+    if not torch.equal(y, spmv_ell_rows(e.col_idx, e.vals, x, m=m, n=n)):
         raise AssertionError(f"{what}: repeat launch differs")
     return err
+
+
+def shifted(t, by: int):
+    """The same values in a view whose base lies ``by`` elements past a fresh
+    allocation's: not 16-byte aligned for ``by % 4 != 0``."""
+    import torch
+
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = buf[by:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict) -> dict:
@@ -1040,7 +1104,7 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
     # 15. kernel vs plain on small slabs
     t0 = time.perf_counter()
     bmw64 = load_suite(scale=64, ids=[16])["bmwcra_1"]
-    widths = {k: ell_width_matrix(1003, 700, k, seed=k) for k in (1, 5, 33, 80, 129)}
+    widths = {k: ell_width_matrix(1003, 700, k, seed=k) for k in (1, 3, 5, 7, 33, 73, 80, 129)}
     cases = [("bmwcra_1/64", bmw64, None), ("bmwcra_1/64 cut at 50", bmw64, 50)]
     cases += [(f"m 1003, kmax {k}", A_s, None) for k, A_s in widths.items()]
     cases += [("m 1003, kmax 129 cut at 40", widths[129], 40),
@@ -1049,23 +1113,36 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
     for name, A_s, cut in cases:
         e = ell_from_csr(A_s, cut).to("cuda")
         errs[name] = ell_kernel_vs_plain(e, A_s.n, 10, f"{name} (kmax {e.kmax})")
+    # views whose base pointers are off 16-byte boundaries: at one phase
+    # (vectors) and at two (slot by slot); rows of kmax 73 start at every phase
+    views = {}
+    for name, A_s in (("kmax 73", widths[73]), ("kmax 7", widths[7]), ("bmwcra_1/64", bmw64)):
+        e = ell_from_csr(A_s).to("cuda")
+        for sc, sv in ((1, 1), (2, 2), (0, 3)):
+            label = f"{name}, col and vals {sc} and {sv} elements off 16 bytes"
+            views[label] = (dataclasses.replace(e, col_idx=shifted(e.col_idx, sc),
+                                                vals=shifted(e.vals, sv)), A_s.n)
+            errs[label] = ell_kernel_vs_plain(views[label][0], A_s.n, 10, label)
     bad = torch.tensor([float("inf"), float("-inf"), float("nan")], device="cuda")
     n_bad = {}
-    for name, A_s in (("bmwcra_1/64", bmw64), ("kmax 80", widths[80])):
-        e = ell_from_csr(A_s).to("cuda")
-        x = torch.randn(A_s.n, device="cuda")
-        x[[0, 100, A_s.n - 1]] = bad
+    nonfinite = [(name, ell_from_csr(A_s).to("cuda"), A_s.n) for name, A_s in (
+        ("bmwcra_1/64", bmw64), ("kmax 80", widths[80]), ("kmax 73", widths[73]))]
+    nonfinite += [(label, e, n) for label, (e, n) in views.items() if "1 and 1" in label]
+    for name, e, n in nonfinite:
+        x = torch.randn(n, device="cuda")
+        x[[0, 100, n - 1]] = bad
         y, yp = ops.spmv_ell(e, x), ref.ell_rows(e.col_idx, e.vals, x)
         for test in (torch.isnan, torch.isposinf, torch.isneginf):
             if not torch.equal(test(y), test(yp)):
                 raise AssertionError(f"{name}, non-finite x: {test.__name__} differs from plain")
         n_bad[name] = (int(torch.isnan(y).sum()), int(torch.isinf(y).sum()))
     torch.cuda.synchronize()
-    log(f"[ell/kernel] {len(errs)} slabs (kmax 1..129, two cut, one all padding) within "
-        f"bound, repeat launches bit-equal, every row written into NaN-filled output; "
-        f"inf/-inf/NaN in x (inf at x[0]): NaN and inf rows equal the plain version's "
-        f"(NaN, inf rows {n_bad}); max |err| {max(errs.values()):.3e} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[ell/kernel] {len(errs)} slabs (kmax 1..129, rows not 16-byte aligned at kmax "
+        f"3, 5, 7, 33 and 73, two cut, one all padding, {len(views)} views off 16-byte "
+        f"boundaries) within bound, repeat launches bit-equal, every row written into "
+        f"NaN-filled output; inf/-inf/NaN in x (inf at x[0]) on aligned and unaligned slabs: "
+        f"NaN and inf rows equal the plain version's (NaN, inf rows {n_bad}); max |err| "
+        f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
 
     # 16. the ELL path at bmwcra_1's full size
     A, A_dev, op, diag, b = (bmw[k] for k in ("A", "A_dev", "op", "diag", "b"))

@@ -15,21 +15,41 @@
 // of the slab the function reads, so they count: ELL's cost is m * kmax,
 // not nnz (the paper's point about ELL padding).
 //
-// Design:
-//   * A group of G lanes per row, G = 32 when kmax >= 32 and otherwise the
-//     least power of two >= kmax.  Lane l of a group reads slots l, l + G,
-//     l + 2G, ... of its row, so a group's loads of col and vals cover
-//     neighbouring addresses and coalesce on the reference's own row-major
-//     slab: the port keeps no column-major copy.  The Pallas row tile and
-//     the whole-x VMEM block are TPU idioms and are not carried over; x is
-//     gathered through L2.
+// Design (the SELL-C-σ kernel's, csrc/spmv_sellcs.cu, on the reference's
+// own row-major slab; the port keeps no column-major copy):
+//   * A row's slots are summed as 8 strands by 8 threads, four rows to a
+//     warp.  The row is cut where its slots meet 16-byte boundaries: a head
+//     of h < 4 slots up to the first boundary, 4-slot vectors, then a tail
+//     of fewer than 4.  Strand l adds head slot l (l < h), then vectors l,
+//     l + 8, l + 16, ... slot by slot in order with fused multiply-adds,
+//     then tail slot l - 4 (4 <= l < 4 + tail); a fixed xor tree folds the
+//     strands (l + 4, then l + 2, then l + 1).  h depends only on the row's
+//     index, kmax and the column array's base address mod 16, so the order
+//     is the same on every launch and repeat launches give the same bits;
+//     the same slab copied to a base of another 16-byte phase (a view) may
+//     be summed in another order and differ in its last bits, within the
+//     bound.  Rows of
+//     a kmax that is not a multiple of 4 (kmax 73 on stencil_fringe(2048):
+//     rows 292 bytes apart) start at every phase and take their vectors all
+//     the same.
+//   * A vector is one 16-byte load of columns and one of values, not
+//     allocated in L1, which is left to the x rows the gathers reuse.  A
+//     thread issues the loads of a whole batch of its row (three vectors:
+//     96 slots of a row in all, every row of bmwcra_1 and stencil_fringe)
+//     before its first x gather.  x is read through the read-only path and
+//     L2 (the Pallas row tile and the whole-x VMEM block are TPU idioms and
+//     are not carried over).  Where the value array's 16-byte phase differs
+//     from the column array's (a view that starts off a boundary), the
+//     vectors are read slot by slot, in the same order.
+//   * The grid holds as many blocks as fit on the card at once and each row
+//     group walks rows i, i + stride, ...; the kernel is held to 64
+//     registers, four blocks of 256 threads per SM.  Loading the next row's
+//     batch ahead, or asking L2 to prefetch it, ran slower on the 2.45 GB
+//     slab of stencil_fringe(2048) (PERF.md).
 //   * Every slot is multiplied, padding (column 0, value 0) included, as in
 //     the reference, so an inf or NaN at x[0] reaches the same rows.
-//   * Each lane sums its slots in increasing k, then the group folds its G
-//     partials with __shfl_xor_sync in a fixed butterfly.  G depends only on
-//     kmax, so the order is the same on every launch and repeat launches
-//     give the same bits.  No atomics; lane 0 of the group writes its row,
-//     every row is written, so y need not be cleared.
+//   * No atomics; lane 0 of the row's group writes it, every row is
+//     written, so y need not be cleared.
 //   * Slot offsets are 64-bit: m * kmax passes 2^31 at stencil_fringe(2048)
 //     (306,184,192 slots, 2.4 GB of slab).
 //
@@ -43,43 +63,116 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLanes = 8;                          // strands (threads) per row
+constexpr int kRowsPerBlock = kThreads / kLanes;
+constexpr int kU = 3;                              // vectors a strand loads per batch
 
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
-           const float* __restrict__ x, float* __restrict__ y, int m, int n, int kmax) {
-  constexpr int kRowsPerBlock = kThreads / G;
-  const int lane = threadIdx.x % G;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
-  const bool active = row < m;
-
-  float acc = 0.f;
-  if (active) {
-    const int64_t base = row * kmax;
-#pragma unroll 4
-    for (int k = lane; k < kmax; k += G) {
-      const int c = __ldg(col + base + k);
-      const float v = __ldg(vals + base + k);
-      const float xv = (c >= 0 && c < n) ? __ldg(x + c) : 0.f;
-      acc = __fmaf_rn(v, xv, acc);
-    }
-  }
-  // every lane of the warp takes part in the shuffles, rows past m too
-#pragma unroll
-  for (int off = G / 2; off > 0; off /= 2) {
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off, G));
-  }
-  if (active && lane == 0) y[row] = acc;
+// Loads of the slab, read once: through the read-only path without
+// allocating in L1, which is left to the x rows the gathers reuse.
+__device__ __forceinline__ int4 ld_stream(const int4* p) {
+  int4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+      : "l"(p));
+  return r;
 }
 
-template <int G>
-cudaError_t launch(const int* col, const float* vals, const float* x, float* y, int m, int n,
-                   int kmax, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kThreads / G;
-  const unsigned blocks =
-      static_cast<unsigned>((static_cast<int64_t>(m) + kRowsPerBlock - 1) / kRowsPerBlock);
-  ell_kernel<G><<<blocks, kThreads, 0, stream>>>(col, vals, x, y, m, n, kmax);
-  return cudaGetLastError();
+__device__ __forceinline__ float x_at(const float* x, int c, int n) {
+  return (c >= 0 && c < n) ? __ldg(x + c) : 0.f;
+}
+
+__device__ __forceinline__ float get(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int get(const int4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
+           const float* __restrict__ x, float* __restrict__ y, int m, int n, int kmax,
+           int phase, bool vec) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kLanes;
+  // a warp's rows are consecutive: it runs while its first row is in range,
+  // so all 32 lanes take part in every shuffle
+  int64_t warp_first = i - (threadIdx.x % 32) / kLanes;
+  for (; warp_first < m; warp_first += stride, i += stride) {
+    const bool active = i < m;
+    const int64_t base = i * kmax;
+    // head slots up to the row's first 16-byte boundary, vectors, tail
+    const int h = active ? min(static_cast<int>((4 - ((phase + base) & 3)) & 3), kmax) : 0;
+    const int nv = active ? (kmax - h) / 4 : 0;
+    const int tail = active ? (kmax - h) % 4 : 0;
+    const int* crow = col + base;
+    const float* vrow = vals + base;
+
+    // the head and tail slots are loaded with the first batch
+    float hv = 0.f, tv = 0.f;
+    int hc = 0, tc = 0;
+    if (lane < h) {
+      hv = __ldg(vrow + lane);
+      hc = __ldg(crow + lane);
+    }
+    const bool has_tail = lane >= 4 && lane - 4 < tail;
+    if (has_tail) {
+      tv = __ldg(vrow + h + 4 * nv + lane - 4);
+      tc = __ldg(crow + h + 4 * nv + lane - 4);
+    }
+    float acc = 0.f;
+    if (nv == 0 && lane < h) acc = __fmaf_rn(hv, x_at(x, hc, n), acc);   // no vector
+    for (int v0 = 0; v0 < nv; v0 += kU * kLanes) {
+      float4 v[kU];
+      int4 c[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int w = h + 4 * (v0 + lane + kLanes * u);
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        c[u] = make_int4(0, 0, 0, 0);
+        if (v0 + lane + kLanes * u >= nv) continue;
+        if (vec) {
+          v[u] = ld_stream(reinterpret_cast<const float4*>(vrow + w));
+          c[u] = ld_stream(reinterpret_cast<const int4*>(crow + w));
+        } else {
+          v[u] = make_float4(__ldg(vrow + w), __ldg(vrow + w + 1), __ldg(vrow + w + 2),
+                             __ldg(vrow + w + 3));
+          c[u] = make_int4(__ldg(crow + w), __ldg(crow + w + 1), __ldg(crow + w + 2),
+                           __ldg(crow + w + 3));
+        }
+      }
+      if (v0 == 0 && lane < h) acc = __fmaf_rn(hv, x_at(x, hc, n), acc);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (v0 + lane + kLanes * u >= nv) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc = __fmaf_rn(get(v[u], e), x_at(x, get(c[u], e), n), acc);
+      }
+    }
+    if (has_tail) acc = __fmaf_rn(tv, x_at(x, tc, n), acc);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off, kLanes));
+    if (active && lane == 0) y[i] = acc;
+  }
+}
+
+// Blocks of the kernel that fit on the current card at once: the grid of a
+// launch that walks the rows.
+int resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_kernel, kThreads, 0);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
 }  // namespace
@@ -92,17 +185,16 @@ int repro_spmv_ell(const int* col, const float* vals, const float* x, float* y, 
                    int kmax, void* stream) {
   if (m < 0 || n < 0 || kmax < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int group = 1;
-  while (group < kmax && group < 32) group *= 2;
-  switch (group) {
-    case 1: return static_cast<int>(launch<1>(col, vals, x, y, m, n, kmax, st));
-    case 2: return static_cast<int>(launch<2>(col, vals, x, y, m, n, kmax, st));
-    case 4: return static_cast<int>(launch<4>(col, vals, x, y, m, n, kmax, st));
-    case 8: return static_cast<int>(launch<8>(col, vals, x, y, m, n, kmax, st));
-    case 16: return static_cast<int>(launch<16>(col, vals, x, y, m, n, kmax, st));
-    default: return static_cast<int>(launch<32>(col, vals, x, y, m, n, kmax, st));
-  }
+  const long long cap = resident_blocks();
+  const long long need = (static_cast<long long>(m) + kRowsPerBlock - 1) / kRowsPerBlock;
+  const uintptr_t c = reinterpret_cast<uintptr_t>(col), v = reinterpret_cast<uintptr_t>(vals);
+  // the head is cut at the column array's 16-byte boundaries; vectors of
+  // values need the value array at the same phase
+  const int phase = static_cast<int>((c >> 2) & 3);
+  const bool vec = (c & 3) == 0 && (v & 3) == 0 && ((c - v) & 15) == 0;
+  ell_kernel<<<static_cast<unsigned>(need < cap ? need : cap), kThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(col, vals, x, y, m, n, kmax, phase, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_ell_error_string(int code) {

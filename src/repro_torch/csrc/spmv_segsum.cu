@@ -12,44 +12,70 @@
 // val_scale[t, s / group], and every product and sum is in f32.  Rows no
 // slot belongs to (empty rows) come out 0.
 //
-// Bound: bytes.  SpMV does 2 flops per slot and column and reads 9-12
-// bytes per slot, far below the card's ~20 flops per byte of float32
-// balance, so the least time is the bytes the work must move over the
-// memory rate.
+// Bound: bytes.  SpMV does 2 flops per slot and column and reads 5-8 bytes
+// per slot, far below the card's ~20 flops per byte of float32 balance, so
+// the least time is the bytes the work must move over the memory rate.  On
+// a matrix whose columns are spread over an x larger than L1 (powerlaw_zipf:
+// 1 MB of x, uniform columns) each slot's x gather is also a 32-byte L2
+// sector; that traffic, not HBM, is the likeliest limit (a hypothesis: no
+// counter has measured it on the card).
 //
 // Design: two launches on the caller's stream.
-//   * Chunk pass, one block of 128 threads per chunk.  Only the chunk's
-//     real slots [0, n_t) are read, n_t = min(S, nnz - t*S): the tail
-//     chunk's padding slots are skipped, not multiplied by x[0].  The
-//     block loads the chunk's local segment ids into shared memory and
-//     finds where each segment starts.  Then each thread loads values and
-//     columns of slots tid, tid+128, ... (coalesced, four slots in flight
-//     per thread), gathers x through the read-only path and L2 (x is not
-//     staged), and writes the products to shared memory.  Then one warp
-//     per segment sums them: lane l adds the segment's slots l, l+32, ...
-//     in increasing order, then a fixed shuffle tree sums the lanes.
+//   * Chunk pass: resident blocks of 8 warps, each warp walking chunks t,
+//     t + warps, ...  A chunk's segment structure comes from the container's
+//     segment-start table (SegSumCSR.seg_start: each chunk's L_t starts, a
+//     few MB in all), never from local_seg, which is 4 bytes a slot; its
+//     real slot count n_t = min(S, nnz - t S) is computed.  The table
+//     entries, the first 32 seg_row entries, the neighbours' rows and (int8)
+//     the scales of the next chunk are loaded a chunk ahead, into registers,
+//     so no dependent load waits in the loop.  They become a bit mask of the
+//     starts (and of n_t, where the tail chunk's padding begins) in shared
+//     memory (one word per 32 slots, with prefix popcounts, so a slot's
+//     segment index is a popcount).
+//   * A chunk is read in rounds of 128 slots: lane l takes the 4-slot vector
+//     at slots 4l..4l+3 of the round, one 16-byte load of columns and one
+//     16-, 8- or 4-byte load of values, kept packed until it is summed and
+//     not allocated in L1, which is left to x (the kernel also asks for no
+//     more shared memory than it uses).  Only the real slots [0, n_t) are
+//     read: the tail chunk's padding is skipped.  x is gathered through
+//     the read-only path, up to 8 columns of an x row at B > 1 (float4
+//     where aligned).  The kernel is held to 64 registers at B = 1; loads
+//     of more rounds in flight spilled and ran slower (PERF.md).
+//   * A lane sums its 4 products in slot order (__fmul_rn products,
+//     __fadd_rn sums); a segment that starts and ends inside the lane is
+//     written there.  The part open at the lane's end goes into a segmented
+//     scan across the warp's lanes (a Hillis-Steele tree whose steps are
+//     fixed by the start flags), which also takes the part carried from the
+//     round before.  A lane holding a start closes the segment open before
+//     it: that sum is the scan's value one lane down plus the lane's own
+//     part before its first start.  So a segment's sum is taken in an order
+//     fixed by the matrix alone, but not in slot order: it agrees with a
+//     sequential sum within the bound (2 k_i + 2) eps32 (|A| |x|)_i, not
+//     bit for bit.
 //   * A segment whose row lies wholly in the chunk is written straight to
 //     y.  A segment that continues from the previous chunk (only segment 0
 //     can) or into the next one (only the last real segment can) is a
 //     fragment: its sum goes to part[t, 0] (segment 0) or part[t, 1] (the
-//     last segment), and nothing is written to y.  Only the real segments
-//     are visited: R counts the worst chunk's segments, most chunks have
-//     far fewer, and the unused ones (seg_row == m) are never read.
-//   * The same warps write 0 to the rows between one segment's row and the
-//     next (and, in the last chunk, after the last row; with no nnz, all
-//     rows).  So every row of y is written exactly once and y needs no
-//     clearing: empty rows are 0 whatever the memory held before.
+//     last segment), and nothing is written to y.
+//   * The warp writes 0 to the rows between one segment's row and the next
+//     (and, in the last chunk, after the last row; with no nnz, all rows).
+//     So every row of y is written exactly once and y needs no clearing:
+//     empty rows are 0 whatever the memory held before.
+//   * int8: a scale group of whole rounds (every container's is 128 slots)
+//     gives each round one scale, taken by a shuffle from the lane that
+//     loaded it a chunk ahead: no load and no divide in the slot loop.
+//     Other groups take one scale load per slot.
 //   * Carry pass, one warp per row that spans chunks, from the container's
 //     carry list (row, first fragment, last chunk; built on the host with
-//     the chunks), so the pass never walks chunk boundaries.  The warp sums
-//     the row's fragments as a segment is summed (lane-strided, then the
-//     shuffle tree) and writes y[row]: the hub row of a power-law matrix
-//     has a hundred fragments.
-//   * Deterministic sums, no float atomics: every sum is taken in an order
-//     fixed by the matrix alone.  Column j takes the same operations in the
-//     same order whatever B is, so repeat launches are bit-equal and column
-//     j of an [n, B] launch equals an [n] launch on x[:, j].  At B > 1 the
-//     block takes up to 8 columns per pass.
+//     the chunks), so the pass never walks chunk boundaries.  Lane l adds
+//     the row's fragments l, l+32, ... in order, then a fixed shuffle tree
+//     sums the lanes: the hub row of a power-law matrix has a hundred
+//     fragments.
+//   * Deterministic sums, no float atomics (the start mask is built with
+//     integer atomics in shared memory, whose result does not depend on
+//     their order).  Column j takes the same operations in the same order
+//     whatever B is, so repeat launches are bit-equal and column j of an
+//     [n, B] launch equals an [n] launch on x[:, j].
 //
 // Plain C interface (loaded with ctypes); the launches are asynchronous on
 // the caller's stream and the function returns cudaGetLastError().
@@ -61,29 +87,100 @@
 
 namespace {
 
-constexpr int kThreads = 128;             // chunk pass: four warps per chunk
+constexpr int kThreads = 256;             // chunk pass: 8 warps, one chunk each at a time
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;                // slots whose loads a thread keeps in flight
-constexpr int kMaxCols = 8;               // columns a block sums per pass at B > 1
+constexpr int kRound = 128;               // chunks hold a multiple of 128 slots
+constexpr int kMaxCols = 8;               // columns a warp sums per pass at B > 1
 constexpr int kCarryThreads = 256;
 constexpr int kDefaultSmem = 48 * 1024;   // above this, dynamic shared memory needs opt-in
+constexpr size_t kSmemPerSm = 228 * 1024; // an H100 SM's shared memory at most
+constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i, float) {
-  return __ldg(v + i);
+// Loads of the nnz streams, read once: through the read-only path without
+// allocating in L1, which is left to the x rows the gathers reuse.
+__device__ __forceinline__ int4 ld_stream(const int4* p) {
+  int4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint2 ld_stream(const uint2* p) {
+  uint2 r;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(r.x), "=r"(r.y) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ int ld_stream(const int* p) {
+  int r;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
 }
 
-__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i, float) {
-  return __bfloat162float(v[i]);
-}
+// Four consecutive slots of values as loaded, unpacked only when summed: f32
+// as a float4, bf16 as a uint2, int8 codes as an int.
+template <typename V> struct Values4;
 
-__device__ __forceinline__ float load_value(const int8_t* v, int64_t i, float scale) {
-  return __fmul_rn(static_cast<float>(__ldg(v + i)), scale);
+template <> struct Values4<float> {
+  float4 r;
+  __device__ void clear() { r = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ void load(const float* v, int64_t i) {
+    r = ld_stream(reinterpret_cast<const float4*>(v + i));
+  }
+  __device__ void load_one(const float* v, int64_t i, int e) {
+    const float f = __ldg(v + i);
+    if (e == 0) r.x = f;
+    if (e == 1) r.y = f;
+    if (e == 2) r.z = f;
+    if (e == 3) r.w = f;
+  }
+  __device__ float get(int e) const { return e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w; }
+};
+
+template <> struct Values4<__nv_bfloat16> {
+  uint2 r;
+  __device__ void clear() { r = make_uint2(0u, 0u); }
+  __device__ void load(const __nv_bfloat16* v, int64_t i) {
+    r = ld_stream(reinterpret_cast<const uint2*>(v + i));
+  }
+  __device__ void load_one(const __nv_bfloat16* v, int64_t i, int e) {
+    const unsigned h = __ldg(reinterpret_cast<const unsigned short*>(v) + i);
+    unsigned& word = e < 2 ? r.x : r.y;
+    word = e % 2 ? (word & 0xffffu) | (h << 16) : (word & 0xffff0000u) | h;
+  }
+  __device__ float get(int e) const {
+    const unsigned word = e < 2 ? r.x : r.y;
+    return __uint_as_float(e % 2 ? word & 0xffff0000u : word << 16);
+  }
+};
+
+template <> struct Values4<int8_t> {
+  int r;
+  __device__ void clear() { r = 0; }
+  __device__ void load(const int8_t* v, int64_t i) {
+    r = ld_stream(reinterpret_cast<const int*>(v + i));
+  }
+  __device__ void load_one(const int8_t* v, int64_t i, int e) {
+    const int b = __ldg(reinterpret_cast<const unsigned char*>(v) + i);
+    r = (r & ~(0xff << (8 * e))) | (b << (8 * e));
+  }
+  __device__ float get(int e) const { return static_cast<float>((r << (24 - 8 * e)) >> 24); }
+};
+
+__device__ __forceinline__ int pick(const int4& c, int e) {
+  return e == 0 ? c.x : e == 1 ? c.y : e == 2 ? c.z : c.w;
 }
 
 // Fixed reduction tree over the warp; lane 0 holds the sum.
 __device__ __forceinline__ float warp_sum(float a) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) a = __fadd_rn(a, __shfl_down_sync(0xffffffffu, a, off));
+  for (int off = 16; off > 0; off >>= 1) a = __fadd_rn(a, __shfl_down_sync(kAll, a, off));
   return a;
 }
 
@@ -101,135 +198,289 @@ __device__ __forceinline__ void zero_rows(float* y, int lo, int hi, int B, int j
   }
 }
 
+// A chunk's segment structure as one lane holds it, loaded a chunk ahead:
+// the table offsets of its list, its start and row number `lane` (the first
+// 32), the last row of the chunk before, the first of the chunk after and,
+// for int8 with at most 32 scale groups, the scale of group `lane`.
+struct ChunkMeta {
+  int p0, p1, st, row, prev_row, next_row;
+  float scale;
+};
+
+__device__ __forceinline__ ChunkMeta load_meta(const int* table, const int* seg_row,
+                                               const float* val_scale, int groups, int t,
+                                               int q_prev, int q_cur, int q_next, int T, int S,
+                                               int R, long long nnz, int lane) {
+  ChunkMeta c{q_cur, q_next, -1, 0, -1, -1, 1.f};
+  if (t >= T) return c;
+  if (val_scale != nullptr && groups <= 32 && lane < groups)
+    c.scale = __ldg(val_scale + static_cast<int64_t>(t) * groups + lane);
+  const int L = max(min(q_next - q_cur, min(R, real_slots(t, S, nnz))), 0);
+  if (lane < L) {
+    c.st = __ldg(table + q_cur + lane);
+    c.row = __ldg(seg_row + static_cast<int64_t>(t) * R + lane);
+  }
+  const int lp = q_cur - q_prev;   // real segments of chunk t - 1
+  if (t > 0 && lp > 0) c.prev_row = __ldg(seg_row + static_cast<int64_t>(t - 1) * R + lp - 1);
+  if (t + 1 < T && real_slots(t + 1, S, nnz) > 0)
+    c.next_row = __ldg(seg_row + static_cast<int64_t>(t + 1) * R);
+  return c;
+}
+
+// Where chunk t's segment sums go: y for a row that lies wholly in the chunk,
+// part[t, 0] or part[t, 1] for a fragment, nowhere for the dump row.
+struct ChunkOut {
+  const int* rows;   // [L] the chunk's real segments' rows (shared memory)
+  int L, prev_row, next_row, m, B, t;
+  float* y;
+  float* part;
+  __device__ float* dst(int k) const {
+    const int row = rows[k];
+    if (row < 0 || row >= m) return nullptr;   // dump row (a malformed container only)
+    if ((k == 0 && row == prev_row) || (k == L - 1 && row == next_row))
+      return part + (static_cast<int64_t>(t) * 2 + (k == 0 ? 0 : 1)) * B;
+    return y + static_cast<int64_t>(row) * B;
+  }
+};
+
+// Load lane `lane`'s 4-slot vector of round r of chunk t (slots 128 r +
+// 4 lane .. + 3, only those below n_t): values packed, columns.
+template <typename V>
+__device__ __forceinline__ void load_slots(Values4<V>& v, int4& c, const V* vals,
+                                           const int* cols, int64_t base, int s, int n,
+                                           bool vec) {
+  v.clear();
+  c = make_int4(0, 0, 0, 0);
+  if (s >= n) return;
+  if (vec && s + 4 <= n) {
+    v.load(vals, base + s);
+    c = ld_stream(reinterpret_cast<const int4*>(cols + base + s));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (s + e < n) {
+      v.load_one(vals, base + s + e, e);
+      const int ce = __ldg(cols + base + s + e);
+      if (e == 0) c.x = ce;
+      if (e == 1) c.y = ce;
+      if (e == 2) c.z = ce;
+      if (e == 3) c.w = ce;
+    }
+  }
+}
+
 template <typename V, bool kScaled, int NB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, NB == 1 ? 4 : 2)
 segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
-                    const int* __restrict__ lseg, const int* __restrict__ seg_row,
+                    const int* __restrict__ table, const int* __restrict__ seg_row,
                     const float* __restrict__ val_scale, int groups, int group,
                     const float* __restrict__ x, long long x_rows, int B,
                     float* __restrict__ y, float* __restrict__ part, int m, int T, int S,
-                    int R, long long nnz) {
-  extern __shared__ float smem[];
-  float* prod = smem;                                   // [NB][S] slot products
-  int* seg = reinterpret_cast<int*>(prod + S * NB);     // [S] local segment ids
-  int* start = seg + S;                                 // [S + 1] segment starts
-  __shared__ int s_prev_row, s_next_row;
+                    int R, long long nnz, bool vec) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int words = S / 32;
+  // this warp's shared memory: start mask, prefix popcounts, segment rows
+  unsigned* mask = reinterpret_cast<unsigned*>(smem) + (threadIdx.x >> 5) * (2 * words + R);
+  int* cnt = reinterpret_cast<int*>(mask + words);
+  int* rows = cnt + words;
+  const int rounds = S / kRound;
+  const int stride = gridDim.x * kWarps;
+  // x rows can be read as float4 when 16-byte aligned
+  const bool x4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // int8: a scale group of whole rounds gives each round one scale
+  const bool round_scale = kScaled && group % kRound == 0;
+  const int group_rounds = round_scale ? group / kRound : 1;
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t base = static_cast<int64_t>(t) * S;
-  const int n_t = real_slots(t, S, nnz);
-
-  // 1. segment structure of the chunk
-  for (int s = tid; s < n_t; s += kThreads) seg[s] = __ldg(lseg + base + s);
-  if (tid == 0) {
-    // last row of the previous chunk (full, so its last slot is real) and
-    // first row of the next chunk; -1 where there is none
-    s_prev_row = t > 0 ? __ldg(seg_row + static_cast<int64_t>(t - 1) * R +
-                               __ldg(lseg + base - 1))
-                       : -1;
-    s_next_row = t + 1 < T ? __ldg(seg_row + static_cast<int64_t>(t + 1) * R) : -1;
+  int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= T) return;
+  // the first chunk's structure; the table offsets of the one after it
+  int q_prev = t > 0 ? __ldg(table + t - 1) : 0, q_cur = __ldg(table + t),
+      q_next = __ldg(table + t + 1);
+  ChunkMeta cur =
+      load_meta(table, seg_row, val_scale, groups, t, q_prev, q_cur, q_next, T, S, R, nnz, lane);
+  if (t + stride < T) {
+    q_prev = __ldg(table + t + stride - 1);
+    q_cur = __ldg(table + t + stride);
+    q_next = __ldg(table + t + stride + 1);
   }
-  __syncthreads();
-  for (int s = tid; s < n_t; s += kThreads) {
-    const int k = seg[s];
-    if ((s == 0 || k != seg[s - 1]) && k >= 0 && k < S) start[k] = s;
-  }
-  const int L = n_t > 0 ? min(min(seg[n_t - 1] + 1, R), n_t) : 0;   // real segments
-  if (tid == 0) start[L] = n_t;
-  __syncthreads();
-  const int prev_row = s_prev_row;
-  const int next_row = s_next_row;
+  for (; t < T; t += stride) {
+    const int tn = t + stride;
+    const int n_t = real_slots(t, S, nnz);
+    const int64_t base = static_cast<int64_t>(t) * S;
+    const int L = max(min(cur.p1 - cur.p0, min(R, n_t)), 0);   // real segments
+    Values4<V> v;
+    int4 c;
+    load_slots(v, c, vals, cols, base, 4 * lane, n_t, vec);
 
-  // vec4: x rows can be read as float4
-  const bool vec4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  for (int j0 = 0; j0 < B; j0 += NB) {
-    const int nb = min(NB, B - j0);
-
-    // 2. products of the real slots
-    for (int s0 = tid; s0 < n_t; s0 += kThreads * kUnroll) {
-      float v[kUnroll];
-      int64_t col[kUnroll];
+    // the next chunk's structure, and the table offsets of the one after
+    const ChunkMeta nxt = load_meta(table, seg_row, val_scale, groups, tn, q_prev, q_cur, q_next,
+                                    T, S, R, nnz, lane);
+    if (tn + stride < T) {
+      q_prev = __ldg(table + tn + stride - 1);
+      q_cur = __ldg(table + tn + stride);
+      q_next = __ldg(table + tn + stride + 1);
+    }
+    // this chunk's rows, and a mask of the starts of its real segments and
+    // of n_t (the tail chunk's padding is a segment of its own, never
+    // written)
+    for (int w = lane; w < words; w += 32) mask[w] = 0u;
+    if (lane < L) rows[lane] = cur.row;
+    for (int k = lane + 32; k < L; k += 32)
+      rows[k] = __ldg(seg_row + static_cast<int64_t>(t) * R + k);
+    __syncwarp();
+    for (int k = lane; k < L; k += 32) {
+      const int st = k < 32 ? cur.st : __ldg(table + cur.p0 + k);
+      if (st >= 0 && st < S) atomicOr(mask + (st >> 5), 1u << (st & 31));
+    }
+    if (lane == 0 && n_t < S) atomicOr(mask + (n_t >> 5), 1u << (n_t & 31));
+    __syncwarp();
+    int run = 0;
+    for (int w0 = 0; w0 < words; w0 += 32) {
+      const int w = w0 + lane;
+      const int own = w < words ? __popc(mask[w]) : 0;
+      int inc = own;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * kThreads;
-        v[u] = 0.f;
-        col[u] = -1;
-        if (s < n_t) {
-          const float scale = kScaled ? __ldg(val_scale + t * static_cast<int64_t>(groups) +
-                                              s / group)
-                                      : 1.f;
-          v[u] = load_value(vals, base + s, scale);
-          col[u] = __ldg(cols + base + s);
-        }
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kAll, inc, d);
+        if (lane >= d) inc += o;
       }
+      if (w < words) cnt[w] = run + inc - own;
+      run += __shfl_sync(kAll, inc, 31);
+    }
+    __syncwarp();
+    const ChunkOut out{rows, L, cur.prev_row, cur.next_row, m, B, t, y, part};
+
+    for (int j0 = 0; j0 < B; j0 += NB) {
+      const int nb = min(NB, B - j0);
+      float carry[NB];   // the sum open at the end of the previous round
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * kThreads;
-        if (s >= n_t) break;
-        const bool in = col[u] >= 0 && col[u] < x_rows;
-        const float* xr = x + (in ? col[u] : 0) * B + j0;
-        float* p = prod + s;   // column k at p[k * S]: a warp's lanes hit distinct banks
-        if (NB == 1) {
-          p[0] = __fmul_rn(v[u], in ? __ldg(xr) : 0.f);
-        } else if (vec4 && nb == NB) {
-#pragma unroll
-          for (int k = 0; k < NB; k += 4) {
-            const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-            p[k * S] = __fmul_rn(v[u], xv.x);
-            p[(k + 1) * S] = __fmul_rn(v[u], xv.y);
-            p[(k + 2) * S] = __fmul_rn(v[u], xv.z);
-            p[(k + 3) * S] = __fmul_rn(v[u], xv.w);
+      for (int k = 0; k < NB; ++k) carry[k] = 0.f;
+      int g = 0, g_left = group_rounds;          // the round's scale group
+      for (int r = 0; r < rounds; ++r) {
+        const int s = r * kRound + 4 * lane;
+        if (r > 0 || j0 > 0) load_slots(v, c, vals, cols, base, s, n_t, vec);
+
+        // products of the lane's 4 slots (0 past n_t, where nothing is read)
+        float sc = 1.f;
+        if (round_scale) {
+          sc = groups <= 32 ? __shfl_sync(kAll, cur.scale, g)
+                            : __ldg(val_scale + static_cast<int64_t>(t) * groups + g);
+          if (--g_left == 0) {
+            ++g;
+            g_left = group_rounds;
           }
-        } else {
+        }
+        float p[4][NB];
 #pragma unroll
-          for (int k = 0; k < NB; ++k) {
-            if (k < nb) p[k * S] = __fmul_rn(v[u], in ? __ldg(xr + k) : 0.f);
+        for (int e = 0; e < 4; ++e) {
+          const bool real = s + e < n_t;
+          float val = v.get(e);
+          if (kScaled)
+            val = __fmul_rn(val, round_scale ? sc
+                                 : real ? __ldg(val_scale + static_cast<int64_t>(t) * groups +
+                                                (s + e) / group)
+                                        : 0.f);
+          const int cc = pick(c, e);
+          const bool in = real && cc >= 0 && cc < x_rows;
+          if (NB == 1) {
+            p[e][0] = __fmul_rn(val, in ? __ldg(x + cc) : 0.f);
+            continue;
+          }
+          const float* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
+          if (x4 && nb == NB) {
+#pragma unroll
+            for (int k = 0; k < NB; k += 4) {
+              const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+              p[e][k] = __fmul_rn(val, xv.x);
+              p[e][k + 1] = __fmul_rn(val, xv.y);
+              p[e][k + 2] = __fmul_rn(val, xv.z);
+              p[e][k + 3] = __fmul_rn(val, xv.w);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < NB; ++k)
+              p[e][k] = __fmul_rn(val, in && k < nb ? __ldg(xr + k) : 0.f);
           }
         }
-      }
-    }
-    __syncthreads();
 
-    // 3. one warp per real segment
-    for (int k = warp; k < L; k += kWarps) {
-      const int row = __ldg(seg_row + static_cast<int64_t>(t) * R + k);
-      const int lo = start[k], hi = start[k + 1];
-      float acc[NB];
-#pragma unroll
-      for (int c = 0; c < NB; ++c) acc[c] = 0.f;
-      for (int s = lo + lane; s < hi; s += 32) {
-#pragma unroll
-        for (int c = 0; c < NB; ++c) acc[c] = __fadd_rn(acc[c], prod[c * S + s]);
-      }
-#pragma unroll
-      for (int c = 0; c < NB; ++c) acc[c] = warp_sum(acc[c]);
-      if (row < 0 || row >= m) continue;   // dump row (a malformed container only)
+        const unsigned word = mask[s >> 5];
+        const int b = s & 31;
+        const int nib = (word >> b) & 0xf;   // which of the lane's slots start a segment
+        const int kb = cnt[s >> 5] + __popc(word & ((1u << b) - 1u));   // starts before s
 
-      const bool head = k == 0 && row == prev_row;
-      const bool tail = k == L - 1 && row == next_row;
-      if (lane == 0) {
-        float* dst = (head || tail)
-                         ? part + (static_cast<int64_t>(t) * 2 + (k == 0 ? 0 : 1)) * B
-                         : y + static_cast<int64_t>(row) * B;
+        // in the lane: the part before its first start (head), the segments
+        // that start and end here (written), the part open at its end (acc)
+        float acc[NB], head[NB];
 #pragma unroll
-        for (int c = 0; c < NB; ++c) {
-          if (c < nb) dst[j0 + c] = acc[c];
+        for (int k = 0; k < NB; ++k) acc[k] = head[k] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool st = (nib >> e) & 1;
+          if (st && e > 0) {
+            if (nib & ((1 << e) - 1)) {
+              float* d = out.dst(kb + __popc(nib & ((1 << e) - 1)) - 1);
+              if (d != nullptr) {
+#pragma unroll
+                for (int k = 0; k < NB; ++k)
+                  if (k < nb) d[j0 + k] = acc[k];
+              }
+            } else {
+#pragma unroll
+              for (int k = 0; k < NB; ++k) head[k] = acc[k];
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < NB; ++k)
+            acc[k] = (e == 0 || st) ? p[e][k] : __fadd_rn(acc[k], p[e][k]);
+        }
+
+        // across the lanes: a segmented scan of the open parts and the round
+        // before's, then each lane with a start closes the segment open
+        // before it
+        const unsigned flags = __ballot_sync(kAll, nib != 0);
+        float* close = (nib != 0 && kb > 0) ? out.dst(kb - 1) : nullptr;
+        const bool has_head = (nib & 1) == 0;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          float a = acc[k];
+          if (lane == 0 && nib == 0) a = __fadd_rn(carry[k], a);
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const float o = __shfl_up_sync(kAll, a, d);
+            if (lane >= d && ((flags >> (lane - d + 1)) & ((1u << d) - 1u)) == 0u)
+              a = __fadd_rn(o, a);
+          }
+          float before = __shfl_up_sync(kAll, a, 1);
+          if (lane == 0) before = carry[k];
+          if (close != nullptr && k < nb)
+            close[j0 + k] = has_head ? __fadd_rn(before, head[k]) : before;
+          carry[k] = __shfl_sync(kAll, a, 31);
         }
       }
-      // empty rows before this segment's row; after the last row in the last chunk
-      const int before = k == 0 ? prev_row
-                                : __ldg(seg_row + static_cast<int64_t>(t) * R + k - 1);
-      zero_rows(y, max(before + 1, 0), row, B, j0, nb, lane);
-      if (t == T - 1 && k == L - 1) zero_rows(y, row + 1, m, B, j0, nb, lane);
+      // the segment open at the chunk's end: the last real one when the
+      // chunk is full, else the padding's
+      if (lane == 0 && n_t == S && L > 0) {
+        float* d = out.dst(L - 1);
+        if (d != nullptr) {
+#pragma unroll
+          for (int k = 0; k < NB; ++k)
+            if (k < nb) d[j0 + k] = carry[k];
+        }
+      }
+
+      // empty rows before each segment's row; after the last row in the last chunk
+      for (int k = 0; k < L; ++k) {
+        const int lo = (k == 0 ? cur.prev_row : rows[k - 1]) + 1;
+        if (lo < rows[k]) zero_rows(y, max(lo, 0), rows[k], B, j0, nb, lane);
+      }
+      if (t == T - 1)
+        zero_rows(y, max((L > 0 ? rows[L - 1] : cur.prev_row) + 1, 0), m, B, j0, nb, lane);
     }
-    if (L == 0 && t == T - 1 && warp == 0) {
-      zero_rows(y, max(prev_row + 1, 0), m, B, j0, nb, lane);   // no real slot left
-    }
-    __syncthreads();   // prod is rewritten by the next column group
+    cur = nxt;
+    __syncwarp();                               // the mask and rows are read
   }
 }
 
@@ -270,34 +521,58 @@ segsum_carry_kernel(const int* __restrict__ carry, int P, const float* __restric
   }
 }
 
+// Blocks of one chunk-pass instance that fit on the current card at once:
+// the grid of a launch whose warps walk the chunks.
 template <typename V, bool kScaled, int NB>
-cudaError_t launch_chunks(const void* vals, const int* cols, const int* lseg, const int* seg_row,
-                          const float* val_scale, int groups, const float* x,
-                          long long x_rows, int B, float* y, float* part, int m, int T, int S,
-                          int R, long long nnz, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(S) * NB + 2 * static_cast<size_t>(S) + 1) * 4;
+int resident_blocks(size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segsum_chunk_kernel<V, kScaled, NB>,
+                                                kThreads, smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+template <typename V, bool kScaled, int NB>
+cudaError_t launch_chunks(const void* vals, const int* cols, const int* table,
+                          const int* seg_row, const float* val_scale, int groups,
+                          const float* x, long long x_rows, int B, float* y, float* part, int m,
+                          int T, int S, int R, long long nnz, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kWarps) * (2 * (S / 32) + R) * 4;
   auto kernel = segsum_chunk_kernel<V, kScaled, NB>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  // ask for no more shared memory than the resident blocks use (1 KB each
+  // reserved besides), so L1 keeps as much of x as it can for the gathers
+  const size_t resident = (smem + 1024) * (NB == 1 ? 4 : 2);
+  const int percent = static_cast<int>(
+      resident >= kSmemPerSm ? 100 : (resident * 100 + kSmemPerSm - 1) / kSmemPerSm);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, percent);
+  const long long cap = resident_blocks<V, kScaled, NB>(smem);
+  const long long need = (static_cast<long long>(T) + kWarps - 1) / kWarps;
   const int group = groups > 0 ? S / groups : 1;
-  kernel<<<T, kThreads, smem, stream>>>(static_cast<const V*>(vals), cols, lseg, seg_row,
-                                        val_scale, groups, group, x, x_rows, B, y, part, m, T,
-                                        S, R, nnz);
+  const V* v = static_cast<const V*>(vals);
+  // 16-byte column vectors and 4-slot value vectors need aligned bases
+  const bool vec = (reinterpret_cast<uintptr_t>(cols) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v) & (4 * sizeof(V) - 1)) == 0;
+  kernel<<<static_cast<unsigned>(need < cap ? need : cap), kThreads, smem, stream>>>(
+      v, cols, table, seg_row, val_scale, groups, group, x, x_rows, B, y, part, m, T, S, R,
+      nnz, vec);
   return cudaGetLastError();
 }
 
 template <typename V, bool kScaled>
-cudaError_t launch(const void* vals, const int* cols, const int* lseg, const int* seg_row,
+cudaError_t launch(const void* vals, const int* cols, const int* table, const int* seg_row,
                    const int* carry, int P, const float* val_scale, int groups, const float* x,
                    long long x_rows, int B, float* y, float* part, int m, int T, int S, int R,
                    long long nnz, cudaStream_t stream) {
   const cudaError_t err =
-      B == 1 ? launch_chunks<V, kScaled, 1>(vals, cols, lseg, seg_row, val_scale, groups, x,
+      B == 1 ? launch_chunks<V, kScaled, 1>(vals, cols, table, seg_row, val_scale, groups, x,
                                             x_rows, B, y, part, m, T, S, R, nnz, stream)
-             : launch_chunks<V, kScaled, kMaxCols>(vals, cols, lseg, seg_row, val_scale,
+             : launch_chunks<V, kScaled, kMaxCols>(vals, cols, table, seg_row, val_scale,
                                                    groups, x, x_rows, B, y, part, m, T, S,
                                                    R, nnz, stream);
   if (err != cudaSuccess || P == 0) return err;
@@ -312,31 +587,32 @@ cudaError_t launch(const void* vals, const int* cols, const int* lseg, const int
 extern "C" {
 
 // value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required).
-// vals / cols / lseg: [T, S]; seg_row: [T, R]; val_scale: [T, groups];
-// carry: [P, 3] (row, first fragment slot, last chunk) of the rows that
-// span chunks; x: [x_rows, B]; y: [m, B]; part: [T, 2, B] scratch; nnz: real
-// slots.
-int repro_spmv_segsum(int value_kind, const void* vals, const int* cols, const int* lseg,
+// vals / cols: [T, S] with S a multiple of 128; seg_start: the segment-start
+// table, [T + 1] offsets into itself, then each chunk's L_t starts;
+// seg_row: [T, R]; val_scale: [T, groups]; carry: [P, 3] (row, first
+// fragment slot, last chunk) of the rows that span chunks; x: [x_rows, B];
+// y: [m, B]; part: [T, 2, B] scratch; nnz: real slots.
+int repro_spmv_segsum(int value_kind, const void* vals, const int* cols, const int* seg_start,
                       const int* seg_row, const int* carry, int P, const float* val_scale,
                       int groups, const float* x, long long x_rows, int B, float* y,
                       float* part, int m, int T, int S, int R, long long nnz, void* stream) {
-  if (T <= 0 || S < 1 || R < 1 || B < 1 || m < 0 || P < 0 || nnz < 0 ||
+  if (T <= 0 || S < kRound || S % kRound || R < 1 || B < 1 || m < 0 || P < 0 || nnz < 0 ||
       nnz > static_cast<long long>(T) * S)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (value_kind) {
     case 0:
-      return static_cast<int>(launch<float, false>(vals, cols, lseg, seg_row, carry, P, nullptr,
-                                                   0, x, x_rows, B, y, part, m, T, S, R, nnz,
-                                                   st));
+      return static_cast<int>(launch<float, false>(vals, cols, seg_start, seg_row, carry, P,
+                                                   nullptr, 0, x, x_rows, B, y, part, m, T, S,
+                                                   R, nnz, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16, false>(vals, cols, lseg, seg_row, carry, P,
-                                                           nullptr, 0, x, x_rows, B, y, part,
-                                                           m, T, S, R, nnz, st));
+      return static_cast<int>(launch<__nv_bfloat16, false>(vals, cols, seg_start, seg_row,
+                                                           carry, P, nullptr, 0, x, x_rows, B,
+                                                           y, part, m, T, S, R, nnz, st));
     case 2:
       if (val_scale == nullptr || groups <= 0 || S % groups)
         return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch<int8_t, true>(vals, cols, lseg, seg_row, carry, P,
+      return static_cast<int>(launch<int8_t, true>(vals, cols, seg_start, seg_row, carry, P,
                                                    val_scale, groups, x, x_rows, B, y, part, m,
                                                    T, S, R, nnz, st));
     default:

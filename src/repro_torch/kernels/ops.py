@@ -151,12 +151,13 @@ def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
 
     The reference pads x to a 128 multiple, has the kernel emit ``[T · R]``
     speculative partials and scatter-adds them through ``seg_row``.  The
-    CUDA kernel reads only in-range x rows and real slots, writes whole rows
-    to y, and sums the fragments of rows that span chunks in a fixed order
-    in its carry pass, so neither the padding nor the scatter remains.
+    CUDA kernel reads only in-range x rows and real slots, finds segments in
+    the port's ``seg_start`` table instead of ``local_seg``, writes whole
+    rows to y, and sums the fragments of rows that span chunks in a fixed
+    order in its carry pass, so neither the padding nor the scatter remains.
     """
     return spmv_segsum_chunks(
-        mat.vals, mat.col_idx, mat.local_seg, mat.seg_row, mat.carry, x.contiguous(),
+        mat.vals, mat.col_idx, mat.seg_row, mat.seg_start, mat.carry, x.contiguous(),
         mat.val_scale, m=mat.m, nnz=mat.nnz_real,
     )
 

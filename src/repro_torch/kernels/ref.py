@@ -354,6 +354,50 @@ def segsum_chunk_rows(
     return out.index_add_(0, seg_row.long().reshape(-1), partial)[:m]
 
 
+def segsum_table_rows(
+    vals: torch.Tensor,
+    col_idx: torch.Tensor,
+    seg_row: torch.Tensor,
+    seg_start: torch.Tensor,
+    x: torch.Tensor,
+    val_scale=None,
+    *,
+    m: int,
+    nnz: int,
+) -> torch.Tensor:
+    """Plain version of the segmented-sum kernel as the card runs it:
+    ``[m]`` (``[m, B]``) rows, the chunks' segments read from the
+    ``seg_start`` table (``SegSumCSR.seg_start``) and not from ``local_seg``.
+
+    Chunk t's real slots ``[0, n_t)``, ``n_t = min(S, nnz − t·S)``, are cut
+    at its listed starts; segment k runs from its start to the next (the
+    last to ``n_t``) and adds to row ``seg_row[t, k]``.  Slots past ``n_t``
+    are not read.  Per-segment partials are summed by ``index_add_``, then
+    scattered to their rows as in :func:`segsum_chunk_rows`, which sums the
+    fragments of rows that span chunks.
+    """
+    T, S = vals.shape
+    R = seg_row.shape[1]
+    dev = vals.device
+    tail = tuple(x.shape[1:])
+    table = seg_start.long()
+    ptr = table[: T + 1]
+    chunk = torch.repeat_interleave(torch.arange(T, device=dev), ptr[1:] - ptr[:-1])
+    starts = torch.zeros((T, S), dtype=torch.long, device=dev)
+    starts[chunk, table[int(ptr[0]):int(ptr[-1])]] = 1
+    seg = starts.cumsum(1) - 1                         # local segment of each slot
+    n_t = (nnz - torch.arange(T, device=dev) * S).clamp(0, S)
+    real = torch.arange(S, device=dev)[None, :] < n_t[:, None]
+    key = torch.where(real, seg + torch.arange(T, device=dev)[:, None] * R, T * R)
+    v = _tile_vals_f32(vals, val_scale).to(x.dtype)
+    cols = torch.where(real, col_idx.long(), 0).clamp(max=x.shape[0] - 1)
+    contrib = (v[..., None] if x.ndim == 2 else v) * x[cols]          # [T, S(, B)]
+    partial = torch.zeros((T * R + 1,) + tail, dtype=x.dtype, device=x.device)
+    partial.index_add_(0, key.reshape(-1), contrib.reshape((T * S,) + tail))
+    out = torch.zeros((m + 1,) + tail, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg_row.long().reshape(-1), partial[: T * R])[:m]
+
+
 @annotated("repro_torch.oracle.spmv_segsum", count_section="oracles")
 def spmv_segsum(mat: SegSumCSR, x: torch.Tensor) -> torch.Tensor:
     """Speculative segmented-sum oracle (value-dtype aware).

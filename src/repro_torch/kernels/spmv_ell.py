@@ -2,11 +2,12 @@
 
 Replaces ``repro.kernels.spmv_ell.spmv_ell_pallas``.  On CUDA tensors
 :func:`spmv_ell_rows` launches the hand-written Hopper kernel in
-``csrc/spmv_ell.cu`` (design notes there: a group of up to 32 lanes per row
-of the row-major slab, a fixed shuffle fold); on CPU tensors it runs the
-plain PyTorch version :func:`repro_torch.kernels.ref.ell_rows`.  There is no
-fallback from one to the other: a CUDA input the kernel does not take
-raises.  Like the reference's kernel and oracle, it takes a vector x only.
+``csrc/spmv_ell.cu`` (design notes there: 8 threads per row of the
+row-major slab, each summing fixed strands of 16-byte vectors around a head
+and tail taken slot by slot, then a fixed shuffle fold); on CPU tensors it
+runs the plain PyTorch version :func:`repro_torch.kernels.ref.ell_rows`.
+There is no fallback from one to the other: a CUDA input the kernel does not
+take raises.  Like the reference's kernel and oracle, it takes a vector x only.
 """
 from __future__ import annotations
 

@@ -3,10 +3,12 @@
 Replaces ``repro.kernels.spmv_segsum.spmv_segsum_pallas`` together with the
 carry scatter-add of ``repro.kernels.ops.spmv_segsum``.  On CUDA tensors
 :func:`spmv_segsum_chunks` launches the hand-written Hopper kernel in
-``csrc/spmv_segsum.cu`` (design notes there: a chunk pass and a carry
-pass); on CPU tensors it runs the plain PyTorch version
-:func:`repro_torch.kernels.ref.segsum_chunk_rows`.  There is no fallback
-from one to the other: a CUDA input the kernel does not take raises.
+``csrc/spmv_segsum.cu`` (design notes there: a chunk pass that reads the
+segment-start table in place of ``local_seg``, and a carry pass); on CPU
+tensors it runs the plain PyTorch version
+:func:`repro_torch.kernels.ref.segsum_table_rows`, which reads the same
+table.  There is no fallback from one to the other: a CUDA input the kernel
+does not take raises.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ def _library() -> ctypes.CDLL:
 def spmv_segsum_chunks(
     vals: torch.Tensor,          # [T, S] f32 | bf16 | int8
     col_idx: torch.Tensor,       # [T, S] int32
-    local_seg: torch.Tensor,     # [T, S] int32
     seg_row: torch.Tensor,       # [T, R] int32, unused segments → m
+    seg_start: torch.Tensor,     # [T + 1 + Σ_t L_t] int32 (SegSumCSR.seg_start)
     carry: torch.Tensor,         # [P, 3] int32 rows spanning chunks (SegSumCSR.carry)
     x: torch.Tensor,             # [n] or [n, B] f32
     val_scale: Optional[torch.Tensor] = None,   # [T, S/group] f32, int8 only
@@ -55,15 +57,18 @@ def spmv_segsum_chunks(
 
     ``nnz`` is the number of real slots (the container's ``nnz_real``): the
     kernel reads slots ``[0, nnz)`` of the flat stream and skips the tail
-    chunk's padding.  ``carry`` lists the rows that span chunks, whose
-    fragments the carry pass sums.  The kernel writes every row of y, empty
-    rows as 0, so ``out`` (if given, ``[m]``/``[m, B]`` f32 on x's device)
-    need not be cleared.
+    chunk's padding.  ``seg_start`` is the segment-start table the kernel
+    reads in place of ``local_seg`` (``[T + 1]`` offsets into itself, then
+    each chunk's segment starts); ``carry`` lists the rows that
+    span chunks, whose fragments the carry pass sums.  The kernel writes
+    every row of y, empty rows as 0, so ``out`` (if given, ``[m]``/``[m, B]``
+    f32 on x's device) need not be cleared.
     CUDA calls add one to ``spmv_segsum_chunks.launches``; each is two CUDA
     launches, the chunk pass and the carry pass.
     """
     if x.device.type == "cpu":
-        y = ref.segsum_chunk_rows(vals, col_idx, local_seg, seg_row, x, val_scale, m=m)
+        y = ref.segsum_table_rows(vals, col_idx, seg_row, seg_start, x, val_scale, m=m,
+                                  nnz=nnz)
         return y if out is None else out.copy_(y)
 
     dev = x.device
@@ -72,6 +77,8 @@ def spmv_segsum_chunks(
                          f"{tuple(vals.shape)} and {tuple(seg_row.shape)}")
     T, S = vals.shape
     R = int(seg_row.shape[1])
+    if S % 128:
+        raise ValueError(f"chunks must hold a multiple of 128 slots, got {S}")
     if x.ndim not in (1, 2):
         raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
     if not 0 <= nnz <= T * S:
@@ -80,8 +87,12 @@ def spmv_segsum_chunks(
     check_operand("x", x, dev, (torch.float32,))
     check_operand("vals", vals, dev, tuple(_VALUE_KIND))
     check_operand("col_idx", col_idx, dev, (torch.int32,), (T, S))
-    check_operand("local_seg", local_seg, dev, (torch.int32,), (T, S))
     check_operand("seg_row", seg_row, dev, (torch.int32,), (T, R))
+    least = T + 1 + -(-nnz // S)   # the offsets, and a start in every chunk with slots
+    if seg_start is None or seg_start.ndim != 1 or seg_start.shape[0] < least:
+        raise ValueError(f"seg_start must be a table of at least {least} entries, got "
+                         f"{None if seg_start is None else tuple(seg_start.shape)}")
+    check_operand("seg_start", seg_start, dev, (torch.int32,))
     if carry.ndim != 2 or carry.shape[1] != 3:
         raise ValueError(f"carry must be [P, 3], got shape {tuple(carry.shape)}")
     check_operand("carry", carry, dev, (torch.int32,))
@@ -106,7 +117,7 @@ def spmv_segsum_chunks(
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.repro_spmv_segsum(
-        _VALUE_KIND[vals.dtype], ptr(vals), ptr(col_idx), ptr(local_seg), ptr(seg_row),
+        _VALUE_KIND[vals.dtype], ptr(vals), ptr(col_idx), ptr(seg_start), ptr(seg_row),
         ptr(carry), int(carry.shape[0]), ptr(val_scale), groups, ptr(x), int(x.shape[0]), B,
         ptr(out), ptr(part), m, T, S, R, int(nnz), torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -18,7 +18,7 @@ from repro_torch.sparse.baselines import BCSRMatrix, CSR5LikeMatrix, ELLMatrix
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
 from repro_torch.sparse.diahybrid import DIAHybridMatrix
-from repro_torch.sparse.segsum import SegSumCSR, carry_spans
+from repro_torch.sparse.segsum import SegSumCSR, carry_spans, segment_starts
 from repro_torch.sparse.sellcs import SELLCSMatrix, SELLCSTiles
 
 
@@ -117,11 +117,13 @@ def segsum_from_numpy(
     val_scale=None, value_dtype: str = "f32",
 ) -> SegSumCSR:
     """A :class:`SegSumCSR` from its ``[T, S]`` slot and ``[T, R]`` segment
-    arrays; the port's ``carry`` list is derived from them."""
+    arrays; the port's ``seg_start`` table and ``carry`` list are derived
+    from them."""
     i32 = lambda a: tensor_from_numpy(np.asarray(a, np.int32))  # noqa: E731
     local_seg, seg_row = np.asarray(local_seg, np.int32), np.asarray(seg_row, np.int32)
     return SegSumCSR(
         tensor_from_numpy(vals), i32(col_idx), i32(local_seg), i32(seg_row),
+        i32(segment_starts(local_seg, nnz_real)),
         i32(carry_spans(local_seg, seg_row, nnz_real)),
         (int(shape[0]), int(shape[1])), nnz_real=int(nnz_real),
         val_scale=None if val_scale is None else tensor_from_numpy(val_scale),

@@ -19,10 +19,15 @@ empty rows are free and a single million-nnz row costs exactly its nnz.
 * ``seg_row`` — ``[T, R]`` global row of each local segment (unused segments
   and the tail chunk's padding segment point at the dump row ``m``).
 
-Its arrays are the reference's bit for bit.  The port adds ``carry``, the
-list of rows that span chunks (row, first fragment, last chunk), which the
-CUDA kernel's carry pass reads instead of walking chunk boundaries; it is
-derived from ``local_seg`` and ``seg_row`` alone (:func:`carry_spans`).
+Its arrays are the reference's bit for bit.  The port adds two arrays,
+derived from ``local_seg``, ``seg_row`` and ``nnz`` alone:
+
+* ``seg_start`` — each chunk's real segment starts, which the
+  CUDA kernel's chunk pass reads in place of ``local_seg`` (a few MB where
+  ``local_seg`` is 4 bytes a slot; :func:`segment_starts`),
+* ``carry`` — the rows that span chunks (row, first fragment, last chunk),
+  which its carry pass reads instead of walking chunk boundaries
+  (:func:`carry_spans`).
 """
 from __future__ import annotations
 
@@ -49,12 +54,16 @@ class SegSumCSR:
     ``carry[i] = (row, 2·c0 + side, c1)`` for each row spanning chunks c0..c1:
     its first fragment is segment 0 (side 0) or the last real segment
     (side 1) of chunk c0, the rest are segment 0 of chunks c0+1..c1.
+    ``seg_start[:T + 1]`` point into ``seg_start`` itself: chunk t's list
+    ``seg_start[seg_start[t]:seg_start[t + 1]]`` holds the first slot of
+    each of its ``L_t`` real segments.
     """
 
     vals: torch.Tensor       # [T, S] f32 | bf16 | int8 — equal-size nnz chunks
     col_idx: torch.Tensor    # [T, S] int32 (padding → 0)
     local_seg: torch.Tensor  # [T, S] int32 in [0, R)
     seg_row: torch.Tensor    # [T, R] int32 global row per segment (unused → m)
+    seg_start: torch.Tensor  # [T + 1 + Σ_t L_t] int32 segment starts (port-only)
     carry: torch.Tensor      # [P, 3] int32 rows spanning chunks (port-only)
     shape: Tuple[int, int]
     nnz_real: int = 0
@@ -145,6 +154,25 @@ class SegSumCSR:
         return out[:m]
 
 
+def segment_starts(local_seg: np.ndarray, nnz: int) -> np.ndarray:
+    """``[T + 1 + Σ_t L_t]`` int32 segment-start table (host-side numpy),
+    from the reference's ``local_seg`` and ``nnz`` alone.
+
+    Chunk t's real slots are its first ``n_t = min(S, nnz − t·S)``; a real
+    slot starts a segment where it is the chunk's first or its local segment
+    id differs from the slot before.  The first ``T + 1`` entries are
+    offsets into the table itself: chunk t's list ``[ptr[t], ptr[t + 1])``
+    holds its ``L_t`` starts in increasing order.
+    """
+    T, S = local_seg.shape
+    n_t = np.clip(int(nnz) - np.arange(T, dtype=np.int64) * S, 0, S)
+    new = np.arange(S)[None, :] < n_t[:, None]
+    new[:, 1:] &= local_seg[:, 1:] != local_seg[:, :-1]
+    t_idx, s_idx = np.nonzero(new)                 # row-major: by chunk, then slot
+    ptr = T + 1 + np.concatenate([[0], np.cumsum(np.bincount(t_idx, minlength=T))])
+    return np.concatenate([ptr, s_idx]).astype(np.int32)
+
+
 def carry_spans(local_seg: np.ndarray, seg_row: np.ndarray, nnz: int) -> np.ndarray:
     """``[P, 3]`` int32 ``(row, 2·c0 + side, c1)`` of every row that spans
     chunks c0..c1 (host-side numpy), from the reference's arrays alone.
@@ -219,6 +247,7 @@ def segsum_from_csr(
         _i32(cols.reshape(T, S)),
         _i32(local_seg),
         _i32(seg_row),
+        _i32(segment_starts(local_seg, nnz)),
         _i32(carry_spans(local_seg, seg_row, nnz)),
         (m, n),
         nnz_real=nnz,

@@ -306,14 +306,14 @@ def test_segsum_empty_rows_are_zero_in_dirty_memory(cuda, powerlaw, B):
     x = torch.randn((A.n, B), device=cuda)
     x = x[:, 0].contiguous() if B == 1 else x
     out = torch.full((A.m,) + tuple(x.shape[1:]), float("nan"), device=cuda)
-    y = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.local_seg, seg.seg_row, seg.carry, x,
+    y = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.seg_row, seg.seg_start, seg.carry, x,
                            m=A.m, nnz=seg.nnz, out=out)
     assert y is out and bool(torch.isfinite(y).all())
     assert bool((y[empty] == 0).all())
     assert torch.equal(y, ops.spmv_segsum(seg, x))
     nothing = segsum_from_csr(CSRMatrix.fromdense(np.zeros((5, 3), np.float32))).to(cuda)
     out = torch.full((5,), float("nan"), device=cuda)
-    spmv_segsum_chunks(nothing.vals, nothing.col_idx, nothing.local_seg, nothing.seg_row,
+    spmv_segsum_chunks(nothing.vals, nothing.col_idx, nothing.seg_row, nothing.seg_start,
                        nothing.carry, torch.ones(3, device=cuda), m=5, nnz=0, out=out)
     assert torch.equal(out, torch.zeros(5, device=cuda))
 
@@ -323,8 +323,8 @@ def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda, powerlaw):
     s = segsum_from_csr(A).to(cuda)
     x = torch.randn(A.n, device=cuda)
     call = lambda **kw: spmv_segsum_chunks(  # noqa: E731
-        kw.get("vals", s.vals), kw.get("cols", s.col_idx), kw.get("lseg", s.local_seg),
-        kw.get("seg_row", s.seg_row), kw.get("carry", s.carry), kw.get("x", x),
+        kw.get("vals", s.vals), kw.get("cols", s.col_idx), kw.get("seg_row", s.seg_row),
+        kw.get("table", s.seg_start), kw.get("carry", s.carry), kw.get("x", x),
         kw.get("scale"), m=A.m,
         nnz=kw.get("nnz", s.nnz))
     with pytest.raises(TypeError):
@@ -334,7 +334,7 @@ def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda, powerlaw):
     with pytest.raises(ValueError):
         call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])      # not contiguous
     with pytest.raises(ValueError):
-        call(lseg=s.local_seg[:, :128])                          # wrong shape
+        call(seg_row=s.seg_row[:, :1])                           # wrong shape
     with pytest.raises(ValueError):
         call(seg_row=s.seg_row.cpu())                            # CPU mixed with CUDA
     with pytest.raises(TypeError):
@@ -345,9 +345,58 @@ def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda, powerlaw):
         call(scale=torch.ones((s.num_chunks, 4), device=cuda))   # only with int8
     with pytest.raises(ValueError):
         call(nnz=s.slots + 1)
+    with pytest.raises(ValueError):
+        call(table=None)                                         # no segment-start table
+    with pytest.raises(TypeError):
+        call(table=s.seg_start.long())
+    with pytest.raises(ValueError):
+        call(table=s.seg_start[: 2 * s.num_chunks])              # too short for T chunks
+    with pytest.raises(ValueError):
+        call(table=s.seg_start[None])                            # not 1-D
+    with pytest.raises(ValueError):
+        call(table=s.seg_start.cpu())
     before = spmv_segsum_chunks.launches
     call()
     assert spmv_segsum_chunks.launches == before + 1
+
+
+def _rows_of(lengths, n, seed):
+    """CSR with the given row lengths, distinct random columns, normal values."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((len(lengths), n), np.float32)
+    for i, k in enumerate(lengths):
+        dense[i, rng.choice(n, size=k, replace=False)] = rng.standard_normal(k)
+    return CSRMatrix.fromdense(dense)
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("name", ["near R", "one segment per chunk"])
+def test_segsum_segment_count_extremes(cuda, name, value_dtype):
+    """Chunks of 128 slots that hold up to 128 segments (rows of one or two
+    entries, and an empty row or two between), and chunks that hold one
+    segment of a row spanning all of them, at B = 1 and 8."""
+    rng = np.random.default_rng(5)
+    if name == "near R":
+        lengths = rng.choice([0, 1, 1, 1, 2], size=700)
+        lengths[:200] = 1                                      # two chunks of 128 rows
+    else:
+        lengths = np.array([0, 1500, 0])
+    A = _rows_of(lengths, 1600, seed=6)
+    seg = segsum_from_csr(A, chunk_slots=128, value_dtype=value_dtype).to(cuda)
+    real = seg.real_segments()
+    assert (real.max() == 128) if name == "near R" else (real[1:-1] == 1).all()
+    row_nnz = A.row_lengths().to(cuda)
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    for xb in (X[:, 0].contiguous(), X):
+        out = torch.full((A.m,) + tuple(xb.shape[1:]), float("nan"), device=cuda)
+        Y = spmv_segsum_chunks(seg.vals, seg.col_idx, seg.seg_row, seg.seg_start, seg.carry,
+                               xb, seg.val_scale, m=A.m, nnz=seg.nnz, out=out)
+        err = (Y - ref.spmv_segsum(seg, xb)).abs()
+        assert bool((err <= _seg_bound(seg, xb, row_nnz)).all())
+        assert bool((Y[row_nnz == 0] == 0).all())
+        assert torch.equal(Y, ops.spmv_segsum(seg, xb))
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_segsum(seg, X[:, j].contiguous()))
 
 
 def test_segsum_route_launches_once_per_spmv(cuda, powerlaw):
@@ -499,7 +548,8 @@ def test_dia_power_iteration_on_card_matches_cpu(cuda, diagonal):
 def ell_cases():
     """Slab widths on both sides of a warp with m = 1003 (no multiple of any
     block size), bmwcra_1 at 1/64 (kmax 80) and an all-empty matrix."""
-    cases = {f"kmax {k}": ell_width_matrix(1003, 700, k, seed=k) for k in (1, 5, 33, 80, 129)}
+    cases = {f"kmax {k}": ell_width_matrix(1003, 700, k, seed=k)
+             for k in (1, 3, 5, 7, 33, 73, 80, 129)}
     cases["bmwcra_1"] = load_suite(scale=64, ids=[16])["bmwcra_1"]
     cases["empty"] = CSRMatrix.fromdense(np.zeros((37, 20), np.float32))
     return cases
@@ -511,8 +561,8 @@ def _ell_bound(e, x):
 
 
 @pytest.mark.parametrize("cut", [None, 3])
-@pytest.mark.parametrize("name", ["kmax 1", "kmax 5", "kmax 33", "kmax 80", "kmax 129",
-                                  "bmwcra_1", "empty"])
+@pytest.mark.parametrize("name", ["kmax 1", "kmax 3", "kmax 5", "kmax 7", "kmax 33", "kmax 73",
+                                  "kmax 80", "kmax 129", "bmwcra_1", "empty"])
 def test_ell_kernel_matches_plain_and_is_bit_stable(cuda, ell_cases, name, cut):
     A = ell_cases[name]
     e = ell_from_csr(A, cut).to(cuda)
@@ -525,11 +575,24 @@ def test_ell_kernel_matches_plain_and_is_bit_stable(cuda, ell_cases, name, cut):
     assert torch.equal(out, y)
 
 
-@pytest.mark.parametrize("name", ["kmax 5", "kmax 80", "bmwcra_1"])
-def test_ell_non_finite_x_reaches_the_plain_versions_rows(cuda, ell_cases, name):
-    """Padding slots are multiplied by x[0], as in the reference."""
+def _shifted(t, by):
+    """The same values in a view whose base lies ``by`` elements past a fresh
+    allocation's (so not 16-byte aligned for by % 4 != 0)."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = buf[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("name", ["kmax 5", "kmax 73", "kmax 80", "bmwcra_1"])
+@pytest.mark.parametrize("shift", [(0, 0), (1, 1)])
+def test_ell_non_finite_x_reaches_the_plain_versions_rows(cuda, ell_cases, name, shift):
+    """Padding slots are multiplied by x[0], as in the reference; on slabs
+    whose rows are not 16-byte aligned too (kmax 5 and 73, shifted views)."""
     A = ell_cases[name]
     e = ell_from_csr(A).to(cuda)
+    e = dataclasses.replace(e, col_idx=_shifted(e.col_idx, shift[0]),
+                            vals=_shifted(e.vals, shift[1]))
     x = torch.randn(A.n, device=cuda)
     x[[0, 100, A.n - 1]] = torch.tensor([float("inf"), float("-inf"), float("nan")],
                                         device=cuda)
@@ -538,6 +601,21 @@ def test_ell_non_finite_x_reaches_the_plain_versions_rows(cuda, ell_cases, name)
     assert torch.equal(torch.isposinf(y), torch.isposinf(want))
     assert torch.equal(torch.isneginf(y), torch.isneginf(want))
     assert bool(torch.isnan(y).any())
+
+
+@pytest.mark.parametrize("shift", [(1, 1), (2, 2), (3, 3), (1, 2), (0, 3)])
+@pytest.mark.parametrize("name", ["kmax 7", "kmax 73", "bmwcra_1"])
+def test_ell_kernel_on_views_off_16_byte_boundaries(cuda, ell_cases, name, shift):
+    """Column and value arrays whose base pointers are not 16-byte aligned,
+    at the same phase (vectors) and at different phases (slot by slot)."""
+    A = ell_cases[name]
+    e = ell_from_csr(A).to(cuda)
+    x = torch.randn(A.n, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    col, vals = _shifted(e.col_idx, shift[0]), _shifted(e.vals, shift[1])
+    assert vals.data_ptr() % 16 or col.data_ptr() % 16
+    y = spmv_ell_rows(col, vals, x, m=A.m, n=A.n)
+    assert bool(((y - ref.ell_rows(e.col_idx, e.vals, x)).abs() <= _ell_bound(e, x)).all())
+    assert torch.equal(y, spmv_ell_rows(col, vals, x, m=A.m, n=A.n))
 
 
 def test_ell_wrapper_rejects_what_the_kernel_does_not_take(cuda, ell_cases):

@@ -30,7 +30,7 @@ from repro.kernels import ref as j_ref
 import repro_torch.sparse as ts
 from repro_torch.configs.spmv_suite import grid_laplacian_2d as t_grid
 from repro_torch.configs.spmv_suite import load_adversarial as t_load_adversarial
-from repro_torch.configs.spmv_suite import long_row_matrix, three_chunk_matrix
+from repro_torch.configs.spmv_suite import empty_margin_rows, long_row_matrix, three_chunk_matrix
 from repro_torch.configs.spmv_suite import powerlaw_zipf as t_powerlaw_zipf
 from repro_torch.core import solvers as t_solvers
 from repro_torch.core.spmv import prepare as t_prepare
@@ -149,6 +149,7 @@ def _containers_identical(A, Aj, chunk_slots, value_dtype):
                                   (np.asarray(sj.seg_row) < A.m).sum(axis=1))
     assert_carry_is_the_spanning_rows(s, A)
     assert torch.equal(port_seg(sj).carry, s.carry)
+    assert torch.equal(port_seg(sj).seg_start, s.seg_start)
 
 
 @pytest.mark.parametrize("value_dtype", DTYPES)
@@ -166,6 +167,82 @@ def test_containers_identical_on_ragged_empty_rows(chunk_slots, value_dtype):
     if value_dtype == "f32":
         np.testing.assert_array_equal(
             ts.segsum_from_csr(A, chunk_slots=chunk_slots).todense().numpy(), dense)
+
+
+def _matrix(name):
+    """(port CSR, reference CSR) of one of the segment-table test matrices."""
+    if name == "powerlaw":
+        return t_powerlaw_zipf(2048), j_powerlaw_zipf(2048)
+    A = {"ragged": lambda: ragged()[0], "empty margins": lambda: empty_margin_rows(300, seed=3),
+         "three chunks": three_chunk_matrix, "long row": long_row_matrix}[name]()
+    return both(A)[:2]
+
+
+def starts_by_walking(local_seg, nnz):
+    """Each chunk's segment starts, slot by slot."""
+    T, S = local_seg.shape
+    out = []
+    for t in range(T):
+        n_t = min(S, max(nnz - t * S, 0))
+        out.append([s for s in range(n_t)
+                    if s == 0 or local_seg[t, s] != local_seg[t, s - 1]])
+    return out
+
+
+MATRICES = ("powerlaw", "ragged", "empty margins", "three chunks", "long row")
+
+
+@pytest.mark.parametrize("value_dtype", DTYPES)
+@pytest.mark.parametrize("chunk_slots", [128, 512])
+@pytest.mark.parametrize("name", MATRICES)
+def test_segment_start_table_is_the_local_seg_boundaries(name, chunk_slots, value_dtype):
+    """seg_start comes from the reference's arrays alone (segsum_from_numpy
+    and segsum_from_csr agree) and lists each chunk's segment starts, at
+    offsets held in its first T + 1 entries."""
+    A, Aj = _matrix(name)
+    sj = js.segsum_from_csr(Aj, chunk_slots=chunk_slots, value_dtype=value_dtype)
+    s = ts.segsum_from_csr(A, chunk_slots=chunk_slots, value_dtype=value_dtype)
+    table = to_numpy(s.seg_start)
+    assert table.dtype == np.int32 and table.ndim == 1
+    np.testing.assert_array_equal(to_numpy(port_seg(sj).seg_start), table)
+    T = s.num_chunks
+    ptr = table[: T + 1]
+    assert ptr[0] == T + 1 and ptr[-1] == table.size
+    lseg = np.asarray(sj.local_seg)
+    walked = starts_by_walking(lseg, sj.nnz_real)
+    for t in range(T):
+        assert table[ptr[t]:ptr[t + 1]].tolist() == walked[t]
+    # L_t entries a chunk: the real segments, as seg_row counts them
+    np.testing.assert_array_equal(np.diff(ptr), s.real_segments())
+    assert table.size == T + 1 + int(s.real_segments().sum())
+
+
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("value_dtype", DTYPES)
+@pytest.mark.parametrize("name", MATRICES)
+def test_table_plain_version_matches_chunk_rows_and_oracle(rng, name, value_dtype, B):
+    """ref.segsum_table_rows, the plain version the card kernel is held to
+    (segments from seg_start, real slots only), against
+    ref.segsum_chunk_rows (segments from local_seg) and the reference's
+    oracle, at 128-slot chunks."""
+    A, Aj = _matrix(name)
+    sj = js.segsum_from_csr(Aj, chunk_slots=128, value_dtype=value_dtype)
+    s = port_seg(sj)
+    x = rng.standard_normal((A.n,) if B is None else (A.n, B)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = t_ref.segsum_table_rows(s.vals, s.col_idx, s.seg_row, s.seg_start, xt, s.val_scale,
+                                  m=s.m, nnz=s.nnz)
+    assert got.shape == (A.m,) + x.shape[1:]
+    absA = dq_dense(sj)
+    assert_within_bound(got.numpy(), t_ref.segsum_chunk_rows(
+        s.vals, s.col_idx, s.local_seg, s.seg_row, xt, s.val_scale, m=s.m).numpy(), absA, x)
+    assert_within_bound(got.numpy(), np.asarray(j_ref.spmv_segsum(sj, jnp.asarray(x))), absA, x)
+    # empty rows and padding come out 0; unit values give the row lengths
+    lengths = to_numpy(A.row_lengths())
+    assert np.all(got.numpy()[lengths == 0] == 0)
+    ones = t_ref.segsum_table_rows(torch.ones_like(s.vals), s.col_idx, s.seg_row, s.seg_start,
+                                   torch.ones(A.n), None, m=s.m, nnz=s.nnz)
+    np.testing.assert_array_equal(ones.numpy(), lengths.astype(np.float32))
 
 
 def test_powerlaw_generator_matches_the_reference():
@@ -261,7 +338,7 @@ def test_empty_rows_and_padding_come_out_exact():
     s = ts.segsum_from_csr(A)
     x = np.arange(17, dtype=np.float32)
     out = torch.full((A.m,), float("nan"))
-    y = spmv_segsum_chunks(s.vals, s.col_idx, s.local_seg, s.seg_row, s.carry,
+    y = spmv_segsum_chunks(s.vals, s.col_idx, s.seg_row, s.seg_start, s.carry,
                            torch.from_numpy(x), m=A.m, nnz=s.nnz, out=out)
     assert y is out
     np.testing.assert_array_equal(y.numpy(), dense @ x)
@@ -288,8 +365,9 @@ def test_prepare_routes_and_decides_as_the_reference(plaw, value_dtype):
     assert op.modeled_bytes() == opj.modeled_bytes()
     assert op.padding_overhead() == opj.padding_overhead()
     assert op.overhead_fraction() == opj.overhead_fraction()
-    # the port adds the carry list ([P, 3] int32); its perm arrays are int64
-    extra = op.segsum.carry.numel() * 4 + 2 * 4 * A.m
+    # the port adds the segment-start table and the carry list (int32); its
+    # perm arrays are int64
+    extra = (op.segsum.seg_start.numel() + op.segsum.carry.numel()) * 4 + 2 * 4 * A.m
     assert op.resident_bytes() == opj.resident_bytes() + extra
     for f in ("vals", "col_idx", "local_seg", "seg_row"):
         assert_same(getattr(op.segsum, f), getattr(opj.segsum, f))
