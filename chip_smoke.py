@@ -65,14 +65,19 @@ Phases (any failure exits non-zero and prints no result line):
     (its loads counted) beside the least bytes and the earlier kernel's,
     which read ``local_seg``, and the split of a call between the chunk pass
     and the carry pass (``torch.profiler``);
-12. DIA/CSR-hybrid kernel against its plain version on stencil_fringe(48)
-    and (64), a 130x200 matrix with offsets {0, 40} and remainder entries at
-    columns 0 and 199, a pure plane (a 9-point grid) and a pure remainder (no
-    dense diagonal): f32/bf16 x B in {1, 8}, within the same per-row bound,
-    repeat launches and B=8 columns bit-equal, every row written into an
-    output filled with NaN; the 8x8 integer hand case exactly; and with an
-    inf, a -inf and a NaN in x, NaN and inf in the same places as the plain
-    version;
+12. DIA/CSR-hybrid kernel against its plain versions (``ref.spmv_diahybrid``,
+    and ``ref.diahybrid_list_rows``, which finds the remainder through the
+    row list the kernel reads) on stencil_fringe(48), (64) and (47) (m % 4
+    = 1), a 130x200 matrix with offsets {0, 40} and remainder entries at
+    columns 0 and 199, a pure plane (a 9-point grid), a pure remainder (no
+    dense diagonal), remainder rows of 1, 2, 31, 32, 33, 64 and 129 entries
+    at mask-word edges and the last row with m % 4 = 0, 1, 2 and 3, three
+    long remainder rows (32 lanes a row), every row listed (with and
+    without a plane) and 71 diagonals: f32/bf16
+    x B in {1, 8}, within the same per-row bound, repeat launches and B=8
+    columns bit-equal, every row written into an output filled with NaN; the
+    8x8 integer hand case exactly; and with an inf, a -inf and a NaN in x,
+    NaN and inf in the same places as the plain version;
 13. the DIA/CSR-hybrid path at stencil_fringe(side=2048) (4,194,304 rows,
     40.4M nnz): ``prepare(format="auto")`` must route to "diahybrid";
     ``apply_original`` against a plain CSR product at B=1 and B=8; 50 sweeps
@@ -82,7 +87,10 @@ Phases (any failure exits non-zero and prints no result line):
     dominant, so the iterations need not converge); exactly one CUDA launch
     per SpMV;
 14. time the DIA/CSR-hybrid kernel, its plain version and cuSPARSE at the
-    stencil_fringe shapes, as in phase 5;
+    stencil_fringe shapes, as in phase 5, beside the plane pass alone (the
+    same container with its row list emptied), the bound counting the row
+    list the kernel reads, and beside it the bound with the remainder's row
+    pointer in its place;
 15. ELL kernel against its plain version on bmwcra_1 at 1/64 and on slabs of
     kmax 1, 3, 5, 7, 33, 73, 80 and 129 with m = 1003 (no multiple of any
     block size; rows of an odd kmax are not 16-byte aligned), two slabs cut
@@ -887,10 +895,13 @@ def dia_kernel_vs_plain(d, row_nnz, seed: int, what: str):
     errs = {}
     for B, xb in ((1, X[:, 0].contiguous()), (8, X)):
         out = torch.full((d.m,) + tuple(xb.shape[1:]), float("nan"), device="cuda")
-        yb = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, r.row_ptr, r.col_idx, r.vals, xb,
-                                 m=d.m, n=d.n, out=out)
+        yb = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start, d.rem_mask,
+                                 r.col_idx, r.vals, xb, m=d.m, n=d.n, out=out)
         bound = row_bound(ref.spmv_diahybrid(abs_dia(d), xb.abs()), row_nnz)
         errs[B] = check_close(yb, ref.spmv_diahybrid(d, xb), bound, f"{what} B={B}")
+        check_close(yb, ref.diahybrid_list_rows(
+            d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start, d.rem_mask, r.col_idx, r.vals,
+            xb, m=d.m, n=d.n), bound, f"{what} B={B} (plain version over the row list)")
         if not torch.equal(yb, ops.spmv_diahybrid(d, xb)):
             raise AssertionError(f"{what} B={B}: repeat launch differs")
     Y8 = ops.spmv_diahybrid(d, X)
@@ -908,12 +919,12 @@ def dia_phases(mem_rate: float, f32_rate: float):
     import torch
 
     from repro_torch.configs.spmv_suite import (
-        dia_hand_matrix, dia_rectangular_matrix, grid_laplacian_2d, no_dense_diagonal_matrix,
-        stencil_fringe)
+        dia_fringe_matrix, dia_hand_matrix, dia_rectangular_matrix, grid_laplacian_2d,
+        no_dense_diagonal_matrix, stencil_fringe)
     from repro_torch.core import prepare
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
-    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+    from repro_torch.kernels.spmv_diahybrid import fringe_lanes, spmv_diahybrid_rows
     from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
     from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
     from repro_torch.obs import get_registry
@@ -922,17 +933,31 @@ def dia_phases(mem_rate: float, f32_rate: float):
     # 12. kernel vs plain on small matrices
     t0 = time.perf_counter()
     errs = {}
+    # remainder rows of 1..129 entries at mask-word edges and the last row
+    lengths = lambda m: dict(zip((0, 31, 32, 33, 63, 64, m - 1),  # noqa: E731
+                                 (1, 2, 31, 32, 33, 64, 129)))
     cases = (("stencil_fringe(48)", stencil_fringe(48)),
              ("stencil_fringe(64)", stencil_fringe(64)),
+             ("stencil_fringe(47), m % 4 = 1", stencil_fringe(47)),
              ("rectangular 130x200", dia_rectangular_matrix()),
              ("pure plane (9-point grid 24x24)", grid_laplacian_2d(24, 24, stencil=9)),
-             ("pure remainder", no_dense_diagonal_matrix()))
+             ("pure remainder", no_dense_diagonal_matrix()),
+             *((f"remainder rows of 1..129 entries, m % 4 = {m % 4}",
+                dia_fringe_matrix(m, lengths(m))) for m in (1000, 1001, 1002, 1003)),
+             ("three long remainder rows (G = 32)",
+              dia_fringe_matrix(1003, {0: 129, 31: 160, 1002: 200}, seed=1)),
+             ("every row listed", dia_fringe_matrix(1001, every_row=12, seed=2)),
+             ("every row listed, no plane",
+              dia_fringe_matrix(333, every_row=3, band=None, seed=3)),
+             ("71 diagonals",
+              dia_fringe_matrix(1001, {7: 2}, band=35, seed=4)))
     for name, A_s in cases:
         row_nnz = A_s.row_lengths().cuda()
         for dt in ("f32", "bf16"):
             d = diahybrid_from_csr(A_s, value_dtype=dt).to("cuda")
-            what = (f"{name} ({A_s.m}x{A_s.n}, offsets {list(d.offsets)}, remainder "
-                    f"{d.remainder.nnz}) {dt}")
+            R = d.rem_rows.numel()
+            what = (f"{name} ({A_s.m}x{A_s.n}, {d.n_diag} offsets, remainder "
+                    f"{d.remainder.nnz} in {R} rows, G {fringe_lanes(d.remainder.nnz, R)}) {dt}")
             errs.update({(name, dt, B): e for B, e in dia_kernel_vs_plain(
                 d, row_nnz, 7, what).items()})
     A_h = dia_hand_matrix()
@@ -1017,24 +1042,42 @@ def dia_phases(mem_rate: float, f32_rate: float):
     views = {"f32": dia, "bf16": diahybrid_from_csr(A, value_dtype="bf16").to("cuda")}
     gen = torch.Generator(device="cuda").manual_seed(8)
     rem_nnz = dia.remainder.nnz
+    R = dia.rem_rows.numel()
     variants = []
     for dt in ("f32", "bf16"):
         view = views[dt]
         abs_view = abs_dia(view)
+        # the same container with its row list emptied: the plane pass alone
+        plane_only = dataclasses.replace(
+            view, rem_rows=view.rem_rows[:0], rem_start=view.rem_start[:1],
+            rem_mask=torch.zeros_like(view.rem_mask))
         for B in (1, 8):
             xb = torch.randn((n, B), generator=gen, device="cuda")
             xb = xb[:, 0].contiguous() if B == 1 else xb
             err = check_close(ops.spmv_diahybrid(view, xb), ref.spmv_diahybrid(view, xb),
                               row_bound(ref.spmv_diahybrid(abs_view, xb.abs()), row_nnz),
                               f"stencil_fringe(2048) {dt} B={B}")
-            # least bytes: the plane once, remainder values and columns, its
-            # row pointers, x and y once per column
-            nbytes = (view.n_diag * m * VALUE_BYTES[dt] + 8 * rem_nnz + 4 * (m + 1)
-                      + 4 * n * B + 4 * m * B)
-            variants.append(time_variant(
+            # least bytes: the plane once, remainder values and columns, the
+            # row list (rows, starts, mask), x and y once per column; the
+            # bound with the remainder's row pointer in place of the row list
+            # (the layout the kernel no longer reads) in ``row_ptr_bytes``
+            nbytes = (view.n_diag * m * VALUE_BYTES[dt] + 8 * rem_nnz + 4 * (2 * R + 1)
+                      + 4 * -(-m // 32) + 4 * n * B + 4 * m * B)
+            row_ptr_bytes = nbytes - 4 * (2 * R + 1) - 4 * -(-m // 32) + 4 * (m + 1)
+            rec = time_variant(
                 "dia/time", dt, B, err, lambda: ops.spmv_diahybrid(view, xb),
                 lambda: ref.spmv_diahybrid(view, xb),
-                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate)))
+                (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate))
+            rec["plane_only_ms"] = time_ms(lambda: ops.spmv_diahybrid(plane_only, xb))
+            rec["row_ptr_bytes"] = row_ptr_bytes
+            rec["row_ptr_bound_ms"] = row_ptr_bytes / mem_rate * 1e3
+            log(f"[dia/time] {dt:4s} B={B}: plane pass alone (row list emptied) "
+                f"{rec['plane_only_ms']:.4f} ms beside the full SpMV's {rec['ms']:.4f}; "
+                f"bound with the row pointer in place of the row list "
+                f"{row_ptr_bytes / 1e6:.1f} MB, {rec['row_ptr_bound_ms']:.4f} ms "
+                f"({rec['ms'] / rec['row_ptr_bound_ms']:.2f} x), beside the bound's "
+                f"{nbytes / 1e6:.1f} MB, {rec['bound_ms']:.4f} ms")
+            variants.append(rec)
     log(f"[dia/time] done in {time.perf_counter() - t0:.1f} s")
     entry = kernel_entry(
         "spmv_diahybrid", "src/repro_torch/csrc/spmv_diahybrid.cu",

@@ -360,6 +360,40 @@ def no_dense_diagonal_matrix() -> CSRMatrix:
     return CSRMatrix.fromdense(dense)
 
 
+def dia_fringe_matrix(
+    m: int,
+    lengths: Dict[int, int] | None = None,
+    every_row: int = 0,
+    band: int | None = 1,
+    seed: int = 0,
+) -> CSRMatrix:
+    """m×m with seeded normal values: a dense band of diagonals −``band`` to
+    +``band`` (none for ``band=None``), and remainder rows.
+
+    Row i of ``lengths`` holds ``lengths[i]`` entries at distinct random
+    columns off the band; with ``every_row`` > 0 every other row holds 1 to
+    ``every_row`` of them.  Port-only: the DIA kernel's row-list checks of
+    ``tests/test_torch_*.py`` and ``chip_smoke.py`` use it for remainder rows
+    of chosen lengths, rows at mask-word edges, every row listed, m not a
+    multiple of 4, and many diagonals.  With ``band`` ≤ 0.05·m every band
+    diagonal is dense (≥ 90% full).
+    """
+    rng = np.random.default_rng(seed)
+    lengths = dict(lengths or {})
+    if every_row:
+        drawn = rng.integers(1, every_row + 1, size=m)
+        lengths = {i: lengths.get(i, int(drawn[i])) for i in range(m)}
+    dense = np.zeros((m, m), np.float32)
+    half = -1 if band is None else band
+    for off in range(-half, half + 1):
+        rows = np.arange(max(0, -off), min(m, m - off))
+        dense[rows, rows + off] = rng.standard_normal(rows.size)
+    for i, k in sorted(lengths.items()):
+        free = np.setdiff1d(np.arange(m), np.arange(i - max(half, 1), i + max(half, 1) + 1))
+        dense[i, rng.choice(free, k, replace=False)] = rng.standard_normal(k)
+    return CSRMatrix.fromdense(dense)
+
+
 def ell_width_matrix(m: int, n: int, kmax: int, seed: int = 0) -> CSRMatrix:
     """m×n with rows of 0..``kmax`` distinct random columns and normal values.
 

@@ -16,32 +16,53 @@
 // the card's ~20 flops per byte of float32 balance, so the least time is the
 // bytes the product must move over the memory rate.
 //
-// Design:
-//   * One thread per row, one CUDA launch per SpMV, plane and remainder
-//     together.  The plane is stored per diagonal, so plane[k, i] and
-//     x[i + off_k] for neighbouring rows are neighbouring addresses: both
-//     loads coalesce across a warp with no gather.  The offsets come from a
-//     device array, the same for every thread (one broadcast load each).
+// Design: one launch, two kinds of work on disjoint rows.  The rows that
+// hold remainder entries are found through the port's row list
+// (DIAHybridMatrix.rem_rows / rem_start / rem_mask), never through the
+// remainder's all-rows row pointer (16.8 MB of 222.8 at stencil_fringe(2048)).
+//   * Fringe groups.  Each listed row goes to a group of G lanes, a power of
+//     two from 1 to 32 that the wrapper fixes from the shapes (about four
+//     remainder entries a lane; 16 on stencil_fringe).  Lane l sums entries
+//     l, l + G, ... in entry order, so a group's column and value loads
+//     coalesce and its x gathers are in flight together, and a butterfly of
+//     fixed shape joins the lanes.  Lane l also loads diagonals l, l + G,
+//     ... of the row; the group's shuffles hand them round, and every lane
+//     sums the plane part over k in increasing order: one round trip for
+//     the plane part instead of one per diagonal.  Lane 0 writes y = plane +
+//     remainder.  In the one-thread-per-row design these rows held their
+//     warps for 64 serial entries and took half the call.
+//   * The plane pass, every row whose rem_mask bit is clear.  At B = 1 a
+//     thread takes 16 bytes of each diagonal: 4 consecutive rows (f32) or 8
+//     (bf16), one 16-byte load per diagonal when the plane rows are 16-byte
+//     aligned (m a multiple of 4 or 8 and an aligned base), otherwise the
+//     same rows with scalar loads.  The loads of kDiagBatch diagonals are
+//     issued before their products are summed.  x comes in aligned float4
+//     loads shifted by the diagonal's offset mod 4, the same for the whole
+//     warp (scalar loads at the matrix's edges), and y goes out in float4
+//     stores.  At B > 1 a thread takes one row and 8 columns per pass.
+//   * Fringe blocks are spread over the grid, one block in 2^s from block
+//     0 (s as large as lets them all in), so the fringe's gathers run beside
+//     the plane stream from the start.
+//   * The plane, the remainder's columns and values skip L1
+//     (ld.global.nc.L1::no_allocate), which keeps L1 for x.  An L2
+//     evict-first policy on them measured no faster and is not used.
+//   * The offsets come from the device array (DIAHybridMatrix.offset_vec,
+//     built once with the container), so a call uploads nothing and a CUDA
+//     graph can capture it; passing up to 64 of them by value in the
+//     kernel's parameters measured no faster.
 //   * Bounded reads take the place of the reference's zero `lead` margin:
 //     x[c] is read only for 0 <= c < n, so x needs no padded copy per call.
-//   * Every in-range plane slot is multiplied, a 0 value included, so an inf
+//     Every in-range plane slot is multiplied, a 0 value included, so an inf
 //     or NaN in x reaches exactly the rows it reaches in the reference.
-//   * The remainder is summed by the same thread after the plane: the plane
-//     in f32 over k in increasing order, the row's remainder entries in entry
-//     order, then the two added.  One fixed order, no float atomics, each y
-//     row written once.  Column j takes the same operations in the same
-//     order whatever B is, so repeat launches are bit-equal and column j of
-//     an [n, B] launch equals an [n] launch on x[:, j].  At B > 1 a thread
-//     keeps 8 accumulators per pass and reads each plane value once for them.
-//   * The kernel waits on memory latency far more than on bandwidth, so the
-//     warps in flight set its pace.  Plain loops keep a thread at 32
-//     registers at B = 1, which lets 64 warps share an SM.
-//   * Rows with many remainder entries (a fringe row has 64) hold their warp
-//     while the others wait, and a block ends only when its last warp does.
-//     Blocks of 64 rows keep that hold small: on stencil_fringe, where 1% of
-//     rows are fringe rows, 47% of 64-row blocks hold one against 92% of
-//     256-row blocks.  The imbalance itself is the first thing a faster
-//     design looks at (PERF.md).
+//   * One fixed order, no float atomics, each y row written once: the plane
+//     in f32 over k in increasing order from 0 (fused multiply-adds), then,
+//     for a listed row, its remainder added.  A row's order depends only on
+//     the container (G comes from its shapes), never on B or on which rows
+//     share a thread, so repeat launches are bit-equal and column j of an
+//     [n, B] launch equals an [n] launch on x[:, j].
+//   * Registers: 256-thread blocks held to 64 registers a thread
+//     (__launch_bounds__(256, 4)) at every B, with no spills; at B > 1 the
+//     80 registers the compiler chose unbounded ran slower.
 //
 // Plain C interface (loaded with ctypes); the launch is asynchronous on the
 // caller's stream and the function returns cudaGetLastError().
@@ -53,91 +74,329 @@
 
 namespace {
 
-constexpr int kThreads = 64;  // rows per block
-constexpr int kMaxCols = 8;   // columns a thread sums per pass at B > 1
+constexpr int kThreads = 256;
+constexpr int kMaxCols = 8;          // columns a thread sums per pass at B > 1
+constexpr int kDiagBatch = 3;        // diagonals whose loads a plane thread issues together
+constexpr int kRemUnroll = 4;        // remainder entries a fringe lane loads together at B = 1
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i) { return __ldg(v + i); }
-
-__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i) {
-  return __bfloat162float(v[i]);
+// Rows a plane thread takes at B = 1: 16 bytes of each diagonal.
+template <typename V>
+__host__ __device__ constexpr int rows_per_thread() {
+  return 16 / sizeof(V);
 }
 
-// acc[k] += v * x[c, j0 + k] for the nb columns of this pass (x[c] = 0 off
-// the matrix); float4 loads when the row of x is 16-byte aligned.
+// Streamed loads: not kept in L1.
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float r;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ int ld_stream(const int* p) {
+  int r;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  unsigned short r;
+  asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];" : "=h"(r) : "l"(p));
+  return __uint_as_float(static_cast<unsigned>(r) << 16);
+}
+
+// RPT = 16 / sizeof(V) plane values from one aligned 16-byte vector.
+template <typename V, int RPT>
+__device__ __forceinline__ void ld_plane_vec(float (&v)[RPT], const V* p) {
+  static_assert(RPT * sizeof(V) == 16, "plane vectors are 16 bytes");
+  unsigned u[4];
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3]) : "l"(p));
+  if constexpr (sizeof(V) == 4) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) v[r] = __uint_as_float(u[r]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const unsigned h = r % 2 ? u[r / 2] >> 16 : u[r / 2] & 0xffffu;
+      v[r] = __uint_as_float(h << 16);
+    }
+  }
+}
+
+// xs[k] = x[c, j0 + k] for the nb columns of this pass, 0 off the matrix
+// (c outside [0, n)); float4 loads when the row of x is 16-byte aligned.
+template <int NB>
+__device__ __forceinline__ void load_x(float (&xs)[NB], const float* __restrict__ x, int64_t c,
+                                       bool in, int B, int j0, int nb, bool vec4) {
+  const float* xr = x + (in ? c : 0) * B + j0;
+  if (NB > 1 && vec4 && nb == NB) {
+#pragma unroll
+    for (int k = 0; k < NB; k += 4) {
+      const float4 f = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      xs[k] = f.x;
+      xs[k + 1] = f.y;
+      xs[k + 2] = f.z;
+      xs[k + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NB; ++k) xs[k] = in && k < nb ? __ldg(xr + k) : 0.f;
+  }
+}
+
+// acc[k] += v * x[c, j0 + k] for the nb columns of this pass.
 template <int NB>
 __device__ __forceinline__ void fma_row(float (&acc)[NB], float v, const float* __restrict__ x,
                                         int64_t c, bool in, int B, int j0, int nb, bool vec4) {
-  const float* xr = x + (in ? c : 0) * B + j0;
-  if (NB == 1) {
-    acc[0] = __fmaf_rn(v, in ? __ldg(xr) : 0.f, acc[0]);
-  } else if (vec4 && nb == NB) {
+  float xs[NB];
+  load_x<NB>(xs, x, c, in, B, j0, nb, vec4);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) acc[k] = __fmaf_rn(v, xs[k], acc[k]);
+}
+
+// y[row, j0 + k] = val[k] for the nb columns of this pass.
+template <int NB>
+__device__ __forceinline__ void store_row(float* yr, const float (&val)[NB], int nb, bool vec4) {
+  if (NB > 1 && vec4 && nb == NB) {
 #pragma unroll
     for (int k = 0; k < NB; k += 4) {
-      const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[k] = __fmaf_rn(v, xv.x, acc[k]);
-      acc[k + 1] = __fmaf_rn(v, xv.y, acc[k + 1]);
-      acc[k + 2] = __fmaf_rn(v, xv.z, acc[k + 2]);
-      acc[k + 3] = __fmaf_rn(v, xv.w, acc[k + 3]);
+      *reinterpret_cast<float4*>(yr + k) = make_float4(val[k], val[k + 1], val[k + 2], val[k + 3]);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < NB; ++k) {
-      if (k < nb) acc[k] = __fmaf_rn(v, in ? __ldg(xr + k) : 0.f, acc[k]);
+      if (k < nb) yr[k] = val[k];
+    }
+  }
+}
+
+struct Args {
+  const void* plane;        // [n_diag, m] f32 | bf16
+  const int* offsets;       // [n_diag]
+  int n_diag;
+  const int* rem_rows;      // [R]
+  const int* rem_start;     // [R + 1]
+  const unsigned* rem_mask; // [ceil(m / 32)]
+  const int* rem_col;
+  const float* rem_val;
+  int R;
+  int lanes_log2;           // G = 1 << lanes_log2 lanes per listed row
+  int fringe_blocks;        // blocks that run the fringe groups
+  int fringe_shift;         // one block in 2^fringe_shift is a fringe block
+  const float* x;           // [n, B]
+  int B;
+  float* y;                 // [m, B]
+  int m;
+  int n;
+  bool vec_plane;           // vector plane loads (aligned plane rows)
+  bool vec_x;               // B % 4 == 0 and x 16-byte aligned
+  bool x_aligned;           // x 16-byte aligned
+  bool vec_y;               // B % 4 == 0 (or B = 1) and y 16-byte aligned
+};
+
+// One listed row per group of G lanes.  Lane l sums remainder entries l,
+// l + G, ... in entry order and loads diagonals l, l + G, ...; every lane of
+// the group then sums the plane products over k in increasing order from
+// the group's shuffles, a butterfly joins the remainder, lane 0 writes.
+template <typename V, int NB>
+__device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
+  const int G = 1 << a.lanes_log2;
+  const int64_t t = block * kThreads + threadIdx.x;
+  const int64_t j = t >> a.lanes_log2;
+  const int lane = static_cast<int>(t & (G - 1));
+  const bool valid = j < a.R;  // lanes past the list still join the shuffles
+  const int64_t i = valid ? __ldg(a.rem_rows + j) : 0;
+  const int e0 = valid ? __ldg(a.rem_start + j) : 0;
+  const int e1 = valid ? __ldg(a.rem_start + j + 1) : 0;
+  const V* plane = static_cast<const V*>(a.plane);
+
+  for (int j0 = 0; j0 < a.B; j0 += NB) {
+    const int nb = min(NB, a.B - j0);
+    float dia[NB];
+    float rem[NB];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) dia[k] = rem[k] = 0.f;
+#pragma unroll (NB == 1 ? kRemUnroll : 2)
+    for (int e = e0 + lane; e < e1; e += G) {
+      const int64_t c = ld_stream(a.rem_col + e);
+      fma_row<NB>(rem, ld_stream(a.rem_val + e), a.x, c, c >= 0 && c < a.n, a.B, j0, nb,
+                  a.vec_x);
+    }
+    for (int k0 = 0; k0 < a.n_diag; k0 += G) {  // the same trip count in every lane
+      const int k = k0 + lane;
+      const bool have = valid && k < a.n_diag;
+      const int64_t c = i + (have ? __ldg(a.offsets + k) : 0);
+      const float v = have ? ld_stream(plane + static_cast<int64_t>(k) * a.m + i) : 0.f;
+      float xs[NB];
+      load_x<NB>(xs, a.x, c, have && c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
+      const int count = min(G, a.n_diag - k0);
+      for (int u = 0; u < count; ++u) {
+        const float vu = __shfl_sync(0xffffffffu, v, u, G);
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          dia[q] = __fmaf_rn(vu, __shfl_sync(0xffffffffu, xs[q], u, G), dia[q]);
+        }
+      }
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int q = 0; q < NB; ++q) rem[q] += __shfl_xor_sync(0xffffffffu, rem[q], o);
+    }
+    if (valid && lane == 0) {
+      float out[NB];
+#pragma unroll
+      for (int q = 0; q < NB; ++q) out[q] = __fadd_rn(dia[q], rem[q]);
+      store_row<NB>(a.y + i * a.B + j0, out, nb, a.vec_y);
+    }
+  }
+}
+
+// xv[r] = x[c0 + r] for r < RPT (0 off [0, n)), c0 = i0 + off with i0 a
+// multiple of 4: aligned float4 loads and a shift by c0 mod 4, which is the
+// same for the whole warp.
+template <int RPT>
+__device__ __forceinline__ void x_window(float (&xv)[RPT], const float* __restrict__ x,
+                                         int64_t c0, int n) {
+  const int s = static_cast<int>(c0 & 3);
+  const int64_t a0 = c0 - s;
+  constexpr int W = RPT + 4;
+  if (a0 >= 0 && a0 + W <= n) {
+    float w[W];
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      if (q * 4 < s + RPT) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(x + a0) + q);
+        w[4 * q] = f.x;
+        w[4 * q + 1] = f.y;
+        w[4 * q + 2] = f.z;
+        w[4 * q + 3] = f.w;
+      } else {
+        w[4 * q] = w[4 * q + 1] = w[4 * q + 2] = w[4 * q + 3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      xv[r] = s == 0 ? w[r] : s == 1 ? w[r + 1] : s == 2 ? w[r + 2] : w[r + 3];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int64_t c = c0 + r;
+      xv[r] = c >= 0 && c < n ? __ldg(x + c) : 0.f;
+    }
+  }
+}
+
+// RPT consecutive rows per thread (NB columns each) whose mask bit is clear.
+template <typename V, int RPT, int NB>
+__device__ __forceinline__ void plane_rows(const Args& a, int64_t block) {
+  const int64_t i0 = (block * kThreads + threadIdx.x) * RPT;
+  if (i0 >= a.m) return;
+  constexpr unsigned kAll = RPT == 32 ? ~0u : (1u << RPT) - 1;
+  // RPT divides 32, so the RPT rows' bits lie in one mask word
+  const unsigned skip = (__ldg(a.rem_mask + (i0 >> 5)) >> (i0 & 31)) & kAll;
+  if (skip == kAll) return;
+  const int64_t left = a.m - i0;
+  const int rows = left < RPT ? static_cast<int>(left) : RPT;
+  const V* plane = static_cast<const V*>(a.plane);
+  const bool vec = RPT > 1 && a.vec_plane;  // then rows == RPT
+
+  for (int j0 = 0; j0 < a.B; j0 += NB) {
+    const int nb = min(NB, a.B - j0);
+    float acc[RPT][NB];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int k = 0; k < NB; ++k) acc[r][k] = 0.f;
+    }
+    for (int k0 = 0; k0 < a.n_diag; k0 += kDiagBatch) {
+      float v[kDiagBatch][RPT];
+#pragma unroll
+      for (int u = 0; u < kDiagBatch; ++u) {
+        if (k0 + u >= a.n_diag) break;
+        const V* p = plane + static_cast<int64_t>(k0 + u) * a.m + i0;
+        bool loaded = false;
+        if constexpr (RPT * sizeof(V) == 16) {
+          if (vec) {
+            ld_plane_vec<V, RPT>(v[u], p);
+            loaded = true;
+          }
+        }
+        if (!loaded) {
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) v[u][r] = r < rows ? ld_stream(p + r) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDiagBatch; ++u) {
+        if (k0 + u >= a.n_diag) break;
+        const int off = __ldg(a.offsets + k0 + u);
+        if constexpr (NB == 1 && RPT % 4 == 0) {
+          if (a.x_aligned) {
+            float xv[RPT];
+            x_window<RPT>(xv, a.x, i0 + off, a.n);
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) acc[r][0] = __fmaf_rn(v[u][r], xv[r], acc[r][0]);
+            continue;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int64_t c = i0 + r + off;
+          fma_row<NB>(acc[r], v[u][r], a.x, c, c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
+        }
+      }
+    }
+    if (NB == 1 && RPT % 4 == 0 && vec && a.vec_y && skip == 0) {
+#pragma unroll
+      for (int r = 0; r < RPT; r += 4) {
+        *reinterpret_cast<float4*>(a.y + i0 + r) =
+            make_float4(acc[r][0], acc[r + 1][0], acc[r + 2][0], acc[r + 3][0]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (r < rows && !((skip >> r) & 1u)) store_row<NB>(a.y + (i0 + r) * a.B + j0, acc[r], nb,
+                                                           a.vec_y);
+      }
     }
   }
 }
 
 template <typename V, int NB>
-__global__ void __launch_bounds__(kThreads)
-diahybrid_kernel(const V* __restrict__ plane, const int* __restrict__ offsets, int n_diag,
-                 const int* __restrict__ rem_ptr, const int* __restrict__ rem_col,
-                 const float* __restrict__ rem_val, const float* __restrict__ x, int B,
-                 float* __restrict__ y, int m, int n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m) return;
-  const int e0 = __ldg(rem_ptr + i);
-  const int e1 = __ldg(rem_ptr + i + 1);
-  const bool vec4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-
-  for (int j0 = 0; j0 < B; j0 += NB) {
-    const int nb = min(NB, B - j0);
-    float dia[NB];
-    float rem[NB];
-#pragma unroll
-    for (int k = 0; k < NB; ++k) dia[k] = rem[k] = 0.f;
-
-    for (int k = 0; k < n_diag; ++k) {
-      const int64_t c = i + __ldg(offsets + k);
-      const float v = load_value(plane, static_cast<int64_t>(k) * m + i);
-      fma_row<NB>(dia, v, x, c, c >= 0 && c < n, B, j0, nb, vec4);
-    }
-    for (int e = e0; e < e1; ++e) {
-      const int64_t c = __ldg(rem_col + e);
-      fma_row<NB>(rem, __ldg(rem_val + e), x, c, c >= 0 && c < n, B, j0, nb, vec4);
-    }
-
-    float* yr = y + i * B + j0;
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      if (k < nb) yr[k] = __fadd_rn(dia[k], rem[k]);
-    }
+__global__ void __launch_bounds__(kThreads, 4) diahybrid_kernel(const __grid_constant__ Args a) {
+  // the fringe blocks are blocks 0, 2^s, 2 * 2^s, ... until all are placed
+  const unsigned b = blockIdx.x;
+  const unsigned F = a.fringe_blocks;
+  const unsigned s = a.fringe_shift;
+  if ((b & ((1u << s) - 1)) == 0 && (b >> s) < F) {
+    fringe_group<V, NB>(a, b >> s);
+  } else {
+    const unsigned before = (b + (1u << s) - 1) >> s;
+    plane_rows<V, NB == 1 ? rows_per_thread<V>() : 1, NB>(a, b - (before < F ? before : F));
   }
 }
 
 template <typename V>
-cudaError_t launch(const void* plane, const int* offsets, int n_diag, const int* rem_ptr,
-                   const int* rem_col, const float* rem_val, const float* x, int B, float* y,
-                   int m, int n, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((static_cast<int64_t>(m) + kThreads - 1) / kThreads);
-  const V* p = static_cast<const V*>(plane);
-  if (B == 1) {
-    diahybrid_kernel<V, 1><<<blocks, kThreads, 0, stream>>>(p, offsets, n_diag, rem_ptr, rem_col,
-                                                            rem_val, x, B, y, m, n);
+cudaError_t launch(Args a, cudaStream_t stream) {
+  const int64_t rpt = a.B == 1 ? rows_per_thread<V>() : 1;  // rows per plane thread
+  const int64_t group_threads = static_cast<int64_t>(a.R) << a.lanes_log2;
+  a.fringe_blocks = static_cast<int>((group_threads + kThreads - 1) / kThreads);
+  const int64_t plane_blocks = (a.m + kThreads * rpt - 1) / (kThreads * rpt);
+  const int64_t blocks = a.fringe_blocks + plane_blocks;
+  if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  a.fringe_shift = 0;
+  while (a.fringe_blocks > 0 &&
+         (static_cast<int64_t>(a.fringe_blocks) << (a.fringe_shift + 1)) <= blocks &&
+         a.fringe_shift < 30) {
+    ++a.fringe_shift;
+  }
+  a.vec_plane = a.vec_plane && a.m % rpt == 0;
+  if (a.B == 1) {
+    diahybrid_kernel<V, 1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   } else {
-    diahybrid_kernel<V, kMaxCols><<<blocks, kThreads, 0, stream>>>(
-        p, offsets, n_diag, rem_ptr, rem_col, rem_val, x, B, y, m, n);
+    diahybrid_kernel<V, kMaxCols><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -147,21 +406,44 @@ cudaError_t launch(const void* plane, const int* offsets, int n_diag, const int*
 extern "C" {
 
 // value_kind: 0 = float32, 1 = bfloat16.  plane: [n_diag, m]; offsets:
-// [n_diag]; rem_ptr: [m + 1]; rem_col / rem_val: [rem_ptr[m]]; x: [n, B];
-// y: [m, B].  m = 0 launches nothing.
+// [n_diag] on the device; rem_rows: [R]; rem_start: [R + 1]; rem_mask:
+// [ceil(m / 32)]; rem_col / rem_val: [rem_start[R]]; lanes_log2 in [0, 5];
+// x: [n, B]; y: [m, B].  m = 0 launches nothing.
 int repro_spmv_diahybrid(int value_kind, const void* plane, const int* offsets, int n_diag,
-                         const int* rem_ptr, const int* rem_col, const float* rem_val,
+                         const int* rem_rows, const int* rem_start, const int* rem_mask,
+                         const int* rem_col, const float* rem_val, int R, int lanes_log2,
                          const float* x, int B, float* y, int m, int n, void* stream) {
-  if (m < 0 || n < 0 || n_diag < 0 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 0 || n < 0 || n_diag < 0 || R < 0 || R > m || B < 1 || lanes_log2 < 0 ||
+      lanes_log2 > 5) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (m == 0) return static_cast<int>(cudaSuccess);
+  Args a{};
+  a.plane = plane;
+  a.offsets = offsets;
+  a.n_diag = n_diag;
+  a.rem_rows = rem_rows;
+  a.rem_start = rem_start;
+  a.rem_mask = reinterpret_cast<const unsigned*>(rem_mask);
+  a.rem_col = rem_col;
+  a.rem_val = rem_val;
+  a.R = R;
+  a.lanes_log2 = lanes_log2;
+  a.x = x;
+  a.B = B;
+  a.y = y;
+  a.m = m;
+  a.n = n;
+  a.vec_plane = (reinterpret_cast<uintptr_t>(plane) & 15) == 0;
+  a.vec_x = B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  a.x_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  a.vec_y = (B == 1 || B % 4 == 0) && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (value_kind) {
     case 0:
-      return static_cast<int>(launch<float>(plane, offsets, n_diag, rem_ptr, rem_col, rem_val,
-                                            x, B, y, m, n, st));
+      return static_cast<int>(launch<float>(a, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(plane, offsets, n_diag, rem_ptr, rem_col,
-                                                    rem_val, x, B, y, m, n, st));
+      return static_cast<int>(launch<__nv_bfloat16>(a, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -169,12 +169,15 @@ def spmv_diahybrid(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
 
     The reference extends x by a ``lead`` zero margin for its Pallas plane
     kernel and adds the CSR remainder through its oracle afterwards.  The
-    CUDA kernel bounds its x reads and sums each row's plane and remainder
-    in one thread, so neither the padded copy nor the second pass remains.
+    CUDA kernel bounds its x reads, streams the plane rows that hold no
+    remainder, and gives each row that does (found through the port's row
+    list, ``rem_rows``/``rem_start``/``rem_mask``) to a group of lanes that
+    sums its plane part and its remainder, so neither the padded copy nor the
+    second pass remains.
     """
     r = mat.remainder
-    return spmv_diahybrid_rows(mat.diag_vals, mat.offset_vec, r.row_ptr, r.col_idx, r.vals,
-                               x.contiguous(), m=mat.m, n=mat.n)
+    return spmv_diahybrid_rows(mat.diag_vals, mat.offset_vec, mat.rem_rows, mat.rem_start,
+                               mat.rem_mask, r.col_idx, r.vals, x.contiguous(), m=mat.m, n=mat.n)
 
 
 @annotated("repro_torch.spmv_ell", count_section="kernels")

@@ -468,6 +468,48 @@ def diahybrid_rows(
     return y
 
 
+def diahybrid_list_rows(
+    diag_vals: torch.Tensor,
+    offsets: torch.Tensor,
+    rem_rows: torch.Tensor,
+    rem_start: torch.Tensor,
+    rem_mask: torch.Tensor,
+    rem_col_idx: torch.Tensor,
+    rem_vals: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    m: int,
+    n: int,
+) -> torch.Tensor:
+    """Plain version of the DIA-hybrid kernel as the card runs it: ``[m]``
+    (``[m, B]``) rows, the remainder found through the port's row list
+    (``DIAHybridMatrix.rem_rows``/``rem_start``/``rem_mask``) and not
+    through its row pointer.
+
+    Rows whose ``rem_mask`` bit is clear take the plane part alone
+    (:func:`dia_plane_rows`); listed row ``rem_rows[j]`` takes its plane
+    part plus its entries ``[rem_start[j], rem_start[j + 1])``, summed by
+    ``index_add_``.  A row whose bit is set but which is not listed is NaN:
+    the kernel would leave it unwritten.
+    """
+    plane = dia_plane_rows(diag_vals, offsets, x, m=m, n=n)
+    bits = (rem_mask.long()[:, None] >> torch.arange(32, device=x.device)) & 1
+    y = plane.masked_fill(bits.reshape(-1)[:m].bool().reshape((m,) + (1,) * (x.ndim - 1)),
+                          float("nan"))
+    rows = rem_rows.long()
+    if rows.numel():
+        start = rem_start.long()
+        seg = torch.repeat_interleave(torch.arange(rows.numel(), device=x.device),
+                                      start[1:] - start[:-1])
+        e0, e1 = int(start[0]), int(start[-1])
+        v = rem_vals[e0:e1].to(x.dtype)
+        contrib = (v[:, None] if x.ndim == 2 else v) * x[rem_col_idx[e0:e1].long()]
+        rem = torch.zeros((rows.numel(),) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        rem.index_add_(0, seg, contrib)
+        y[rows] = plane[rows] + rem
+    return y
+
+
 def _dia_plane(mat: DIAHybridMatrix, x: torch.Tensor) -> torch.Tensor:
     """DIA-plane partial y of a container (see :func:`dia_plane_rows`)."""
     return dia_plane_rows(mat.diag_vals, mat.offset_vec, x, m=mat.m, n=mat.n)

@@ -3,10 +3,12 @@
 Replaces ``repro.kernels.spmv_diahybrid.spmv_dia_pallas`` together with the
 CSR remainder that ``repro.kernels.ops.spmv_diahybrid`` adds after it.  On
 CUDA tensors :func:`spmv_diahybrid_rows` launches the hand-written Hopper
-kernel in ``csrc/spmv_diahybrid.cu`` (design notes there: one thread per
-row, plane and remainder in one launch); on CPU tensors it runs the plain
-PyTorch version :func:`repro_torch.kernels.ref.diahybrid_rows`.  There is no
-fallback from one to the other: a CUDA input the kernel does not take raises.
+kernel in ``csrc/spmv_diahybrid.cu`` (design notes there: one launch, the
+plane rows streamed 16 bytes a thread, the remainder rows found through the
+port's row list and each summed by a group of lanes); on CPU tensors it runs
+the plain PyTorch version :func:`repro_torch.kernels.ref.diahybrid_list_rows`
+over the same arrays.  There is no fallback from one to the other: a CUDA
+input the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -28,20 +30,35 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared (once)."""
     lib = build.load("spmv_diahybrid")
-    lib.repro_spmv_diahybrid.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P]
+    lib.repro_spmv_diahybrid.argtypes = [
+        _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P]
     lib.repro_spmv_diahybrid.restype = _I
     lib.repro_diahybrid_error_string.argtypes = [_I]
     lib.repro_diahybrid_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def fringe_lanes(rem_nnz: int, R: int) -> int:
+    """G, the lanes that sum one listed row's remainder: the largest power of
+    two, 1 to 32, not above a quarter of the mean entries per listed row
+    (rounded to the nearest integer), so a lane sums about four entries.
+
+    It comes from the shapes alone (no device read) and never from B, so a
+    row's summation order is the same at every width.
+    """
+    quarter = (rem_nnz + 2 * R) // (4 * R) if R else 0
+    return min(32, 1 << (max(quarter, 1).bit_length() - 1))
+
+
 def spmv_diahybrid_rows(
-    diag_vals: torch.Tensor,     # [n_diag, m] f32 | bf16
-    offsets: torch.Tensor,       # [n_diag] int32, on x's device
-    rem_row_ptr: torch.Tensor,   # [m + 1] int32
-    rem_col_idx: torch.Tensor,   # [rem_nnz] int32
-    rem_vals: torch.Tensor,      # [rem_nnz] f32
-    x: torch.Tensor,             # [n] or [n, B] f32
+    diag_vals: torch.Tensor,        # [n_diag, m] f32 | bf16
+    offsets: torch.Tensor,          # [n_diag] int32, on x's device
+    rem_rows: torch.Tensor,         # [R] int32
+    rem_start: torch.Tensor,        # [R + 1] int32
+    rem_mask: torch.Tensor,         # [ceil(m / 32)] int32
+    rem_col_idx: torch.Tensor,      # [rem_nnz] int32
+    rem_vals: torch.Tensor,         # [rem_nnz] f32
+    x: torch.Tensor,                # [n] or [n, B] f32
     *,
     m: int,
     n: int,
@@ -49,16 +66,18 @@ def spmv_diahybrid_rows(
 ) -> torch.Tensor:
     """y = plane·x + remainder·x in row order: ``[m]`` (``[m, B]``).
 
-    ``offsets`` must already lie on x's device (``DIAHybridMatrix.offset_vec``
-    is built once with the container): the wrapper uploads nothing, so a call
-    can be captured in a CUDA graph.  The kernel writes every row of y, so
-    ``out`` (if given, ``[m]``/``[m, B]`` f32 on x's device) need not be
-    cleared.  CUDA calls add one to ``spmv_diahybrid_rows.launches``; each is
-    one CUDA launch.
+    The remainder is given by the port's row list
+    (``DIAHybridMatrix.rem_rows``/``rem_start``/``rem_mask``), not by its row
+    pointer.  ``offsets`` must already lie on x's device
+    (``DIAHybridMatrix.offset_vec`` is built once with the container): the
+    wrapper uploads nothing, so a call can be captured in a CUDA graph.  The
+    kernel writes every row of y, so ``out`` (if given, ``[m]``/``[m, B]``
+    f32 on x's device) need not be cleared.  CUDA calls add one to
+    ``spmv_diahybrid_rows.launches``; each is one CUDA launch.
     """
     if x.device.type == "cpu":
-        y = ref.diahybrid_rows(diag_vals, offsets, rem_row_ptr, rem_col_idx, rem_vals, x,
-                               m=m, n=n)
+        y = ref.diahybrid_list_rows(diag_vals, offsets, rem_rows, rem_start, rem_mask,
+                                    rem_col_idx, rem_vals, x, m=m, n=n)
         return y if out is None else out.copy_(y)
 
     dev = x.device
@@ -71,12 +90,17 @@ def spmv_diahybrid_rows(
     check_operand("x", x, dev, (torch.float32,))
     check_operand("diag_vals", diag_vals, dev, tuple(_VALUE_KIND))
     check_operand("offsets", offsets, dev, (torch.int32,), (n_diag,))
-    check_operand("rem_row_ptr", rem_row_ptr, dev, (torch.int32,), (m + 1,))
     if max(m, n) >= 2**31:
         raise ValueError(f"m and n must be below 2^31, got {m} and {n}")
-    if rem_vals.ndim != 1:
-        raise ValueError(f"rem_vals must be [rem_nnz], got shape {tuple(rem_vals.shape)}")
-    rem_nnz = int(rem_vals.shape[0])
+    if rem_rows.ndim != 1 or rem_vals.ndim != 1:
+        raise ValueError(f"rem_rows and rem_vals must be 1-d, got shapes "
+                         f"{tuple(rem_rows.shape)} and {tuple(rem_vals.shape)}")
+    R, rem_nnz = int(rem_rows.shape[0]), int(rem_vals.shape[0])
+    if R > m:
+        raise ValueError(f"{R} listed rows for {m} rows")
+    check_operand("rem_rows", rem_rows, dev, (torch.int32,))
+    check_operand("rem_start", rem_start, dev, (torch.int32,), (R + 1,))
+    check_operand("rem_mask", rem_mask, dev, (torch.int32,), (-(-m // 32),))
     check_operand("rem_vals", rem_vals, dev, (torch.float32,))
     check_operand("rem_col_idx", rem_col_idx, dev, (torch.int32,), (rem_nnz,))
     if out is None:
@@ -89,7 +113,8 @@ def spmv_diahybrid_rows(
     lib = _library()
     err = lib.repro_spmv_diahybrid(
         _VALUE_KIND[diag_vals.dtype], diag_vals.data_ptr(), offsets.data_ptr(), n_diag,
-        rem_row_ptr.data_ptr(), rem_col_idx.data_ptr(), rem_vals.data_ptr(), x.data_ptr(), B,
+        rem_rows.data_ptr(), rem_start.data_ptr(), rem_mask.data_ptr(), rem_col_idx.data_ptr(),
+        rem_vals.data_ptr(), R, fringe_lanes(rem_nnz, R).bit_length() - 1, x.data_ptr(), B,
         out.data_ptr(), m, n, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -17,7 +17,7 @@ import torch
 from repro_torch.sparse.baselines import BCSRMatrix, CSR5LikeMatrix, ELLMatrix
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.csrk import CSRkTileBuckets, CSRkTiles
-from repro_torch.sparse.diahybrid import DIAHybridMatrix
+from repro_torch.sparse.diahybrid import DIAHybridMatrix, remainder_rows
 from repro_torch.sparse.segsum import SegSumCSR, carry_spans, segment_starts
 from repro_torch.sparse.sellcs import SELLCSMatrix, SELLCSTiles
 
@@ -136,13 +136,15 @@ def diahybrid_from_numpy(
     diag_nnz: int, value_dtype: str = "f32",
 ) -> DIAHybridMatrix:
     """A :class:`DIAHybridMatrix` from its ``[n_diag, m]`` plane (f32, or
-    bf16 bits), its ascending offsets and its CSR remainder arrays."""
+    bf16 bits), its ascending offsets and its CSR remainder arrays; the
+    port's row list is derived from ``rem_row_ptr``."""
     offsets = tuple(int(o) for o in offsets)
     return DIAHybridMatrix(
         tensor_from_numpy(diag_vals), offsets,
         csr_from_numpy(rem_row_ptr, rem_col_idx, np.asarray(rem_vals, np.float32), shape),
         (int(shape[0]), int(shape[1])),
         tensor_from_numpy(np.asarray(offsets, np.int32).reshape(-1)),
+        *(tensor_from_numpy(a) for a in remainder_rows(rem_row_ptr)),
         diag_nnz=int(diag_nnz), value_dtype=value_dtype,
     )
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs.spmv_suite import (
+    dia_fringe_matrix,
     dia_hand_matrix,
     dia_rectangular_matrix,
     ell_width_matrix,
@@ -31,7 +32,7 @@ from repro_torch.configs.spmv_suite import (
 from repro_torch.core import cg, jacobi_smoother, power_iteration, prepare
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
-from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+from repro_torch.kernels.spmv_diahybrid import fringe_lanes, spmv_diahybrid_rows
 from repro_torch.kernels.spmv_ell import spmv_ell_rows
 from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
@@ -475,13 +476,72 @@ def test_dia_non_finite_x_reaches_the_plain_versions_rows(cuda, diagonal, B):
     assert bool(torch.isnan(y).any()) and bool(torch.isinf(y).any())
 
 
+DIA_LENGTHS = (1, 2, 31, 32, 33, 64, 129)
+
+
+def _dia_lengths(m):
+    """Remainder rows of 1..129 entries at mask-word edges and the last row."""
+    return dict(zip((0, 31, 32, 33, 63, 64, m - 1), DIA_LENGTHS))
+
+
+@pytest.fixture(scope="module")
+def dia_lists():
+    cases = {f"lengths m={m}": dia_fringe_matrix(m, _dia_lengths(m)) for m in range(1000, 1004)}
+    cases["long rows"] = dia_fringe_matrix(1003, {0: 129, 31: 160, 1002: 200}, seed=1)
+    cases["every row"] = dia_fringe_matrix(1001, every_row=12, seed=2)
+    cases["every row, no plane"] = dia_fringe_matrix(333, every_row=3, band=None, seed=3)
+    cases["stencil_fringe(47)"] = stencil_fringe(47)
+    cases["71 diagonals"] = dia_fringe_matrix(1001, {7: 2}, band=35, seed=4)
+    return cases
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["lengths m=1000", "lengths m=1001", "lengths m=1002",
+                                  "lengths m=1003", "long rows", "every row",
+                                  "every row, no plane", "stencil_fringe(47)", "71 diagonals"])
+def test_dia_row_list_cases(cuda, dia_lists, name, value_dtype):
+    """Rows listed at mask-word edges, every row listed, G from 1 to 32, m
+    % 4 in {0, 1, 2, 3} (f32 and bf16 plane rows off 16-byte boundaries), 71
+    diagonals: within the bound of both plain versions, into an
+    output filled with NaN, bit-stable, B=8 columns equal to B=1."""
+    A = dia_lists[name]
+    d = diahybrid_from_csr(A, value_dtype=value_dtype).to(cuda)
+    if name.startswith("lengths"):
+        rem_len = d.remainder.row_lengths().cpu()[d.rem_rows.cpu().long()]
+        assert d.offsets == (-1, 0, 1) and rem_len.tolist() == list(DIA_LENGTHS)
+        assert fringe_lanes(d.remainder.nnz, d.rem_rows.numel()) == 8
+    elif name == "long rows":
+        assert fringe_lanes(d.remainder.nnz, d.rem_rows.numel()) == 32
+    elif name.startswith("every row"):
+        assert d.rem_rows.numel() == A.m and (d.n_diag == 0) == name.endswith("no plane")
+    elif name == "71 diagonals":
+        assert d.n_diag == 71 and d.remainder.nnz == 2
+    r = d.remainder
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    k = A.row_lengths().to(cuda).float()
+    for xb in (X[:, 0].contiguous(), X):
+        out = torch.full((A.m,) + tuple(xb.shape[1:]), float("nan"), device=cuda)
+        y = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start, d.rem_mask,
+                                r.col_idx, r.vals, xb, m=A.m, n=A.n, out=out)
+        prod = ref.spmv_diahybrid(_abs_dia(d), xb.abs())
+        bound = (2 * (k[:, None] if xb.ndim == 2 else k) + 2) * EPS32 * prod
+        listed = ref.diahybrid_list_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start,
+                                         d.rem_mask, r.col_idx, r.vals, xb, m=A.m, n=A.n)
+        for want in (ref.spmv_diahybrid(d, xb), listed):
+            assert bool(((y - want).abs() <= bound).all())
+        assert torch.equal(y, ops.spmv_diahybrid(d, xb))
+    Y = ops.spmv_diahybrid(d, X)
+    for j in range(8):
+        assert torch.equal(Y[:, j], ops.spmv_diahybrid(d, X[:, j].contiguous()))
+
+
 def test_dia_wrapper_rejects_what_the_kernel_does_not_take(cuda, diagonal):
     A = diagonal["fringe"]
     d = diahybrid_from_csr(A).to(cuda)
     r = d.remainder
     x = torch.randn(A.n, device=cuda)
     call = lambda **kw: spmv_diahybrid_rows(  # noqa: E731
-        kw.get("vals", d.diag_vals), kw.get("offsets", d.offset_vec), kw.get("rp", r.row_ptr),
+        kw.get("vals", d.diag_vals), kw.get("offsets", d.offset_vec), kw.get("rows", d.rem_rows), kw.get("start", d.rem_start), kw.get("mask", d.rem_mask),
         kw.get("cols", r.col_idx), kw.get("rv", r.vals), kw.get("x", x), m=A.m,
         n=kw.get("n", A.n), out=kw.get("out"))
     with pytest.raises(TypeError):
@@ -503,9 +563,19 @@ def test_dia_wrapper_rejects_what_the_kernel_does_not_take(cuda, diagonal):
     with pytest.raises(TypeError):
         call(offsets=d.offset_vec.long())
     with pytest.raises(ValueError):
-        call(offsets=d.offset_vec[:-1])
+        call(offsets=d.offset_vec[:-1])                           # an offset short
     with pytest.raises(ValueError):
-        call(rp=r.row_ptr[:-1])
+        call(rows=d.rem_rows.cpu())                               # row list on the host
+    with pytest.raises(TypeError):
+        call(rows=d.rem_rows.long())
+    with pytest.raises(ValueError):
+        call(start=d.rem_start[:-1])
+    with pytest.raises(TypeError):
+        call(start=d.rem_start.long())
+    with pytest.raises(ValueError):
+        call(mask=d.rem_mask[:-1])
+    with pytest.raises(TypeError):
+        call(mask=d.rem_mask.to(torch.uint8))
     with pytest.raises(TypeError):
         call(cols=r.col_idx.long())
     with pytest.raises(ValueError):

@@ -32,6 +32,7 @@ from repro.sparse.diahybrid import diahybrid_from_csr as j_diahybrid_from_csr
 
 import repro_torch.sparse as ts
 from repro_torch.configs.spmv_suite import (
+    dia_fringe_matrix,
     dia_hand_matrix,
     dia_rectangular_matrix,
     no_dense_diagonal_matrix,
@@ -43,7 +44,7 @@ from repro_torch.core import solvers as t_solvers
 from repro_torch.core.spmv import prepare as t_prepare
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+from repro_torch.kernels.spmv_diahybrid import fringe_lanes, spmv_diahybrid_rows
 from repro_torch.sparse.convert import diahybrid_from_numpy, to_numpy
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -82,11 +83,20 @@ def pure_remainder():
     return both(no_dense_diagonal_matrix())
 
 
+MASK_EDGE_LENGTHS = {0: 1, 31: 2, 32: 31, 33: 32, 63: 33, 64: 64, 1001: 129}
+
+
 CASES = {
     "stencil_fringe(48)": lambda: both(t_stencil_fringe(48)),
     "rectangular": rectangular,
     "pure_plane": pure_plane,
     "pure_remainder": pure_remainder,
+    # remainder rows of 1..129 entries at mask-word edges and the last row;
+    # m = 1002 is not a multiple of 4 or 32
+    "mask_edges": lambda: both(dia_fringe_matrix(1002, MASK_EDGE_LENGTHS)),
+    # every row listed (R = m), with and without a plane
+    "every_row": lambda: both(dia_fringe_matrix(70, every_row=3)),
+    "every_row_no_plane": lambda: both(dia_fringe_matrix(70, every_row=3, band=None)),
 }
 
 
@@ -170,7 +180,26 @@ def _containers_identical(A, Aj, value_dtype, occupancy=ts.DIAG_OCCUPANCY):
     assert p.offsets == d.offsets and torch.equal(p.offset_vec, d.offset_vec)
     for f in ("row_ptr", "col_idx", "vals"):
         assert torch.equal(getattr(p.remainder, f), getattr(d.remainder, f))
+    # both builders derive the port's row list from the remainder's row pointer
+    for c in (d, p):
+        assert_row_list(c, np.asarray(dj.remainder.row_ptr))
     return d, dj
+
+
+def assert_row_list(d, row_ptr):
+    """``rem_rows``/``rem_start``/``rem_mask`` are what ``row_ptr`` implies,
+    worked out here row by row."""
+    m = d.m
+    rows = [i for i in range(m) if row_ptr[i + 1] > row_ptr[i]]
+    start = [int(row_ptr[i]) for i in rows] + [int(row_ptr[m])]
+    mask = np.zeros(-(-m // 32), np.uint32)
+    for i in rows:
+        mask[i // 32] |= np.uint32(1 << (i % 32))
+    for t in (d.rem_rows, d.rem_start, d.rem_mask):
+        assert t.dtype == torch.int32 and t.ndim == 1
+    assert d.rem_rows.tolist() == rows
+    assert d.rem_start.tolist() == start
+    np.testing.assert_array_equal(d.rem_mask.numpy().view(np.uint32), mask)
 
 
 @pytest.mark.parametrize("value_dtype", DTYPES)
@@ -183,9 +212,18 @@ def test_containers_identical(case, value_dtype):
     elif case == "rectangular":
         assert d.offsets == (0, 40) and d.remainder.nnz == 2
     elif case == "pure_plane":
-        assert d.n_diag == 9 and d.remainder.nnz == 0
+        assert d.n_diag == 9 and d.remainder.nnz == 0 and d.rem_rows.numel() == 0
+    elif case == "mask_edges":
+        assert d.offsets == (-1, 0, 1)
+        assert d.rem_rows.tolist() == sorted(MASK_EDGE_LENGTHS)
+        assert d.remainder.row_lengths()[d.rem_rows.long()].tolist() == [
+            MASK_EDGE_LENGTHS[i] for i in sorted(MASK_EDGE_LENGTHS)]
+    elif case == "every_row":
+        assert d.offsets == (-1, 0, 1) and d.rem_rows.numel() == A.m
     else:
         assert d.n_diag == 0 and d.diag_vals.shape == (0, A.m) and d.remainder.nnz == A.nnz
+        if case == "every_row_no_plane":
+            assert d.rem_rows.numel() == A.m
     if value_dtype == "f32":
         np.testing.assert_array_equal(d.todense().numpy(), dense)
 
@@ -253,11 +291,49 @@ def test_oracle_and_cpu_wrapper_match(rng, case, B, value_dtype):
     plane = t_ref._dia_plane(d, torch.from_numpy(x)).numpy()
     assert_within_bound(plane, np.asarray(j_ref._dia_plane(dj, jnp.asarray(x))), absA, x)
     assert_within_bound(oracle.numpy(), absA @ x, absA, x)
+    # the plain version over the row list, as the card reads it
+    listed = list_rows(d, torch.from_numpy(x))
+    assert_within_bound(listed.numpy(), oracle.numpy(), absA, x)
+    assert_within_bound(listed.numpy(), want, absA, x)
     before = spmv_diahybrid_rows.launches
     got = t_ops.spmv_diahybrid(d, torch.from_numpy(x))
     assert spmv_diahybrid_rows.launches == before        # CPU: the plain version
-    assert torch.equal(got, oracle)
+    assert torch.equal(got, listed)
     assert got.shape == (A.m,) + x.shape[1:] and got.dtype == torch.float32
+
+
+def list_rows(d, x):
+    r = d.remainder
+    return t_ref.diahybrid_list_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start,
+                                     d.rem_mask, r.col_idx, r.vals, x, m=d.m, n=d.n)
+
+
+@pytest.mark.parametrize("B", [None, 2])
+def test_list_version_leaves_an_unlisted_masked_row_nan(rng, B):
+    """A row whose mask bit is set but which is not listed is a row the
+    kernel would skip: the plain version shows it as NaN, and every other
+    row as before."""
+    A, _, dense = CASES["mask_edges"]()
+    d = ts.diahybrid_from_csr(A)
+    x = torch.from_numpy(rng.standard_normal((A.n,) if B is None else (A.n, B))
+                         .astype(np.float32))
+    good = list_rows(d, x)
+    assert bool(torch.isfinite(good).all())
+    mask = d.rem_mask.clone()
+    mask[100 // 32] |= 1 << (100 % 32)                   # row 100 holds no remainder
+    bad = list_rows(dataclasses.replace(d, rem_mask=mask), x)
+    assert bool(torch.isnan(bad[100]).all())
+    keep = torch.arange(A.m) != 100
+    assert torch.equal(bad[keep], good[keep])
+
+
+def test_fringe_lanes():
+    """G: the largest power of two, 1 to 32, not above a quarter of the mean
+    entries per listed row, rounded; 16 on stencil_fringe (64.0 a row)."""
+    assert fringe_lanes(2_684_327, 41_943) == 16
+    for (nnz, R), G in {(0, 0): 1, (2, 1): 1, (9, 2): 1, (7 * 8, 7): 2, (292, 7): 8,
+                        (4 * 31 * 3, 3): 16, (4 * 32 * 5, 5): 32, (4 * 1000, 1): 32}.items():
+        assert fringe_lanes(nnz, R) == G
 
 
 @pytest.mark.parametrize("value_dtype", DTYPES)
@@ -298,8 +374,8 @@ def test_wrapper_out_and_empty_shapes():
     x = np.arange(200, dtype=np.float32) / 7
     r = d.remainder
     out = torch.full((130,), float("nan"))
-    y = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, r.row_ptr, r.col_idx, r.vals,
-                            torch.from_numpy(x), m=130, n=200, out=out)
+    y = spmv_diahybrid_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start, d.rem_mask,
+                            r.col_idx, r.vals, torch.from_numpy(x), m=130, n=200, out=out)
     assert y is out
     assert_within_bound(y.numpy(), dense @ x, dense, x)
     empty = ts.diahybrid_from_csr(ts.CSRMatrix.fromdense(np.zeros((5, 3), np.float32)))
@@ -327,9 +403,12 @@ def test_prepare_routes_and_decides_as_the_reference(fringe, value_dtype):
     assert op.modeled_bytes() == opj.modeled_bytes()
     assert op.padding_overhead() == opj.padding_overhead()
     assert op.overhead_fraction() == opj.overhead_fraction()
-    # the port keeps its perm arrays in int64 (the reference: int32) and the
+    # the port keeps its perm arrays in int64 (the reference: int32), the
     # offsets as an [n_diag] int32 tensor (the reference: static metadata)
-    extra = 2 * 4 * A.m + 4 * op.dia.n_diag
+    # and the remainder's row list: rem_rows [R], rem_start [R + 1] and
+    # rem_mask [ceil(m / 32)], int32
+    R = int((op.dia.remainder.row_lengths() > 0).sum())
+    extra = 2 * 4 * A.m + 4 * op.dia.n_diag + 4 * (2 * R + 1) + 4 * (-(-A.m // 32))
     assert op.resident_bytes() == opj.resident_bytes() + extra
     assert_same(op.dia.diag_vals, opj.dia.diag_vals)
     assert op.dia.offsets == opj.dia.offsets
