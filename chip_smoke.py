@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths
-and the ELL baseline path on one NVIDIA GPU.
+"""Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
+the ELL baseline path and the serving engine on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -109,8 +109,24 @@ Phases (any failure exits non-zero and prints no result line):
 17. time the ELL kernel, its plain version and cuSPARSE on bmwcra_1 and on
     phase 13's stencil_fringe(2048) (kmax 73: 7.6x its nnz in slots), as in
     phase 5, beside the SELL-C-σ and DIA kernels' times;
-18. print one JSON line describing the five kernels; then the card line
-    and, last, ``{"ok": true, "device": {...}}``.
+18. print one JSON line describing the five kernels (with what phase 19
+    measured of the four route kernels); then the card line and, last,
+    ``{"ok": true, "device": {...}}``;
+19. (run before the result lines of 18) the serving engine over the four
+    route matrices at full size, ecology1, bmwcra_1, powerlaw_zipf and
+    stencil_fringe(2048): one ``ServeEngine(max_batch=8)`` prepares each
+    inside the step of its first miss (the four routes asserted), serves a
+    seeded stream of 512 requests (matrix uniform, width uniform in
+    {1, 2, 3}, a step after a submit with probability 0.5, then drain) and a
+    burst of 64 ``[n]`` requests per matrix (eight full 8-column batches);
+    every result bit-equal to a direct call of the cached operator, 10 per
+    matrix within the row bound of the plain CSR product, 4 misses and 4
+    prepares, every request completed, each route kernel launched; a warm
+    stream of 512 more for requests/s and latency; per route the device time
+    of one W=8 dispatch beside the host time of a ``step()`` that makes it
+    and beside 8 B=1 launches; then a second engine whose byte budget is one
+    under bmwcra_1's and powerlaw_zipf's operators: A, B, A, B at
+    ``max_batch=1`` give 4 prepares, 3 evictions and the first engine's bits.
 """
 from __future__ import annotations
 
@@ -725,9 +741,10 @@ def check_route_products(tag, op, A_dev, seed: int, iters: int = 50) -> int:
     return 2 + 2 * (iters + 1)
 
 
-def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
+def segsum_phases(mem_rate: float, f32_rate: float):
     """Phases 9-11: the segmented-sum kernel, its path at powerlaw_zipf's
-    full size, timing.  Returns the kernel's entry of the ``kernels`` line."""
+    full size, timing.  Returns the kernel's entry of the ``kernels`` line
+    and the matrix (on the host), which the serving phase reuses."""
     import torch
 
     from repro_torch.configs.spmv_suite import (
@@ -873,7 +890,7 @@ def segsum_phases(mem_rate: float, f32_rate: float) -> dict:
         "src/repro/kernels/spmv_segsum.py:101", launches, variants,
         {"matrix": "powerlaw_zipf", "m": m, "n": n, "nnz": nnz, "chunks": T, "S": S, "R": R,
          "value_dtype": "f32", "B": 1},
-        cuda_launches_per_call=2 if seg.carry.shape[0] else 1)
+        cuda_launches_per_call=2 if seg.carry.shape[0] else 1), A
 
 
 def abs_dia(d):
@@ -1285,6 +1302,243 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
          "slots": slots, "value_dtype": "f32", "B": 1})
 
 
+def serve_phase(fleet: dict) -> dict:
+    """Phase 19: the serving engine over the four route matrices at full size.
+
+    ``fleet`` maps a matrix id to (host CSR, the route ``prepare`` must
+    give it).  One ``ServeEngine(max_batch=8)`` prepares each on its first
+    miss, serves a seeded stream and one burst per matrix, and every result
+    is held bit for bit against a direct call of the cached operator (a
+    sample also within the row bound of the plain CSR product); then a
+    second engine with a byte budget one under two operators evicts and
+    re-prepares.  Returns, per kernel name, its serving launches and the
+    device ms of one W=8 dispatch, for the ``kernels`` line."""
+    import torch
+
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+    from repro_torch.kernels.spmv_ell import spmv_ell_rows
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.obs import MetricsRegistry, get_registry, using_registry
+    from repro_torch.serve import ServeEngine, ServeStats
+    from repro_torch.sparse import CSRMatrix
+
+    W = 8
+    # each route's kernel wrapper, under its name in the ``kernels`` line
+    kernel_of = {"csrk": ("spmv_csrk_tiles", spmv_csrk_tiles),
+                 "sellcs": ("spmv_sellcs", spmv_sellcs_chunks),
+                 "segsum": ("spmv_segsum", spmv_segsum_chunks),
+                 "diahybrid": ("spmv_diahybrid", spmv_diahybrid_rows)}
+    counted = dict(kernel_of.values(), spmv_ell=spmv_ell_rows)
+    t_phase = time.perf_counter()
+    reg = get_registry()
+    reg.clear()
+    for f in counted.values():
+        f.launches = 0
+    eng = ServeEngine(max_batch=W, device="cuda", format="auto")
+    fp_of = {mid: eng.add_matrix(mid, A) for mid, (A, _) in fleet.items()}
+    mid_of = {fp: mid for mid, fp in fp_of.items()}
+    mids = list(fleet)
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    step_s = {}            # matrix id -> host seconds of the step that prepared it
+
+    def step(flush=False):
+        before = eng.cache.prepares
+        t0 = time.perf_counter()
+        done = eng.step(flush=flush)
+        if eng.cache.prepares > before:        # the new operator is the MRU entry
+            step_s[mid_of[eng.cache.fingerprints_lru_order()[-1]]] = time.perf_counter() - t0
+        return done
+
+    def stream(n_req, stepper):
+        """The reference CLI's stream: matrix uniform over the fleet, width
+        uniform over {1, 2, 3}, a step after a submit with probability 0.5,
+        then drain.  Returns [(id, x, future)] and the wall seconds."""
+        sent = []
+        t0 = time.perf_counter()
+        for _ in range(n_req):
+            mid = mids[rng.integers(len(mids))]
+            n, w = fleet[mid][0].n, int(rng.integers(1, 4))
+            x = torch.randn((n,) if w == 1 else (n, w), generator=gen, device="cuda")
+            sent.append((mid, x, eng.submit(mid, x)))
+            if rng.random() < 0.5:
+                stepper()
+        while eng.queue_depth:                  # drain(), one step at a time
+            stepper(flush=True)
+        torch.cuda.synchronize()
+        return sent, time.perf_counter() - t0
+
+    # (a)+(b) the cold stream: each matrix prepared inside the step of its first miss
+    cold, cold_s = stream(512, step)
+    if eng.drain() != 0:
+        raise AssertionError("drain after the stream found requests left")
+    snap_cold = eng.stats.snapshot()
+    log(f"[serve] cold stream: 512 requests in {cold_s:.2f} s "
+        f"({512 / cold_s:.1f} req/s, the four prepares included); " + ", ".join(
+            f"{k} {v:.4g}" for k, v in snap_cold.items()))
+
+    # the bursts: 64 [n] requests per matrix, eight full 8-column batches each
+    bursts = []
+    t0 = time.perf_counter()
+    for mid in mids:
+        n_batches = eng.stats.batches_dispatched
+        xs = torch.randn((64, fleet[mid][0].n), generator=gen, device="cuda")
+        bursts += [(mid, x, eng.submit(mid, x)) for x in xs]
+        eng.drain()
+        if eng.stats.batches_dispatched - n_batches != 64 // W:
+            raise AssertionError(f"{mid}: a burst of 64 went out in "
+                                 f"{eng.stats.batches_dispatched - n_batches} batches")
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    served = {name: f.launches for name, f in counted.items()}
+    log(f"[serve] bursts: 4 x 64 [n] requests in {burst_s:.3f} s ({256 / burst_s:.1f} req/s), "
+        f"8 batches of 8 columns each; kernel launches while serving (stream and bursts, "
+        f"wrapper calls): {served}")
+
+    # (c) checks: counts first, before any lookup of this phase's own
+    c = eng.cache
+    if (c.misses, c.prepares, c.evictions) != (4, 4, 0):
+        raise AssertionError(f"cache counts misses {c.misses}, prepares {c.prepares}, "
+                             f"evictions {c.evictions}; expected 4, 4, 0")
+    if eng.stats.requests_completed != eng.stats.requests_submitted or \
+            eng.stats.requests_submitted != 512 + 256:
+        raise AssertionError(f"completed {eng.stats.requests_completed} of "
+                             f"{eng.stats.requests_submitted} submitted, 768 sent")
+    if any(served[name] == 0 for name, _ in kernel_of.values()):
+        raise AssertionError(f"a route kernel never launched while serving: {served}")
+    amort = reg.get("serve", "prepare_amortization")
+    prepare_s = sum(r["value"] for r in reg.records()
+                    if (r["section"], r["name"]) == ("serve", "prepare_ms")) / 1e3
+    hits = c.hits
+    ops = {mid: c.get_or_prepare(fleet[mid][0], fp_of[mid])[0] for mid in mids}
+    for mid, op in ops.items():
+        log(f"[serve] {mid}: prepared by the engine inside a step of {step_s[mid]:.2f} s "
+            f"(host; the prepare and that step's dispatch), backend {op.backend}, "
+            f"resident_bytes {op.resident_bytes()}")
+    if [op.backend for op in ops.values()] != [route for _, route in fleet.values()]:
+        raise AssertionError(f"routes {[op.backend for op in ops.values()]}, expected "
+                             f"the four routes")
+    bad = [(mid, tuple(x.shape)) for mid, x, fut in cold + bursts
+           if not torch.equal(fut.result(), ops[mid](x))]
+    if bad:
+        raise AssertionError(f"{len(bad)} served results differ from a direct call: {bad[:4]}")
+    worst = {}
+    for mid in mids:
+        op, A = ops[mid], fleet[mid][0]
+        # CSR-k results live in the Band-k order: hold them against that matrix
+        mat = op.csr if op.backend == "csrk" else A.to("cuda")
+        mat_abs = CSRMatrix(mat.row_ptr, mat.col_idx, mat.vals.abs(), mat.shape)
+        mine = [(x, fut) for m, x, fut in cold + bursts if m == mid]
+        sample = mine[:8] + mine[-2:]
+        worst[mid] = max(check_close(fut.result(), csr_product(mat, x),
+                                     row_bound(csr_product(mat_abs, x.abs()), mat.row_lengths()),
+                                     f"served {mid} vs plain CSR") for x, fut in sample)
+        del mat, mat_abs
+    log(f"[serve] checks: all {len(cold) + len(bursts)} results bit-equal to direct calls of "
+        f"the cached operators; 10 per matrix within the row bound of the plain CSR product "
+        f"(max |err| " + ", ".join(f"{m} {e:.3e}" for m, e in worst.items()) + f"); cache "
+        f"hits {hits}, misses {c.misses}, prepares {c.prepares}, evictions {c.evictions}; "
+        f"prepare_amortization {amort}; serve.prepare {prepare_s:.2f} s in all")
+    del cold, bursts
+
+    # the warm stream, on fresh statistics: requests/s and latency with no prepare
+    eng.stats = ServeStats()
+    warm, warm_s = stream(512, eng.step)
+    bad = [mid for mid, x, fut in warm if not torch.equal(fut.result(), ops[mid](x))]
+    if bad or eng.stats.requests_completed != 512:
+        raise AssertionError(f"warm stream: {len(bad)} results differ, "
+                             f"{eng.stats.requests_completed} of 512 completed")
+    snap = eng.stats.snapshot()
+    del warm
+    log(f"[serve] warm stream: 512 requests in {warm_s:.3f} s ({512 / warm_s:.1f} req/s); "
+        f"latency p50 {snap['latency_p50_ms']:.3f} ms, p95 {snap['latency_p95_ms']:.3f} ms, "
+        f"p99 {snap['latency_p99_ms']:.3f} ms (registry on); mean batch columns "
+        f"{snap['mean_batch_cols']:.3f} over {int(snap['batches_dispatched'])} batches; "
+        f"all bit-equal to direct calls")
+
+    # (e) per route: one W=8 dispatch on the device, and the host time of a step
+    out = {}
+    for mid in mids:
+        op, n = ops[mid], fleet[mid][0].n
+        xs = list(torch.randn((W, n), generator=gen, device="cuda"))
+        dev_ms = time_ms(lambda: op(torch.cat([x[:, None] for x in xs], dim=1)), reps=10)
+        # the dispatch's two parts apart, and another way to build the block
+        X8 = torch.cat([x[:, None] for x in xs], dim=1)
+        if not torch.equal(torch.stack(xs).T.contiguous(), X8):
+            raise AssertionError(f"{mid}: stack-then-transpose differs from torch.cat")
+        op_ms = time_ms(lambda: op(X8), reps=10)
+        cat_ms = time_ms(lambda: torch.cat([x[:, None] for x in xs], dim=1), reps=10)
+        stack_ms = time_ms(lambda: torch.stack(xs).T.contiguous(), reps=10)
+        del X8
+        one = dataclasses.replace(op, spmm_width=None)
+        b1_ms = time_ms(lambda: one(xs[0]), reps=10)
+        for f in counted.values():
+            f.launches = 0
+        for x in xs:
+            eng.submit(mid, x)
+        eng.step()
+        per_dispatch = {k: f.launches for k, f in counted.items() if f.launches}
+        host = {}
+        for label, registry in (("on", reg), ("off", MetricsRegistry(enabled=False))):
+            with using_registry(registry):
+                times = []
+                for _ in range(20):
+                    for x in xs:
+                        eng.submit(mid, x)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.step()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            host[label] = float(np.median(times)) * 1e3
+        name = kernel_of[op.backend][0]
+        out[name] = {"serve_launches": served[name], "serve_launches_per_dispatch": per_dispatch,
+                     "serve_dispatch_ms": dev_ms, "serve_op_ms": op_ms, "serve_cat_ms": cat_ms,
+                     "serve_stack_transpose_ms": stack_ms, "serve_step_host_ms": host["on"],
+                     "serve_step_host_ms_registry_off": host["off"], "serve_b1_ms": b1_ms}
+        log(f"[serve] {mid} ({op.backend}): one W=8 dispatch {dev_ms:.4f} ms on the device "
+            f"(torch.cat and the kernel; CUDA-graph replay between CUDA events: the operator "
+            f"call alone {op_ms:.4f}, torch.cat alone {cat_ms:.4f}, a stack-then-transpose of "
+            f"the same columns, which the engine does not use, {stack_ms:.4f}) beside a step() "
+            f"that dispatches it: {host['on']:.4f} ms host time with the registry on (its sync "
+            f"included), {host['off']:.4f} ms with it off (a sync after it); launches per "
+            f"dispatch {per_dispatch}; 8 B=1 launches {8 * b1_ms:.4f} ms, so one W=8 dispatch "
+            f"takes {dev_ms / (8 * b1_ms):.3f} x their time")
+    out["spmv_ell"] = {"serve_launches": served["spmv_ell"]}
+    if served["spmv_ell"]:
+        raise AssertionError("the ELL kernel launched while serving")
+
+    # (d) eviction at full size: a budget one byte under two operators
+    pair = ("bmwcra_1", "powerlaw_zipf")
+    budget = sum(ops[mid].resident_bytes() for mid in pair) - 1
+    eng2 = ServeEngine(max_batch=1, device="cuda", format="auto", cache_bytes=budget,
+                       spmm_width=W)
+    for mid in pair:
+        eng2.add_matrix(mid, fleet[mid][0])
+    t0 = time.perf_counter()
+    for mid in pair + pair:
+        x = torch.randn(fleet[mid][0].n, generator=gen, device="cuda")
+        fut2, fut1 = eng2.submit(mid, x), eng.submit(mid, x)
+        eng2.drain()
+        eng.drain()
+        if not torch.equal(fut2.result(), fut1.result()):
+            raise AssertionError(f"eviction run: {mid} differs from the first engine's result")
+    c2 = eng2.cache
+    if (c2.prepares, c2.evictions) != (4, 3):
+        raise AssertionError(f"eviction run: {c2.prepares} prepares, {c2.evictions} "
+                             f"evictions; expected 4 and 3")
+    log(f"[serve] eviction: budget {budget} bytes (one under bmwcra_1 + powerlaw_zipf); "
+        f"A, B, A, B at max_batch 1: prepares {c2.prepares}, evictions {c2.evictions}, "
+        f"{time.perf_counter() - t0:.1f} s; results bit-equal to the first engine's")
+    del eng2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[serve] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1442,7 +1696,7 @@ def main() -> int:
     sell_entry, bmw = sellcs_phases(mem_rate, f32_rate)
 
     # 9.-11. the segmented-sum kernel and its path
-    segsum_entry = segsum_phases(mem_rate, f32_rate)
+    segsum_entry, zipf = segsum_phases(mem_rate, f32_rate)
 
     # 12.-14. the DIA/CSR-hybrid kernel and its path
     dia_entry, fringe = dia_phases(mem_rate, f32_rate)
@@ -1451,12 +1705,19 @@ def main() -> int:
     ell_entry = ell_phases(mem_rate, f32_rate, bmw, fringe,
                            {e["name"]: e for e in (sell_entry, dia_entry)})
 
+    # 19. the serving engine over the four route matrices
+    serving = serve_phase({"ecology1": (A, "csrk"), "bmwcra_1": (bmw["A"], "sellcs"),
+                           "powerlaw_zipf": (zipf, "segsum"),
+                           "stencil_fringe(2048)": (fringe, "diahybrid")})
+
     # 18. result lines
     kernels = {"kernels": [kernel_entry(
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
         "src/repro/kernels/spmv_csrk.py:131", launches, variants,
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
     ), sell_entry, segsum_entry, dia_entry, ell_entry]}
+    for entry in kernels["kernels"]:
+        entry.update(serving[entry["name"]])
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

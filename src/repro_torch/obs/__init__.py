@@ -4,6 +4,8 @@
   of counters / gauges / timers / series; a strict no-op when disabled.
 * :mod:`repro_torch.obs.trace` — :func:`annotate` / :func:`annotated`
   profiler scopes (``torch.profiler.record_function`` + NVTX).
+* :mod:`repro_torch.obs.export` — metadata stamping and the
+  ``{"meta", "records"}`` JSON file format, the same as the reference's.
 
 Instrumentation contract: observing never changes a computed value.
 """
@@ -19,3 +21,8 @@ from repro_torch.obs.registry import (  # noqa: F401
     using_registry,
 )
 from repro_torch.obs.trace import annotate, annotated  # noqa: F401
+from repro_torch.obs.export import (  # noqa: F401
+    collect_metadata,
+    read_records,
+    write_records,
+)

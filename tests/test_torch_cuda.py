@@ -927,3 +927,60 @@ def test_sellcs_int8_scale_groups_smaller_than_a_batch(cuda, irregular, per_grou
     Y = ops.spmv_sellcs(tiles, X)
     for j in range(8):
         assert torch.equal(Y[:, j], ops.spmv_sellcs(tiles, X[:, j].contiguous()))
+
+
+ENGINE_ROUTES = {
+    "csrk": (lambda: grid_laplacian_2d(32, 32), spmv_csrk_tiles),
+    "sellcs": (lambda: load_suite(scale=64, ids=[16])["bmwcra_1"], spmv_sellcs_chunks),
+    "segsum": (lambda: powerlaw_zipf(2048), spmv_segsum_chunks),
+    "diahybrid": (lambda: stencil_fringe(48), spmv_diahybrid_rows),
+}
+
+
+@pytest.mark.parametrize("route", list(ENGINE_ROUTES))
+def test_serve_engine_burst_and_interleave_bit_equal_to_direct_calls(cuda, route):
+    """The serving engine on the card: a burst of 12 ``[n]`` requests and an
+    interleaved stream of widths 1-3 on one matrix of the route; every
+    result bit-equal to a direct call of the cached operator and of a freshly
+    prepared one, the route's kernel launched, a bf16 x refused unqueued."""
+    from repro_torch.serve import ServeEngine
+
+    make, kernel = ENGINE_ROUTES[route]
+    A = make()
+    eng = ServeEngine(max_batch=8, format="auto")
+    assert eng.device.type == "cuda"
+    eng.add_matrix("A", A)
+    gen = torch.Generator(cuda).manual_seed(5)
+    rng = np.random.default_rng(5)
+    sent = []
+    kernel.launches = 0
+    for _ in range(12):
+        x = torch.randn(A.n, generator=gen, device=cuda)
+        sent.append((x, eng.submit("A", x)))
+    eng.drain()
+    for _ in range(16):
+        w = int(rng.integers(1, 4))
+        x = torch.randn((A.n,) if w == 1 else (A.n, w), generator=gen, device=cuda)
+        sent.append((x, eng.submit("A", x.cpu() if rng.random() < 0.3 else x)))
+        if rng.random() < 0.5:
+            eng.step()
+    eng.drain()
+    assert kernel.launches > 0
+    assert eng.stats.requests_completed == len(sent) and eng.stats.batches_dispatched < len(sent)
+    op, hit = eng.cache.get_or_prepare(A)
+    fresh = prepare(A, format="auto", spmm_width=8)
+    assert hit and op.backend == route == fresh.backend
+    for x, fut in sent:
+        y = fut.result()
+        assert y.device.type == "cuda"
+        assert torch.equal(y, op(x)) and torch.equal(y, fresh(x))
+    # a coalesced [n] result is a strided view of its block: fed back, it
+    # is served as its contiguous copy is
+    y = sent[1][1].result()
+    assert not y.is_contiguous() and A.m == A.n
+    again = eng.submit("A", y)
+    eng.drain()
+    assert torch.equal(again.result(), op(y.contiguous())) and torch.equal(op(y), again.result())
+    with pytest.raises(TypeError, match="float32"):
+        eng.submit("A", torch.ones(A.n, dtype=torch.bfloat16, device=cuda))
+    assert eng.queue_depth == 0
