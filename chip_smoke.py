@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
-the ELL baseline path and the serving engine on one NVIDIA GPU.
+the ELL baseline path, the serving engine and the distributed layer on one
+NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -126,7 +127,20 @@ Phases (any failure exits non-zero and prints no result line):
     of one W=8 dispatch beside the host time of a ``step()`` that makes it
     and beside 8 B=1 launches; then a second engine whose byte budget is one
     under bmwcra_1's and powerlaw_zipf's operators: A, B, A, B at
-    ``max_batch=1`` give 4 prepares, 3 evictions and the first engine's bits.
+    ``max_batch=1`` give 4 prepares, 3 evictions and the first engine's bits;
+20. (run after 19, before the result lines of 18) the distributed layer,
+    D row-block shards on the one card: ecology1/64 built at f32, bf16 and
+    int8, sharded at D in {2, 4} (auto, replicated, all-gather, halo
+    overlapped and blocking), B = 1 and 8 bit-equal to the single-device
+    operator with as many CSR-k launches as the plans schedule; phase 4's
+    ecology1 and phase 7's bmwcra_1 operators sharded the same way without a
+    second ``prepare``, bit-equal at B = 1 and 8, CG through the D = 4
+    ecology1 operator with phase 4's iterations and bits, each sharded
+    call's device time (CUDA-graph replay) beside the single-device
+    operator's, its launches, the plan's modeled collective bytes and the x
+    bytes the executor copies; stencil_fringe(256) (DIA) at D = 4 declining
+    to the CSR path (``distributed/tile_decline.diahybrid``) within the row
+    bound; ``python -m repro_torch.launch.cg_solver --shards 4`` on the card.
 """
 from __future__ import annotations
 
@@ -1539,6 +1553,203 @@ def serve_phase(fleet: dict) -> dict:
     return out
 
 
+def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
+    """Phase 20: the distributed layer, D row-block shards on the one card.
+
+    ``A_small`` is phase 3's ecology1/64, ``eco`` phase 4's operator with its
+    right-hand side, permutation and CG result, ``bmw`` phase 7's bmwcra_1
+    and operator.  Every sharded result is held bit for bit against the
+    single-device operator; CG through the D = 4 ecology1 operator must
+    repeat phase 4's iterations and bits.  Returns, per kernel name, the
+    launches of the sharded runs and the per-call records, for the
+    ``kernels`` line."""
+    import os
+
+    import torch
+
+    from repro_torch.configs.spmv_suite import stencil_fringe
+    from repro_torch.core import cg, prepare
+    from repro_torch.core.distributed import shard_prepared
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs import MetricsRegistry, using_registry
+    from repro_torch.sparse import CSRMatrix
+
+    t_phase = time.perf_counter()
+    kernels = (spmv_csrk_tiles, spmv_sellcs_chunks)
+    configs = (("auto", None), ("replicated", None), ("allgather", None), ("halo", True),
+               ("halo", False))
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def launches_per_call(op) -> int:
+        return sum(len(run) for _, _, run in op._launches)
+
+    def check_bits(op, base, xs, what) -> int:
+        """op(x) == base(x) for each x; returns the kernel launches it made."""
+        for f in kernels:
+            f.launches = 0
+        for x in xs:
+            if not torch.equal(op(x), base(x)):
+                raise AssertionError(f"{what} B={x.shape[1:] or 1}: sharded != single-device")
+        made = sum(f.launches for f in kernels) - len(xs) * base_launches(base)
+        if made != len(xs) * launches_per_call(op):
+            raise AssertionError(f"{what}: {made} kernel launches, expected "
+                                 f"{len(xs) * launches_per_call(op)}")
+        return made
+
+    def base_launches(base) -> int:
+        return len(base.tile_buckets.buckets) if base.tile_buckets is not None else 1
+
+    # (a) ecology1/64, built fresh at each value dtype
+    t0 = time.perf_counter()
+    X = torch.randn((A_small.n, 8), generator=gen, device="cuda")
+    xs = (X[:, 0].contiguous(), X)
+    n_ops = made = 0
+    for dt in ("f32", "bf16", "int8"):
+        base = prepare(A_small, device="cuda", format="auto", value_dtype=dt)
+        for D in (2, 4):
+            for strategy, overlap in configs:
+                op = shard_prepared(base, make_host_mesh(D), x_strategy=strategy,
+                                    A=base.csrk.csr, halo_overlap=overlap)
+                made += check_bits(op, base, xs, f"ecology1/64 {dt} D={D} {strategy}/{overlap}")
+                n_ops += 1
+    torch.cuda.synchronize()
+    log(f"[dist/small] ecology1/64 ({A_small.m} rows): {n_ops} sharded operators (f32, bf16, "
+        f"int8 x D in {{2, 4}} x auto, replicated, allgather, halo overlapped and blocking), "
+        f"B = 1 and 8 bit-equal to the single-device operator; {made} CSR-k kernel launches, "
+        f"as many as the plans schedule ({time.perf_counter() - t0:.1f} s)")
+
+    # (b) and (c): the full-size operators of phases 4 and 7
+    cases = (("ecology1", eco["op"], eco["op"].csrk.csr, "spmv_csrk_tiles"),
+             ("bmwcra_1", bmw["op"], bmw["A"], "spmv_sellcs"))
+    inputs = {}
+    for name, base, src, _ in cases:
+        X = torch.randn((src.n, 8), generator=gen, device="cuda")
+        xs = (X[:, 0].contiguous(), X)
+        inputs[name] = (xs, [base(x) for x in xs])     # before the counts start
+    ops = {}
+    for f in kernels:
+        f.launches = 0
+    spmvs = {}
+    for name, base, src, _ in cases:
+        t0 = time.perf_counter()
+        xs, want = inputs[name]
+        spmvs[name] = 0
+        for D in (2, 4):
+            for strategy, overlap in configs:
+                reg = MetricsRegistry()
+                t1 = time.perf_counter()
+                with using_registry(reg):
+                    op = shard_prepared(base, make_host_mesh(D), x_strategy=strategy, A=src,
+                                        halo_overlap=overlap)
+                t_shard = time.perf_counter() - t1
+                for x, y in zip(xs, want):
+                    if not torch.equal(op(x), y):
+                        raise AssertionError(f"{name} D={D} {strategy}/{overlap} "
+                                             f"B={x.shape[1:] or 1}: sharded != single-device")
+                spmvs[name] += len(xs)
+                demoted = bool(reg.get("distributed", "halo_demoted_to_allgather"))
+                ops[(name, D, strategy, overlap)] = op
+                log(f"[dist/{name}] D={D} {strategy}/{overlap} -> {op.x_strategy}"
+                    f"{' (halo demoted)' if demoted else ''}, overlap {op.overlap}, Rs "
+                    f"{op.rows_per_shard}, H {op.halo}, interior {op.interior_fraction:.4f}, "
+                    f"edges {len(op.plan.left_edges)}+{len(op.plan.right_edges)}, "
+                    f"{launches_per_call(op)} launches a call; shard_prepared {t_shard:.2f} s; "
+                    f"B = 1 and 8 bit-equal")
+        log(f"[dist/{name}] done in {time.perf_counter() - t0:.1f} s")
+
+    # CG through the D = 4 auto ecology1 operator: phase 4's iterations and bits
+    sh4 = ops[("ecology1", 4, "auto", None)]
+    t0 = time.perf_counter()
+    res = cg(sh4, eco["b"][eco["perm"]], tol=1e-5, maxiter=5000)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    spmvs["ecology1"] += 1 + res.iters
+    if res.iters != eco["cg"].iters or not torch.equal(res.x, eco["cg"].x):
+        raise AssertionError(f"sharded CG: {res.iters} iterations against phase 4's "
+                             f"{eco['cg'].iters}, or other bits")
+    log(f"[dist/ecology1] cg through the D=4 {sh4.x_strategy} operator: {res.iters} "
+        f"iterations, the same bits as phase 4's {eco['cg'].iters}; {t_cg:.2f} s "
+        f"({t_cg / max(res.iters, 1) * 1e3:.3f} ms/iter)")
+    counts = {f.__name__: f.launches for f in kernels}
+    log(f"[dist] kernel launches on the sharded path: {counts} over {spmvs} SpMVs")
+    if not all(counts.values()):
+        raise AssertionError("a kernel of the sharded path never launched")
+
+    # timing: device ms of one call (CUDA-graph replay) beside the single-device operator
+    out = {"spmv_csrk_tiles": {"distributed_launches": counts["spmv_csrk_tiles"],
+                               "distributed_spmvs": spmvs["ecology1"], "distributed_calls": []},
+           "spmv_sellcs": {"distributed_launches": counts["spmv_sellcs_chunks"],
+                           "distributed_spmvs": spmvs["bmwcra_1"], "distributed_calls": []}}
+    t0 = time.perf_counter()
+    for name, base, src, entry in cases:
+        for B in (1, 8):
+            xb = torch.randn((src.n, B), generator=gen, device="cuda")
+            xb = xb[:, 0].contiguous() if B == 1 else xb
+            base_ms = time_ms(lambda: base(xb))
+            for (mname, D, strategy, overlap), op in ops.items():
+                if mname != name:
+                    continue
+                ms = time_ms(lambda: op(xb))
+                rec = {"matrix": name, "D": D, "requested": strategy, "overlap_requested":
+                       overlap, "strategy": op.x_strategy, "overlap": op.overlap, "B": B,
+                       "ms": ms, "single_device_ms": base_ms,
+                       "launches_per_call": launches_per_call(op),
+                       "collective_bytes": op.collective_bytes_per_call(B),
+                       "x_copy_bytes": op.x_copy_bytes_per_call(B)}
+                out[entry]["distributed_calls"].append(rec)
+                log(f"[dist/time] {name} B={B} D={D} {strategy}/{overlap} ({op.x_strategy}, "
+                    f"overlap {op.overlap}): {ms:.4f} ms against {base_ms:.4f} single-device "
+                    f"({ms / base_ms:.2f} x); {rec['launches_per_call']} launches; modeled "
+                    f"collective {rec['collective_bytes'] / 1e6:.3f} MB, x copied "
+                    f"{rec['x_copy_bytes'] / 1e6:.3f} MB")
+    log(f"[dist/time] done in {time.perf_counter() - t0:.1f} s")
+    del ops, sh4
+
+    # (d) a declining backend: stencil_fringe(256) through the DIA route at D = 4
+    F = stencil_fringe(256).to("cuda")
+    reg = MetricsRegistry()
+    with using_registry(reg):
+        base = prepare(F, device="cuda", format="auto")
+        op = prepare(F, device="cuda", format="auto", mesh=make_host_mesh(4))
+    if base.backend != "diahybrid" or reg.get("distributed", "tile_decline.diahybrid") != 1:
+        raise AssertionError(f"stencil_fringe(256): backend {base.backend}, decline counter "
+                             f"{reg.get('distributed', 'tile_decline.diahybrid')}")
+    F_abs = CSRMatrix(F.row_ptr, F.col_idx, F.vals.abs(), F.shape)
+    X = torch.randn((F.n, 8), generator=gen, device="cuda")
+    for x in (X[:, 0].contiguous(), X):
+        if x.ndim == 1:
+            bound = row_bound(ref.spmv_csr(F_abs, x.abs()), F.row_lengths())
+            y_plain = ref.spmv_csr(F, x)
+        else:
+            bound = row_bound(ref.spmm_csr(F_abs, x.abs()), F.row_lengths())
+            y_plain = ref.spmm_csr(F, x)
+        err = check_close(op(x), y_plain, bound, f"stencil_fringe(256) sharded B={x.shape[1:]}")
+    log(f"[dist/decline] stencil_fringe(256) ({F.m} rows, diahybrid) at D=4: "
+        f"distributed/tile_decline.diahybrid = "
+        f"{reg.get('distributed', 'tile_decline.diahybrid'):.0f}, {op.x_strategy} over the CSR "
+        f"path, within the row bound of the plain CSR product (max |err| {err:.3e})")
+
+    # (e) the solver CLI on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.cg_solver", "--shards", "4",
+                          "--nrhs", "4"], capture_output=True, text=True, env=env, timeout=300,
+                         cwd=str(ROOT))
+    for line in cli.stdout.strip().splitlines():
+        log(f"[dist/cli] {line}")
+    if cli.returncode != 0 or "cuda" not in cli.stdout:
+        raise AssertionError(f"cg_solver --shards 4 exited {cli.returncode}: {cli.stderr[-2000:]}")
+    log(f"[dist/cli] python -m repro_torch.launch.cg_solver --shards 4 --nrhs 4 on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[dist] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1710,6 +1921,9 @@ def main() -> int:
                            "powerlaw_zipf": (zipf, "segsum"),
                            "stencil_fringe(2048)": (fringe, "diahybrid")})
 
+    # 20. the distributed layer: D row-block shards on the card
+    distributed = distributed_phase(A_small, {"op": op, "b": b, "perm": perm, "cg": res}, bmw)
+
     # 18. result lines
     kernels = {"kernels": [kernel_entry(
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
@@ -1718,6 +1932,7 @@ def main() -> int:
     ), sell_entry, segsum_entry, dia_entry, ell_entry]}
     for entry in kernels["kernels"]:
         entry.update(serving[entry["name"]])
+        entry.update(distributed.get(entry["name"], {}))
     print(json.dumps(kernels), flush=True)
     log(f"[card] {card}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

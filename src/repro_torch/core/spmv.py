@@ -1,7 +1,9 @@
 """Format-dispatching SpMV public API — the paper's contribution as a module.
 
 Port of ``repro.core.spmv`` for the CSR-k, SELL-C-σ, segmented-sum and
-DIA/CSR-hybrid routes, and the one-shot plain-CSR ``spmv``/``spmm``.
+DIA/CSR-hybrid routes, the one-shot plain-CSR ``spmv``/``spmm``, and
+``prepare(A, mesh=...)``, which partitions the operator over row-block
+shards (``repro_torch.core.distributed``).
 ``prepare(A)`` runs the setup pipeline and returns a :class:`PreparedSpMV`
 whose ``__call__`` is the SpMV:
 
@@ -335,7 +337,11 @@ def prepare(
     value_dtype: str = "f32",         # "f32" | "bf16" | "int8" | "auto"
     tile_layout: str = "bucketed",    # "bucketed" | "monolithic"
     spmm_width: int | None = None,
-) -> PreparedSpMV:
+    mesh=None,
+    shard_axis: str = "data",
+    x_strategy: str = "auto",
+    halo_overlap: bool | None = None,
+):
     """Heterogeneous SpMV setup pipeline (paper Sec. 3–4 + registry).
 
     Args:
@@ -375,10 +381,42 @@ def prepare(
         (one launch, every tile padded to the worst tile's slots).
       spmm_width: when set to W ≥ 1, pad every kernel launch to exactly W
         columns (and split wider inputs into W-column launches).
+        Single-device operators only (the ``mesh=`` path ignores it).
+      mesh: optional :class:`~repro_torch.launch.mesh.ShardMesh` of devices
+        of ``device``'s type.  When given, the prepared operator is
+        partitioned over ``shard_axis`` and returned as a
+        :class:`~repro_torch.core.distributed.ShardedPreparedSpMV`: same
+        call surface, the same CUDA kernels run per shard, bit-for-bit
+        identical results on the CSR-k and SELL-C-σ routes.
+      shard_axis: mesh axis name rows are partitioned over (default "data").
+      x_strategy: x distribution for the sharded operator: "auto",
+        "replicated", "allgather" or "halo".  Ignored when ``mesh`` is None.
+      halo_overlap: staged halo execution for the sharded operator: None
+        lets the :class:`~repro_torch.core.distributed.ShardPlan` decide,
+        True forces overlap when possible, False forces the blocking
+        schedule.  Ignored when ``mesh`` is None.
 
     Returns:
-      A :class:`PreparedSpMV` on ``device``.
+      A :class:`PreparedSpMV` on ``device`` (or a
+      :class:`~repro_torch.core.distributed.ShardedPreparedSpMV` when
+      ``mesh`` is given).
     """
+    if mesh is not None:
+        # The sharded operator partitions the *monolithic* tile view (whole
+        # tiles per shard), so the bucketed layout is not built here.
+        base = prepare(
+            A, device_model, device=device, format=format, reorder=reorder,
+            params=params, adaptive=adaptive, sell_c=sell_c, sell_sigma=sell_sigma,
+            segsum_chunk=segsum_chunk, diag_occupancy=diag_occupancy,
+            value_dtype=value_dtype, tile_layout="monolithic",
+        )
+        from repro_torch.core.distributed import shard_prepared
+
+        src = base.csrk.csr if base.backend == "csrk" else A
+        return shard_prepared(
+            base, mesh, axis=shard_axis, x_strategy=x_strategy, A=src,
+            halo_overlap=halo_overlap,
+        )
     dev = _resolve_device(device)
     if tile_layout not in ("bucketed", "monolithic"):
         raise ValueError(

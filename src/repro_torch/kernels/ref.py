@@ -275,13 +275,16 @@ def sellcs_chunk_rows(
     val_scale=None,
     *,
     m: int,
+    out=None,
 ) -> torch.Tensor:
     """Plain version of the SELL-C-σ kernel: ``[m]`` (``[m, B]``) rows.
 
     Per sorted row ``i = t·C + c``: ``y[row_perm[i]] = Σ_w dq(vals[t,c,w]) ·
     x[col[t,c,w]]`` over all W lanes (padding lanes hold value 0).  Columns
     are clamped to ``n − 1`` as in the reference oracle; C-alignment pad rows
-    land on the dump row m, which is dropped.
+    land on the dump row m, which is dropped.  With ``out`` (``[m(, B)]`` in
+    x's dtype) the rows are written there, every other row of ``out`` kept,
+    and ``out`` is returned, as the kernel's wrapper does.
     """
     v = _tile_vals_f32(vals, val_scale).to(x.dtype)
     cols = col_idx.long().clamp(max=x.shape[0] - 1)
@@ -289,9 +292,13 @@ def sellcs_chunk_rows(
         y_sorted = (v[..., None] * x[cols]).sum(dim=2).reshape(-1, x.shape[1])
     else:
         y_sorted = (v * x[cols]).sum(dim=2).reshape(-1)
-    out = torch.zeros((m + 1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    out[row_perm.long()] = y_sorted
-    return out[:m]
+    if out is not None:
+        real = row_perm < m
+        out[row_perm[real].long()] = y_sorted[real]
+        return out
+    y = torch.zeros((m + 1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    y[row_perm.long()] = y_sorted
+    return y[:m]
 
 
 @annotated("repro_torch.oracle.spmv_sellcs_tiles", count_section="oracles")

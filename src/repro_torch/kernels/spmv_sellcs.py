@@ -46,15 +46,20 @@ def spmv_sellcs_chunks(
     val_scale: Optional[torch.Tensor] = None,   # [T, C, W/group] f32, int8 only
     *,
     m: int,
+    out: Optional[torch.Tensor] = None,         # [m] or [m, B]
 ) -> torch.Tensor:
     """y = A x over all T chunks, in the original row order: ``[m]`` (``[m, B]``).
 
     The kernel reads lanes ``[0, chunk_width[t])`` of each chunk and writes
     row ``row_perm[i]`` of y; pad rows (``row_perm == m``) are not written.
-    CUDA launches add one to ``spmv_sellcs_chunks.launches``.
+    With ``out`` given, the rows are written there (and ``out`` returned)
+    and every other row of ``out`` keeps its value, so launches over
+    disjoint chunk subsets (``row_perm.view(T, C)[ids].reshape(-1)`` and
+    ``chunk_width[ids]``) fill one y.  CUDA launches add one to
+    ``spmv_sellcs_chunks.launches``.
     """
     if x.device.type == "cpu":
-        return ref.sellcs_chunk_rows(vals, col_idx, row_perm, x, val_scale, m=m)
+        return ref.sellcs_chunk_rows(vals, col_idx, row_perm, x, val_scale, m=m, out=out)
 
     dev = x.device
     if vals.ndim != 3:
@@ -78,8 +83,11 @@ def spmv_sellcs_chunks(
         check_operand("val_scale", val_scale, dev, (torch.float32,), (T, C, groups))
     elif val_scale is not None:
         raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
-    out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    if out is None:
+        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+    else:
+        check_operand("out", out, dev, (torch.float32,), (m,) + tuple(x.shape[1:]))
+    if out.numel() == 0 or T == 0:
         return out
 
     lib = _library()

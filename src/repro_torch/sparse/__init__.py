@@ -46,6 +46,8 @@ from repro_torch.sparse.stats import (  # noqa: F401
     REGULAR_ROW_VAR_MAX,
     SEGSUM_ROW_SKEW_MIN,
     MatrixStats,
+    classify_tile_reach,
+    compute_shard_stats,
     compute_stats,
 )
 from repro_torch.sparse.registry import (  # noqa: F401

@@ -102,6 +102,22 @@ class CSRMatrix:
     def fromdense(cls, dense) -> "CSRMatrix":
         return COOMatrix.fromdense(dense).tocsr()
 
+    def row_slice(self, r0: int, r1: int) -> "CSRMatrix":
+        """Return the contiguous row block ``A[r0:r1, :]`` as a CSR matrix.
+
+        The nnz arrays are views; column indices stay global (shape is
+        [r1−r0, n]).  Used by the distributed layer's per-shard statistics.
+        """
+        rp = host(self.row_ptr)
+        s, e = int(rp[r0]), int(rp[r1])
+        new_rp = (rp[r0 : r1 + 1] - rp[r0]).astype(np.int32)
+        return CSRMatrix(
+            torch.from_numpy(new_rp).to(self.row_ptr.device),
+            self.col_idx[s:e],
+            self.vals[s:e],
+            (r1 - r0, self.shape[1]),
+        )
+
     def permute_rows(self, perm: np.ndarray) -> "CSRMatrix":
         """Return PA for a row permutation ``perm`` (new row i = old row perm[i])."""
         perm = np.asarray(perm)

@@ -204,6 +204,29 @@ class CSRkTiles:
             per_tile += (self.slots // INT8_GROUP) * 4
         return self.num_tiles * per_tile + self.remainder_nnz * 12
 
+    def col_reach(self):
+        """Per-tile real column reach ``(lo, hi)`` (host-side, numpy).
+
+        Only slots with ``vals != 0`` constrain the reach (compared in f32,
+        so an int8 slot counts where its code is nonzero): padding slots
+        multiply by zero and are inert.  Empty tiles report ``lo > hi``
+        (``lo = INT32_MAX``, ``hi = -1``).
+
+        Returns:
+          ``(lo, hi)``: two ``[num_tiles]`` int64 arrays of absolute column
+          indices, for :func:`repro_torch.sparse.stats.classify_tile_reach`.
+        """
+        v = host(self.vals.to(torch.float32))
+        lc = host(self.local_col).astype(np.int64)
+        wb = host(self.win_block).astype(np.int64)
+        cols = wb[:, None] * self.window + lc              # [T, S] absolute
+        mask = v != 0
+        lo = np.where(mask, cols, np.iinfo(np.int32).max).min(
+            axis=1, initial=np.iinfo(np.int32).max
+        )
+        hi = np.where(mask, cols, -1).max(axis=1, initial=-1)
+        return lo, hi
+
 
 def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult

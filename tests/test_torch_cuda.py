@@ -984,3 +984,89 @@ def test_serve_engine_burst_and_interleave_bit_equal_to_direct_calls(cuda, route
     with pytest.raises(TypeError, match="float32"):
         eng.submit("A", torch.ones(A.n, dtype=torch.bfloat16, device=cuda))
     assert eng.queue_depth == 0
+
+
+# --- the distributed layer: D row-block shards on the card ------------------
+
+
+def _sharded_cases(cuda, route):
+    """(single-device operator, source matrix) of a route, on the card."""
+    if route == "csrk":
+        A = load_suite(scale=256, ids=[8])["ecology1"]
+        op = prepare(A, device=cuda, format="csrk", tile_layout="monolithic")
+        return op, op.csrk.csr
+    A = load_suite(scale=64, ids=[16])["bmwcra_1"]
+    return prepare(A, device=cuda, format="sellcs"), A
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("route", ["csrk", "sellcs"])
+def test_sharded_bit_equal_to_single_device_on_card(cuda, route, D):
+    """Every strategy, overlap on and off, B ∈ {1, 8}: the sharded operator's
+    launches give the single-device operator's bits."""
+    from repro_torch.core.distributed import shard_prepared
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base, src = _sharded_cases(cuda, route)
+    kernel = spmv_csrk_tiles if route == "csrk" else spmv_sellcs_chunks
+    X = torch.randn((src.n, 8), generator=torch.Generator(cuda).manual_seed(11), device=cuda)
+    xs = (X[:, 0].contiguous(), X)
+    want = [base(x) for x in xs]
+    mesh = make_host_mesh(D)
+    assert mesh.devices == (torch.device("cuda", 0),) * D or torch.cuda.device_count() > 1
+    seen = set()
+    for strategy in ("auto", "replicated", "allgather", "halo"):
+        for overlap in (None, True, False):
+            op = shard_prepared(base, mesh, x_strategy=strategy, A=src, halo_overlap=overlap)
+            for x, y in zip(xs, want):
+                kernel.launches = 0
+                assert torch.equal(op(x), y), (strategy, overlap, x.shape)
+                assert kernel.launches >= 1
+            seen.add((op.x_strategy, op.overlap))
+    assert ("halo", True) in seen and ("halo", False) in seen
+
+
+def test_sellcs_out_with_a_chunk_subset_on_card(cuda, irregular):
+    """The SELL-C-σ kernel with ``out=`` over a chunk subset writes exactly
+    those chunks' rows, bit-equal to the full launch, and no other row."""
+    A = irregular["pareto"]
+    tiles = tiles_from_sellcs(sellcs_from_csr(A), value_dtype="f32").to(cuda)
+    T, C = tiles.num_chunks, tiles.C
+    X = torch.randn((A.n, 8), generator=torch.Generator(cuda).manual_seed(12), device=cuda)
+    sel = torch.arange(0, T, 3, device=cuda)
+    rows = tiles.row_perm.view(T, C)[sel].reshape(-1)
+    real = rows[rows < A.m].long()
+    for x in (X[:, 0].contiguous(), X):
+        full = ops.spmv_sellcs(tiles, x)
+        out = torch.full_like(full, float("nan"))
+        got = spmv_sellcs_chunks(tiles.vals[sel], tiles.col_idx[sel], rows.contiguous(),
+                                 tiles.chunk_width[sel], x, m=A.m, out=out)
+        assert got is out and torch.equal(out[real], full[real])
+        mask = torch.ones(A.m, dtype=torch.bool, device=cuda)
+        mask[real] = False
+        assert bool(torch.isnan(out[mask]).all())
+
+
+@pytest.mark.parametrize("route", ["csrk", "sellcs"])
+def test_sharded_call_replays_in_a_cuda_graph(cuda, route):
+    """A sharded call (overlap plan, D = 4) captured in a CUDA graph replays
+    to the eager call's bits: nothing in it waits on the host."""
+    from repro_torch.core.distributed import shard_prepared
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base, src = _sharded_cases(cuda, route)
+    op = shard_prepared(base, make_host_mesh(4), x_strategy="halo", A=src, halo_overlap=True)
+    assert op.overlap
+    x = torch.randn(src.n, generator=torch.Generator(cuda).manual_seed(13), device=cuda)
+    want = op(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = op(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) and torch.equal(want, base(x))
