@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
-the ELL baseline path, the serving engine and the distributed layer on one
-NVIDIA GPU.
+the ELL baseline path, the serving engine, the distributed layer and the LM
+tree's serving path on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -140,11 +140,39 @@ Phases (any failure exits non-zero and prints no result line):
     operator's, its launches, the plan's modeled collective bytes and the x
     bytes the executor copies; stencil_fringe(256) (DIA) at D = 4 declining
     to the CSR path (``distributed/tile_decline.diahybrid``) within the row
-    bound; ``python -m repro_torch.launch.cg_solver --shards 4`` on the card.
+    bound; ``python -m repro_torch.launch.cg_solver --shards 4`` on the card;
+21. (run after 20, before the result lines of 18; the SpMV operators freed
+    first) the LM tree's serving path: (a) the ten ``SMOKE_CONFIG``s with
+    weights drawn on the CPU from one seed and numpy-seeded inputs, on the
+    CPU and on the card at f32 (TF32 off, asserted): forward logits
+    (``make_prefill_step``; encode + decode for seamless, ``vlm_prepend``
+    for internvl2) and 8 cached decode steps within 1e-4 + 1e-4 |cpu|;
+    (b) full width, random bf16 weights from a seeded generator on the
+    card: granite-3-2b and rwkv6-3b at full depth and jamba-v0.1-52b cut to
+    one 8-layer period (7 mamba, 1 attention, 4 MoE layers of 16 experts), a
+    prefill of B=4 x P=1536 into the cache, then G=32 greedy steps through
+    ``make_decode_step``, and one full forward over prompt + generated
+    tokens: at bf16 their distance, the forward's own distance from f32 and
+    the argmax agreement are logged (bf16 rounding over the full depth moves
+    the logits as far); then the same weights in f32 (TF32 off) generate
+    from the same prompts, and every f32 step's logits must lie within
+    2e-3 + 2e-3 |logit| (the reference's own tolerance for this identity)
+    of the f32 full forward's, whose argmax must be the generated token
+    wherever its top-2 margin exceeds twice that, at one position at least;
+    where that forward drops MoE routings over capacity (logged) the check
+    does not stand and the script says so; a second bf16 run from the seed
+    gives the same tokens;
+    (c) prefill ms, decode ms/step, tokens/s and peak allocated memory of
+    the second run, each beside its least time (decode: the bf16 weight
+    bytes a step reads, routed experts only, over the memory rate; prefill:
+    2 x active parameters x B x P over the dense bf16 rate); (d)
+    ``python -m repro_torch.launch.serve --arch granite-3-2b`` (full config)
+    on the card.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -158,11 +186,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 EPS32 = float(np.finfo(np.float32).eps)
 
-#: Memory rate (bytes/s) and float32 rate (flop/s, outside the tensor
-#: cores) of the card, from NVIDIA's data sheets, keyed by a substring of
-#: its name; the SXM part's figures are the default.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+#: Memory rate (bytes/s), float32 rate (flop/s, outside the tensor cores)
+#: and dense bf16 tensor-core rate (flop/s, no sparsity) of the card, from
+#: NVIDIA's data sheets, keyed by a substring of its name; the SXM part's
+#: figures are the default.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12), "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12)}
 VALUE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 
 
@@ -1750,6 +1779,412 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
     return out
 
 
+#: Phase 21: the full-width configs (arch, layers kept or None for all), the
+#: prompt batch and length (past the 1,024-row kv chunk and no multiple of
+#: it; a multiple of la_chunk, as the chunked recurrence needs), the decode
+#: steps, the f32 tolerance of the CPU-versus-card parity and that of the
+#: f32 decode-versus-forward check at full width.
+LM_FULL = (("granite-3-2b", None), ("rwkv6-3b", None), ("jamba-v0.1-52b", 8))
+LM_B, LM_P, LM_G = 4, 1536, 32
+LM_F32_ATOL = LM_F32_RTOL = 1e-4
+LM_DECODE_TOL = 2e-3     # f32 decode vs full forward, as tests/test_models.py
+LM_PROFILED = 4          # decode steps of run 1 traced by torch.profiler
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def upcast_(tree):
+    """Replace every leaf with its float32 copy, leaf by leaf, releasing each
+    narrower copy's memory to the device as it goes (a bf16 block cannot
+    hold its f32 successor, so cached blocks would otherwise add up)."""
+    import torch
+
+    for k in list(tree.keys()) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[k], (dict, list)):
+            upcast_(tree[k])
+        else:
+            big = tree[k].numel() * tree[k].element_size() >= 1 << 26
+            tree[k] = tree[k].float()
+            if big:
+                torch.cuda.empty_cache()
+
+
+def lm_smoke_pair(cfg, dev, seed: int):
+    """The port's forward logits (through ``make_prefill_step``) and 8 cached
+    decode steps of ``cfg`` on ``dev``, from weights drawn on the CPU from
+    ``seed`` and numpy-seeded inputs: the prompt goes into the cache in one
+    call, then each step feeds the next of the seeded tokens."""
+    import torch
+
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.convert import tree_map
+    from repro_torch.models.frontends import vlm_prepend
+
+    model = ED if cfg.is_encdec else TF
+    params = tree_map(model.init_params(torch.Generator().manual_seed(seed), cfg),
+                      lambda t: t.to(dev))
+    rng = np.random.default_rng(seed)
+    B, T, G = 2, 16, 8
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T + G)).astype(np.int32)).to(dev)
+    extra = None
+    if cfg.is_encdec or cfg.frontend == "vit":
+        extra = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    logits = STEPS.make_prefill_step(cfg)(params, tokens[:, :T], extra)
+    step_extra = None
+    if cfg.is_encdec:
+        step_extra = ED.encode(params, extra, cfg)
+        T0 = T
+        cache = ED.init_cache(cfg, B, T0 + G, device=dev)
+        last, cache = ED.decode(params, tokens[:, :T], step_extra, cfg, cache=cache, cache_index=0)
+    else:
+        inp = vlm_prepend(params, extra, tokens[:, :T], cfg) if cfg.frontend == "vit" else tokens[:, :T]
+        T0 = inp.shape[1]
+        cache = TF.init_cache(cfg, B, T0 + G, device=dev)
+        last, cache, _ = TF.forward(params, inp, cfg, cache=cache, cache_index=0)
+    step = STEPS.make_decode_step(cfg)
+    steps = [last[:, -1]]
+    for i in range(G):
+        last, cache = step(params, cache, tokens[:, T + i:T + i + 1], T0 + i, step_extra)
+        steps.append(last[:, 0])
+    return logits.float().cpu(), torch.stack(steps, 1).float().cpu()
+
+
+def lm_parity() -> float:
+    """Phase 21(a): the ten smoke configs on the CPU and on the card, at f32."""
+    import torch
+
+    from repro_torch.configs.registry import all_archs, get_smoke_config
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    for arch in all_archs():
+        cfg = get_smoke_config(arch)
+        with torch.inference_mode():
+            cpu = lm_smoke_pair(cfg, torch.device("cpu"), 0)
+            card = lm_smoke_pair(cfg, torch.device("cuda"), 0)
+        errs = []
+        for what, a, b in (("forward", cpu[0], card[0]), ("decode", cpu[1], card[1])):
+            if a.shape != b.shape or not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"{arch} {what}: shape {tuple(b.shape)} or non-finite")
+            err = float((a - b).abs().max())
+            if not bool(((a - b).abs() <= LM_F32_ATOL + LM_F32_RTOL * a.abs()).all()):
+                raise AssertionError(f"{arch} {what}: card vs CPU max |err| {err:.3e} over "
+                                     f"{LM_F32_ATOL} + {LM_F32_RTOL}|cpu|")
+            errs.append(err)
+        worst = max(worst, *errs)
+        log(f"[lm/parity] {arch}: forward {tuple(card[0].shape)} max |card - cpu| "
+            f"{errs[0]:.3e}; 8 cached decode steps {errs[1]:.3e}")
+    log(f"[lm/parity] ten smoke configs within {LM_F32_ATOL} + {LM_F32_RTOL}|cpu| at f32 "
+        f"(TF32 off), worst {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+class DispatchLog:
+    """Counts, while on, what ``moe.csr_dispatch_plan`` dispatches: tokens
+    dropped over capacity and experts routed to, as device tensors (no
+    synchronisation inside the forward)."""
+
+    def __init__(self, moe_module):
+        self.moe, self.plan = moe_module, moe_module.csr_dispatch_plan
+        self.dropped, self.routed = [], []
+
+    def __enter__(self):
+        def plan(expert_idx, num_experts, capacity):
+            dest, keep, row_ptr = self.plan(expert_idx, num_experts, capacity)
+            self.dropped.append((~keep).sum())
+            self.routed.append((row_ptr[1:] > row_ptr[:-1]).sum())
+            return dest, keep, row_ptr
+        self.moe.csr_dispatch_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.csr_dispatch_plan = self.plan
+
+    def total(self, which) -> int:
+        return sum(int(v) for v in getattr(self, which))
+
+
+def lm_seeded(cfg, seed: int, B: int, P: int, device="cuda"):
+    """Weights in ``cfg.dtype`` and [B, P] prompts, drawn on ``device`` from
+    one seeded generator."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = TF.init_params(gen, cfg)
+    return params, torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
+
+
+def lm_generate(cfg, params, prompts, G: int, profile_last: int = 0):
+    """A prefill of ``prompts`` into the cache, then ``G`` greedy steps
+    through ``make_decode_step``.  Returns every step's logits [B, G+1, V]
+    (the prefill's last position first), the tokens [B, G+1], the host
+    times (s) of the prefill and of the decode steps, and, where
+    ``profile_last`` > 0, the device work of each of the last
+    ``profile_last`` steps from ``torch.profiler`` (kernels launched, their
+    summed device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+
+    B, P = prompts.shape
+    cache = TF.init_cache(cfg, B, P + G, device=prompts.device)
+    step = STEPS.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = TF.forward(params, prompts, cfg, cache=cache, cache_index=0)
+    tok = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    outs, toks = [logits[:, -1]], [tok]
+    del logits
+    prof = None
+    t0 = time.perf_counter()
+    for i in range(G):
+        if profile_last and i == G - profile_last:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        logits, cache = step(params, cache, tok, P + i)
+        tok = logits[:, -1:].argmax(-1)
+        outs.append(logits[:, 0])
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    work = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        work = {"kernels": len(kernels) / profile_last,
+                "busy_ms": sum(e.device_time_total for e in kernels) / 1e3 / profile_last}
+    return torch.stack(outs, 1), torch.cat(toks, 1), t_prefill, t_decode, work
+
+
+def lm_check_f32(cfg, params, prompts, G: int, tag: str) -> dict:
+    """The decode-versus-forward check at float32 (TF32 off): a prefill and
+    ``G`` greedy steps from ``params`` (float32), then one full forward over
+    prompt + generated tokens.  Every step's logits lie within
+    ``LM_DECODE_TOL`` (atol and rtol, the reference's own tolerance for this
+    identity) of the full forward's at its position, and the full forward's
+    argmax is the generated token wherever its top-2 margin exceeds twice
+    that tolerance, which must hold at one position at least.  Where the full
+    forward drops MoE routings over capacity that the steps kept, the
+    identity does not hold (as in the reference) and nothing is asserted."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    V, P = cfg.vocab, prompts.shape[1]
+    with torch.inference_mode():
+        dec, toks, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, G)
+        seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+        with DispatchLog(MOE) as moe_full:
+            full = TF.forward(params, seq, cfg)[0][:, P - 1:, :V]
+    dec = dec[..., :V]
+    if dec.dtype != torch.float32 or full.dtype != torch.float32:
+        raise AssertionError(f"{tag} the f32 check ran at {dec.dtype}, {full.dtype}")
+    if int(toks.max()) >= V:
+        raise AssertionError(f"{tag} f32 greedy decode picked a padded vocabulary row")
+    drops = moe_full.total("dropped")
+    gap = (full - dec).abs()
+    tol = LM_DECODE_TOL + LM_DECODE_TOL * full.abs()
+    top2 = full.topk(2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1]) > 2 * tol.amax(-1)
+    agree = full.argmax(-1) == toks
+    out = {"gap": float(gap.max()), "gap_last": float(gap[:, -1].max()),
+           "over_tol": float((gap / tol).max()), "checked": int(checked.sum()),
+           "agree": int((agree & checked).sum()), "positions": checked.numel(),
+           "drops": drops, "max_logit": float(full.abs().max()),
+           "prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3 / G}
+    log(f"{tag} f32 check: decode vs full forward over {seq.shape[1]} tokens, max |gap| "
+        f"{out['gap']:.3e} (last position {out['gap_last']:.3e}), {out['over_tol']:.3f} of "
+        f"{LM_DECODE_TOL} + {LM_DECODE_TOL}|logit| at worst; max |logit| {out['max_logit']:.3f}; "
+        f"argmax = generated token at {out['agree']} of {out['checked']} positions whose top-2 "
+        f"margin exceeds twice that ({out['positions']} generated positions); MoE drops in the "
+        f"full forward {drops}; f32 prefill {out['prefill_ms']:.2f} ms, decode "
+        f"{out['decode_ms']:.3f} ms/step")
+    if drops:
+        log(f"{tag} the f32 check does not stand: the full forward dropped {drops} routings "
+            f"over capacity that the decode steps kept (capacity is set by the B*T tokens of "
+            f"one call)")
+        return out
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"{tag} f32 decode differs from the full forward by "
+                             f"{out['gap']:.3e}, over {LM_DECODE_TOL} + {LM_DECODE_TOL}|logit|")
+    if not out["checked"]:
+        raise AssertionError(f"{tag} no generated position has a top-2 margin over twice the "
+                             f"tolerance: the argmax check covers nothing")
+    if out["agree"] != out["checked"]:
+        raise AssertionError(f"{tag} a generated token is not the f32 full forward's argmax "
+                             f"where the margin exceeds twice the tolerance")
+    return out
+
+
+def weight_bytes_per_step(params, cfg, routed_per_step: float) -> float:
+    """Bytes of weights one decode step must read: every tensor once (the
+    input embedding only where it is also the unembedding: an untied one is
+    read B rows at a time), and of each MoE layer's experts only the
+    ``routed_per_step`` (mean over the steps, per MoE layer) that the step's
+    tokens were routed to."""
+    nbytes = lambda t: t.numel() * t.element_size()
+    total = sum(nbytes(t) for t in tree_leaves(params))
+    if "unembedding" in params:
+        total -= nbytes(params["embedding"])
+    for lp in params["layers"]:
+        if "moe" in lp:
+            E = lp["moe"]["w_in"].shape[0]
+            expert = sum(nbytes(lp["moe"][k]) for k in ("w_in", "w_gate", "w_out"))
+            total -= expert * (1 - routed_per_step / E)
+    return total
+
+
+def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 21(b)+(c): greedy generation at full width, bf16 and then f32
+    from the same weights, each checked against one full forward; repeated
+    from its seed at bf16, timed."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tag = f"[lm/{arch}]"
+    cut = f"{cfg.layers} of {get_config(arch).layers} layers"
+    kinds = [TF.layer_spec(cfg, i) for i in range(TF.num_layers(cfg))]
+    log(f"{tag} {cut} ({sum(k == 'attn' for k, _ in kinds)} attention, "
+        f"{sum(k == 'mamba' for k, _ in kinds)} mamba, {sum(k == 'rwkv' for k, _ in kinds)} "
+        f"rwkv, {sum(m for _, m in kinds)} MoE), d_model {cfg.d_model}, vocab {cfg.vocab} "
+        f"(padded {cfg.padded_vocab}), {cfg.dtype}; B={LM_B} P={LM_P} G={LM_G}")
+    V = cfg.vocab
+
+    # run 1: generate at bf16, then one full forward over prompt + generated
+    # tokens; its distance from the decode steps is logged, not held (bf16
+    # rounding over the full depth moves the logits by as much)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), DispatchLog(MOE) as moe_dec:
+        params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
+        dec, toks, t_pre1, t_dec1, work = lm_generate(cfg, params, prompts, LM_G, LM_PROFILED)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    mlayers = sum(m for _, m in kinds)
+    # experts routed to per MoE layer and step (the prefill's dispatches,
+    # one per MoE layer, come first)
+    step_routed = [int(v) for v in moe_dec.routed[mlayers:]]
+    routed_steps = sum(step_routed) / len(step_routed) if step_routed else 0.0
+    seq = torch.cat([prompts, toks[:, :-1]], dim=1)                   # P + G tokens
+    with torch.inference_mode(), DispatchLog(MOE) as moe_full:
+        full, _, _ = TF.forward(params, seq, cfg)
+    full = full[:, LM_P - 1:, :V].float()                             # G + 1 positions
+    dec = dec[..., :V].float()
+    if int(toks.max()) >= V:
+        raise AssertionError(f"{tag} greedy decode picked a padded vocabulary row")
+    gap = (full - dec).abs().amax(-1)                                 # [B, G + 1]
+    agree = int((full.argmax(-1) == toks).sum())
+    log(f"{tag} run 1 (bf16): {n_params / 1e9:.3f} G parameters; decode vs full forward over "
+        f"{seq.shape[1]} tokens: max |gap| last position {float(gap[:, -1].max()):.4f}, "
+        f"any position {float(gap.max()):.4f}; max |logit| {float(full.abs().max()):.3f}; "
+        f"argmax = generated token at {agree} of {toks.numel()} positions"
+        + (f"; MoE drops in the full forward {moe_full.total('dropped')} of "
+           f"{LM_B * seq.shape[1] * cfg.top_k * mlayers} routings ({len(moe_full.dropped)} "
+           f"dispatches); in the cached prefill {sum(int(v) for v in moe_dec.dropped[:mlayers])}, "
+           f"in the decode steps {sum(int(v) for v in moe_dec.dropped[mlayers:])}"
+           if mlayers else ""))
+    # the same weights in f32: the full forward's own bf16 rounding (logged),
+    # then the check that holds, the f32 decode against the f32 forward
+    upcast_(params)
+    with torch.inference_mode():
+        full32 = TF.forward(params, seq, cfg32)[0][:, LM_P - 1:, :V]
+    log(f"{tag} bf16 rounding: max |full forward bf16 - f32| on the same weights and tokens "
+        f"{float((full - full32).abs().max()):.4f}")
+    del full, full32, dec
+    check = lm_check_f32(cfg32, params, prompts, LM_G, tag)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # run 2: the same seed again, timed, with the peak memory
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
+        _, toks2, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, LM_G)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(toks, toks2):
+        raise AssertionError(f"{tag} two runs from one seed gave different tokens")
+    wbytes = weight_bytes_per_step(params, cfg, routed_steps)
+    del params, prompts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dec_ms = t_dec * 1e3 / LM_G
+    pre_ms = t_pre * 1e3
+    dec_bound = wbytes / mem_rate * 1e3
+    pre_bound = 2 * cfg.active_param_count() * LM_B * LM_P / bf16_rate * 1e3
+    tok_s = LM_B * LM_G / t_dec
+    log(f"{tag} run 2 (bf16, same seed): the same {toks2.numel()} tokens; prefill {pre_ms:.2f} ms "
+        f"(bound {pre_bound:.2f} ms = 2 x {cfg.active_param_count() / 1e9:.3f} G active params "
+        f"x {LM_B * LM_P} tokens / bf16 peak; x{pre_ms / pre_bound:.2f}), decode "
+        f"{dec_ms:.3f} ms/step (bound {dec_bound:.3f} ms = {wbytes / 1e9:.3f} GB of weights"
+        + (f", {routed_steps:.2f} of {cfg.num_experts} experts a MoE layer" if mlayers else "")
+        + f" / memory rate; x{dec_ms / dec_bound:.2f}), {tok_s:.1f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB allocated; run 1 (cold, its last {LM_PROFILED} steps profiled): "
+        f"prefill {t_pre1 * 1e3:.2f} ms, decode {t_dec1 * 1e3 / LM_G:.3f} ms/step "
+        f"({time.perf_counter() - t0:.1f} s in all)")
+    log(f"{tag} a decode step launches {work['kernels']:.0f} kernels "
+        f"({work['kernels'] / TF.num_layers(cfg):.1f} a layer) that keep the card busy "
+        f"{work['busy_ms']:.3f} ms (torch.profiler, run 1): {work['busy_ms'] / dec_ms:.1%} of "
+        f"run 2's {dec_ms:.3f} ms step, idle {1 - work['busy_ms'] / dec_ms:.1%}")
+    return {"arch": arch, "layers": cfg.layers, "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound,
+            "decode_ms": dec_ms, "decode_bound_ms": dec_bound, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "f32_check": check, "step_kernels": work["kernels"],
+            "step_busy_ms": work["busy_ms"]}
+
+
+def lm_phase(mem_rate: float, bf16_rate: float) -> list:
+    """Phase 21: the LM tree's serving path on the card."""
+    import os
+
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must run at full precision (TF32 off) for phase 21")
+    t_phase = time.perf_counter()
+    lm_parity()
+    rows = [lm_full_width(arch, layers, mem_rate, bf16_rate) for arch, layers in LM_FULL]
+
+    # (d) the --arch CLI on the card, full config
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "granite-3-2b"], capture_output=True, text=True, env=env, timeout=300,
+                         cwd=str(ROOT))
+    for line in cli.stdout.strip().splitlines():
+        if not line.startswith("# obs serve.decode_step_ms."):
+            log(f"[lm/cli] {line}")
+    if (cli.returncode != 0 or "on cuda" not in cli.stdout or "decode 31 steps" not in cli.stdout
+            or "sample tokens:" not in cli.stdout):
+        raise AssertionError(f"serve --arch granite-3-2b exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    log(f"[lm/cli] python -m repro_torch.launch.serve --arch granite-3-2b on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[lm] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1775,10 +2210,11 @@ def main() -> int:
     # 2. card
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    mem_rate, f32_rate = peaks(kind)
+    mem_rate, f32_rate, bf16_rate = peaks(kind)
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; peaks used: "
-        f"{mem_rate / 1e12:.2f} TB/s, {f32_rate / 1e12:.0f} TFLOP/s f32")
+        f"{mem_rate / 1e12:.2f} TB/s, {f32_rate / 1e12:.0f} TFLOP/s f32, "
+        f"{bf16_rate / 1e12:.0f} TFLOP/s bf16 (tensor cores)")
 
     # 3. kernel vs plain on a small suite matrix
     t0 = time.perf_counter()
@@ -1923,6 +2359,13 @@ def main() -> int:
 
     # 20. the distributed layer: D row-block shards on the card
     distributed = distributed_phase(A_small, {"op": op, "b": b, "perm": perm, "cg": res}, bmw)
+
+    # 21. the LM tree's serving path; the SpMV phases' operators go first
+    del op, op_small, A, A_small, A_dev, A64, bmw, zipf, fringe, views, view, abs_view, sp, csr
+    del x, X_true, Bm, b, xb
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_phase(mem_rate, bf16_rate)
 
     # 18. result lines
     kernels = {"kernels": [kernel_entry(

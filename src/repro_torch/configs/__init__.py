@@ -1,1 +1,2 @@
-"""Port of ``repro.configs``: the synthetic SpMV test-matrix suite."""
+"""Port of ``repro.configs``: the synthetic SpMV test-matrix suite, the ten
+LM architecture configs and their registry (``--arch <id>``)."""

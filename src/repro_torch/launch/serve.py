@@ -1,6 +1,6 @@
-"""Serving CLI: drive the :mod:`repro_torch.serve` SpMV engine.
+"""Serving CLI: drive the :mod:`repro_torch.serve` SpMV engine (or the LM smoke).
 
-Port of the SpMV mode of ``repro.launch.serve``.  It registers a small
+Port of ``repro.launch.serve``.  The default mode registers a small
 matrix fleet (two regular grid Laplacians and a power-law matrix), replays a
 seeded random request stream through the engine's continuous batching +
 operator cache, drains, verifies a sample bit for bit against freshly
@@ -13,9 +13,12 @@ On the CPU, through the kernels' plain PyTorch versions:
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 --device cpu \
       --device-model tpu_v5e
 
-The reference's LM generation smoke (``--arch``) is not ported yet: it needs
-the LM tree (``models/``, ``launch/steps.py``), so ``--arch`` exits with a
-message saying so.
+The single-shot LM generation smoke (one prefill + greedy decode steps
+through the KV-cache path, timed through the registry) is behind ``--arch``;
+weights and prompts are random, drawn from a seeded generator on the device:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b --smoke \
+      --batch 4 --prompt-len 64 --gen 32 --device cpu
 """
 from __future__ import annotations
 
@@ -109,9 +112,70 @@ def run_spmv_serve(args) -> None:
                   f"{r['value']:.3f} {r['unit']}")
 
 
+def run_lm_smoke(args) -> None:
+    """Single-shot generation smoke: one prefill + greedy decode steps."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.core.spmv import _resolve_device
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec or cfg.frontend is not None:
+        raise SystemExit(f"{args.arch}: use examples for frontend archs")
+    device = _resolve_device(args.device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(0)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    max_len = P + G
+
+    with torch.inference_mode():
+        params = TF.init_params(gen, cfg)
+        prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
+        cache = TF.init_cache(cfg, B, max_len, device=device)
+        decode_step = STEPS.make_decode_step(cfg)
+
+        reg = get_registry()
+        # prefill through the cache path (writes K/V for the prompt)
+        sync()
+        t0 = time.time()
+        with reg.timer("serve", "prefill"):
+            logits, cache, _ = TF.forward(params, prompts, cfg, cache=cache, cache_index=0)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            sync()
+        t_prefill = time.time() - t0
+
+        out = [tok]
+        t0 = time.time()
+        for i in range(G - 1):
+            t_step = time.perf_counter()
+            logits, cache = decode_step(params, cache, tok, P + i)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            if reg.enabled:
+                # per-step timing needs a sync point; only pay it when
+                # telemetry is on (disabled runs keep async dispatch)
+                sync()
+                reg.observe("serve", "decode_step_ms",
+                            (time.perf_counter() - t_step) * 1e3, unit="ms")
+            out.append(tok)
+        sync()
+        t_decode = time.time() - t0
+        reg.gauge("serve", "tokens_per_s",
+                  (G - 1) * B / max(t_decode, 1e-9), unit="scalar")
+
+    gen_tokens = torch.cat(out, dim=1)
+    print(f"prefill {B}x{P}: {t_prefill*1e3:.1f} ms on {device}")
+    print(f"decode {G-1} steps: {t_decode*1e3:.1f} ms "
+          f"({(G-1)*B/max(t_decode,1e-9):.1f} tok/s)")
+    print("sample tokens:", gen_tokens[0, :16].tolist())
+    for r in get_registry().records():
+        if r["section"] == "serve":
+            print(f"# obs {r['section']}.{r['name']} = {r['value']:.3f} {r['unit']}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="SpMV serving engine CLI of the PyTorch port.",
+        description="SpMV serving engine CLI (default) or LM generation "
+                    "smoke (--arch) of the PyTorch port.",
     )
     ap.add_argument("--requests", type=int, default=32,
                     help="number of requests to replay through the engine")
@@ -127,19 +191,20 @@ def main(argv=None) -> None:
     ap.add_argument("--device-model", default="ampere",
                     help="the tuner's device model (prepare's device_model)")
     ap.add_argument("--device", default="cuda",
-                    help='where the engine serves: "cuda" (default) or "cpu"')
-    # the reference's LM smoke mode is refused with a reason, not ignored
+                    help='where it runs: "cuda" (default) or "cpu"')
+    # LM smoke mode
     ap.add_argument("--arch", default=None,
-                    help="the LM generation smoke (not ported yet)")
+                    help="run the single-shot LM generation smoke instead")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
     args = ap.parse_args(argv)
 
     if args.arch is not None:
-        raise SystemExit(
-            f"--arch {args.arch}: the LM generation smoke is not ported yet; it "
-            "waits for the port of the LM tree (models/, launch/steps.py; "
-            "ROADMAP.md Queue 1)"
-        )
-    run_spmv_serve(args)
+        run_lm_smoke(args)
+    else:
+        run_spmv_serve(args)
 
 
 if __name__ == "__main__":

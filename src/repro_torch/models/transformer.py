@@ -1,0 +1,246 @@
+"""Decoder-only LM covering dense/GQA, MoE, RWKV-6 and hybrid (Jamba) archs.
+
+Port of ``repro.models.transformer``.  The reference stacks uniform layers
+and runs them with ``jax.lax.scan`` (hybrids scan over periods; interleaved
+dense/MoE keeps two stacks).  PyTorch runs eagerly, so here the parameters
+are one list of per-layer dicts in layer order, ``params["layers"][i]``, and
+the forward pass is a Python loop over it; ``models/convert.py`` maps the
+reference's stacks onto that list.  The decode cache is likewise one list
+of per-layer entries (``init_cache``).  ``remat``, ``scan_layers`` and
+``analysis_unroll`` change nothing at inference and are ignored.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def refuse_mesh(mesh) -> None:
+    """Raise for a mesh: the port's LM tree has no sharded path yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the port's LM tree runs on one device; sharding and expert "
+            "parallelism come with the port of launch/sharding.py"
+        )
+
+
+def num_layers(cfg: ModelConfig) -> int:
+    """Layers the model runs: a hybrid runs whole periods only, as the
+    reference's per-period stacks do."""
+    if cfg.attn_period > 0:
+        return (cfg.layers // cfg.attn_period) * cfg.attn_period
+    return cfg.layers
+
+
+def layer_spec(cfg: ModelConfig, i: int) -> Tuple[str, bool]:
+    """(mixer kind, is MoE) of layer i.  A hybrid takes both from the layer's
+    position in its period, as the reference's period body does."""
+    j = i % cfg.attn_period if cfg.attn_period > 0 else i
+    return cfg.layer_kind(j), cfg.layer_is_moe(j)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(gen, cfg: ModelConfig, kind: str, is_moe: bool) -> Params:
+    dtype = L.param_dtype(cfg.dtype)
+    dev = gen.device
+    p: Params = {}
+    if kind == "rwkv":
+        return R.rwkv6_block_init(gen, cfg.d_model, cfg.num_heads, cfg.d_ff, dtype=dtype)
+    if kind == "mamba":
+        p["mixer"] = M.mamba_block_init(
+            gen, cfg.d_model, expand=cfg.mamba_expand, d_state=cfg.mamba_d_state, dtype=dtype
+        )
+    else:
+        p["ln1"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
+        p["attn"] = L.attention_init(
+            gen, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim,
+            qkv_bias=cfg.qkv_bias, dtype=dtype,
+        )
+    p["ln2"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
+    if is_moe:
+        p["moe"] = MOE.moe_init(
+            gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts, dtype=dtype
+        )
+        if cfg.shared_expert:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, dtype=dtype)
+    elif kind != "rwkv":
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random weights drawn from ``gen`` on its device, in ``cfg.dtype``."""
+    dtype = L.param_dtype(cfg.dtype)
+    params: Params = {
+        "embedding": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembedding"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)
+    params["layers"] = [_layer_init(gen, cfg, *layer_spec(cfg, i))
+                        for i in range(num_layers(cfg))]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    kind: str,
+    is_moe: bool,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+    cache_index=None,
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, new_cache, moe_aux)."""
+    aux = torch.zeros((), device=x.device)
+    new_cache = None
+    if kind == "rwkv":
+        if cache is not None and x.shape[1] == 1:
+            x, new_cache = R.rwkv6_block_decode(p, x, cache, num_heads=cfg.num_heads)
+        else:
+            x, new_cache = R.rwkv6_block_apply(
+                p, x, num_heads=cfg.num_heads, chunk=cfg.la_chunk, state=cache,
+            )
+        return x, new_cache, aux
+    if kind == "mamba":
+        H = max(cfg.mamba_expand * cfg.d_model // 64, 1)
+        if cache is not None and x.shape[1] == 1:
+            x, new_cache = M.mamba_block_decode(
+                p["mixer"], x, cache, num_heads=H, d_state=cfg.mamba_d_state
+            )
+        else:
+            x, new_cache = M.mamba_block_apply(
+                p["mixer"], x, num_heads=H, d_state=cfg.mamba_d_state,
+                chunk=cfg.la_chunk, state=cache,
+            )
+    else:
+        h = L.rmsnorm(p["ln1"], x)
+        attn_out, new_cache = L.attention_apply(
+            p["attn"], h,
+            num_heads=cfg.num_heads, kv_heads=cfg.kv_heads,
+            head_dim=cfg.resolved_head_dim, positions=positions,
+            rope_theta=cfg.rope_theta, cache=cache, cache_index=cache_index,
+            kv_chunk=cfg.attention_chunk, decode_fastpath=cfg.opt_decode_fastpath,
+        )
+        x = x + attn_out
+
+    h = L.rmsnorm(p["ln2"], x)
+    if is_moe:
+        # per-slot dispatch at decode, the replica path otherwise (the
+        # reference's shape-adaptive choice)
+        slot_loop = cfg.opt_moe_slot_loop and x.shape[1] == 1
+        y, aux = MOE.moe_apply(
+            p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            slot_loop=slot_loop,
+        )
+        if cfg.shared_expert:
+            y = y + L.mlp_apply(p["mlp"], h)
+        x = x + y
+    elif kind != "rwkv" and "mlp" in p:
+        x = x + L.mlp_apply(p["mlp"], h)
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pad-row logits → −1e30 (in the logits' dtype) so padded embeddings are
+    inert: greedy argmax never picks them."""
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+    return torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,
+                                              device=logits.device), logits)
+
+
+def forward(
+    params: Params,
+    tokens_or_embeds: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[List] = None,
+    cache_index=None,
+    mesh=None,
+) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
+    """Returns (logits, new_cache, moe_aux_sum).
+
+    ``tokens_or_embeds``: int tokens [B, T] or precomputed embeddings
+    [B, T, D] (modality-frontend stubs feed embeddings directly).  With
+    ``cache`` (from :func:`init_cache`) the attention layers write their K/V
+    rows into it in place; the recurrent layers' states are replaced in the
+    returned list.
+    """
+    refuse_mesh(mesh)
+    if tokens_or_embeds.dim() == 2:
+        x = params["embedding"][tokens_or_embeds.long()]
+    else:
+        x = tokens_or_embeds.to(L.param_dtype(cfg.dtype))
+    B, T = x.shape[:2]
+    if positions is None:
+        base = int(cache_index) if cache_index is not None else 0
+        positions = base + torch.arange(T, device=x.device)
+
+    aux_total = torch.zeros((), device=x.device)
+    new_cache = [] if cache is not None else None
+    for i, lp in enumerate(params["layers"]):
+        kind, is_moe = layer_spec(cfg, i)
+        ci = cache[i] if cache is not None else None
+        x, nc, a = _apply_layer(lp, x, cfg, kind, is_moe, positions,
+                                cache=ci, cache_index=cache_index)
+        aux_total = aux_total + a
+        if new_cache is not None:
+            new_cache.append(nc if nc is not None else ci)
+
+    x = L.rmsnorm(params["final_norm"], x)
+    unemb = params.get("unembedding", params["embedding"])
+    logits = mask_pad_vocab(L.unembed(x, unemb), cfg)
+    return logits, new_cache, aux_total
+
+
+# ---------------------------------------------------------------------------
+# cache init
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None) -> List:
+    """Decode cache: one entry per layer — {"k", "v"} [B, max_len, Hkv, Dh]
+    for attention, {"S"} for mamba, {"S", "x_prev_att", "x_prev_ffn"} for
+    RWKV."""
+    dtype = dtype or L.param_dtype(cfg.dtype)
+    hd = cfg.resolved_head_dim
+
+    def entry(kind):
+        if kind == "attn":
+            return {
+                "k": torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=dtype, device=device),
+                "v": torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=dtype, device=device),
+            }
+        if kind == "mamba":
+            return M.mamba_init_state(batch, cfg.d_model, expand=cfg.mamba_expand,
+                                      d_state=cfg.mamba_d_state, device=device)
+        return R.rwkv6_init_state(batch, cfg.d_model, cfg.num_heads, dtype, device=device)
+
+    return [entry(layer_spec(cfg, i)[0]) for i in range(num_layers(cfg))]

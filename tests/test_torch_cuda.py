@@ -1070,3 +1070,69 @@ def test_sharded_call_replays_in_a_cuda_graph(cuda, route):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(y, want) and torch.equal(want, base(x))
+
+
+# --- the LM tree's serving path (chip_smoke.py phase 21) -----------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: phase 21's helpers are shared with it."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", [
+    "rwkv6-3b", "qwen1.5-32b", "qwen2-7b", "deepseek-7b", "granite-3-2b", "kimi-k2-1t-a32b",
+    "llama4-scout-17b-a16e", "jamba-v0.1-52b", "internvl2-76b", "seamless-m4t-medium"])
+def test_lm_smoke_config_on_card_matches_cpu(cuda, arch):
+    """f32 with full-precision matmuls: the forward logits and 8 cached
+    decode steps, card and CPU within 1e-4 + 1e-4 |cpu|."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    with torch.inference_mode():
+        cpu = cs.lm_smoke_pair(cfg, torch.device("cpu"), 0)
+        card = cs.lm_smoke_pair(cfg, cuda, 0)
+    for a, b in zip(cpu, card):
+        assert a.shape == b.shape and bool(torch.isfinite(b).all())
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_lm_granite_full_width_decode_matches_forward(cuda):
+    """granite-3-2b at full width and depth, a prompt past the 1,024-row kv
+    chunk into the cache, then greedy steps.  At f32 (TF32 off) every step's
+    logits lie within 2e-3 + 2e-3 |logit| of one full forward's over prompt
+    + generated tokens, whose argmax is the generated token wherever its
+    top-2 margin exceeds twice that, at one position at least
+    (``chip_smoke.lm_check_f32``, which raises otherwise); two bf16 runs
+    from one seed give the same tokens, none a padded vocabulary row."""
+    from repro_torch.configs.registry import get_config
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cs = _chip_smoke()
+    cfg = get_config("granite-3-2b")
+    B, P, G = 2, 1056, 8
+
+    def bf16_tokens():
+        with torch.inference_mode():
+            params, prompts = cs.lm_seeded(cfg, 0, B, P, cuda)
+            return cs.lm_generate(cfg, params, prompts, G)[1]
+
+    toks = bf16_tokens()
+    assert int(toks.max()) < cfg.vocab
+    torch.cuda.empty_cache()
+    assert torch.equal(toks, bf16_tokens())
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params, prompts = cs.lm_seeded(cfg32, 0, B, P, cuda)
+    out = cs.lm_check_f32(cfg32, params, prompts, G, "[granite-3-2b]")
+    assert out["drops"] == 0 and 0 < out["checked"] == out["agree"]
