@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
 the ELL baseline path, the serving engine, the distributed layer and the LM
-tree's serving path on one NVIDIA GPU.
+tree's serving and training paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -167,7 +167,40 @@ Phases (any failure exits non-zero and prints no result line):
     bytes a step reads, routed experts only, over the memory rate; prefill:
     2 x active parameters x B x P over the dense bf16 rate); (d)
     ``python -m repro_torch.launch.serve --arch granite-3-2b`` (full config)
-    on the card.
+    on the card;
+22. (run after 21, before the result lines of 18; phase 21's models freed
+    first) the LM tree's training path: (a) the ten ``SMOKE_CONFIG``s with
+    weights drawn on the CPU from one seed and numpy-seeded tokens, labels
+    and frontend inputs, on the CPU and on the card at f32 (TF32 off,
+    asserted): the loss, the MoE aux, grad_norm and every gradient leaf of
+    ``make_grad_fn`` within 1e-4 max|cpu| + 1e-6; one ``make_train_step``
+    with microbatches=2 (loss, grad_norm, lr, aux the same way); and, fed
+    the CPU's gradients on both devices, ``compress_grads`` at density 0.05
+    (sparse gradients, residuals, ``topk_csr`` indices and ``compress_ratio``
+    equal) and ``adamw.apply`` (params and moments within 4 float32 ulps);
+    (b) granite-3-2b at full width and depth, bf16, random weights from the
+    seed: 8 steps of ``train_with_restart`` at B=4 x S=1536 (past the
+    1,024-row kv chunk and no multiple of it), lr 3e-4, warmup 2; every loss
+    finite and the last below the first; then 2 steps through
+    ``compress_grads`` at density 0.01, ``compress_ratio`` equal to the value
+    from the sizes of the reference's stacked leaves, the host and device
+    times of ``compress_grads``
+    logged; (c) rwkv6-3b at full depth, bf16: 3 ``make_train_step`` steps at
+    B=2 x S=1024, losses finite; (d) granite-3-2b at full width in f32
+    (TF32 off), B=1 x S=1536, remat on: with g autograd's gradient and
+    v = g/|g|, (L(p + eps v) - L(p - eps v)) / 2 eps equals |g| within the
+    relative tolerance derived in PERF.md §6, and so along g restricted to
+    the embedding and to the attention and MLP of layers 0, 20 and 39,
+    each normalised; every gradient leaf is nonzero; (e) the reference's
+    restart test on the card (granite smoke, 2 layers, seq_len 64): 20 steps
+    straight against 10 + restart + 10 within rtol 1e-4, a ``failure_at``
+    run through ``train_with_restart`` (steps 11-12 twice), bf16 leaves
+    through a checkpoint bit for bit; (f) for (b) and (c) the median step
+    ms after the first, tokens/s, peak allocated memory and the least step
+    time (8 N B S flops over the dense bf16 rate, plus 22 bytes a parameter
+    of AdamW over the memory rate); (g) ``python -m
+    repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 2 --seq
+    512`` (full config) on the card.
 """
 from __future__ import annotations
 
@@ -1825,12 +1858,12 @@ def lm_smoke_pair(cfg, dev, seed: int):
     from repro_torch.launch import steps as STEPS
     from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as TF
-    from repro_torch.models.convert import tree_map
+    from repro_torch.util.tree import tree_map
     from repro_torch.models.frontends import vlm_prepend
 
     model = ED if cfg.is_encdec else TF
-    params = tree_map(model.init_params(torch.Generator().manual_seed(seed), cfg),
-                      lambda t: t.to(dev))
+    params = tree_map(lambda t: t.to(dev),
+                      model.init_params(torch.Generator().manual_seed(seed), cfg))
     rng = np.random.default_rng(seed)
     B, T, G = 2, 16, 8
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T + G)).astype(np.int32)).to(dev)
@@ -2185,6 +2218,538 @@ def lm_phase(mem_rate: float, bf16_rate: float) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the LM tree's training path
+# ---------------------------------------------------------------------------
+
+#: Phase 22: the full-width training runs (arch, batch, sequence, steps); the
+#: card-versus-CPU tolerance of a gradient leaf (of its largest entry), of a
+#: loss and of grad_norm; the ulps an AdamW step may differ by on identical
+#: inputs; the f32 gradient check's batch, sequence, step length and the
+#: bound assumed on its truncation coefficient (``fd_tolerance``); the
+#: optimizer's bytes a parameter (bf16 p and g read, f32 m and v read and
+#: written, p written: 22).
+TR_GRANITE = ("granite-3-2b", 4, 1536, 8)
+TR_RWKV = ("rwkv6-3b", 2, 1024, 3)
+TR_RTOL, TR_ATOL = 1e-4, 1e-6
+TR_ULPS = 4
+TR_FD_B, TR_FD_S, TR_FD_EPS, TR_FD_TRUNC = 1, 1536, 1e-3, 1e3
+# parts of granite-3-2b checked on their own in phase 22(d), as leaf-path prefixes
+TR_FD_BLOCKS = (("embedding",), ("layers", 0, "attn"), ("layers", 0, "mlp"),
+                ("layers", 20, "attn"), ("layers", 20, "mlp"), ("layers", 39, "attn"),
+                ("layers", 39, "mlp"))
+OPT_BYTES_PER_PARAM = 22
+
+
+def fd_tolerance(loss: float, gnorm: float, eps: float = TR_FD_EPS) -> float:
+    """Relative tolerance of the central difference (L(p + eps v) - L(p - eps
+    v)) / 2 eps against |g|, v = g / |g| (derived in PERF.md §6; the
+    same for g restricted to a part of the weights, |g| then that part's,
+    since only that part is rounded): truncation c eps^2
+    with |c| <= ``TR_FD_TRUNC``; each f32 loss within 8 u L (u = 2^-24) of
+    exact, so the difference within 8 u L / (eps |g|); and the rounding of
+    p - eps v (half an ulp of a weight, at most 2^-23 |p| < 2^-23 for every
+    weight under 1: six standard deviations of the uniform rounding along g
+    give 6 (2^-23 / sqrt 12) / (2 eps))."""
+    u = 2.0 ** -24
+    return (TR_FD_TRUNC * eps ** 2 + 8 * u * loss / (eps * gnorm)
+            + 6 * (2 * u / 12 ** 0.5) / (2 * eps))
+
+
+def train_smoke_inputs(cfg, seed: int, B: int = 2, T: int = 16):
+    """Numpy-seeded tokens, labels and (vit, encdec) frontend inputs."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    extra = None
+    if cfg.is_encdec or cfg.frontend == "vit":
+        extra = rng.standard_normal((B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return tokens, labels, extra
+
+
+def train_smoke_grads(cfg, dev, seed: int):
+    """(params, inputs, loss, aux, grads) of ``cfg`` on ``dev`` through
+    ``make_grad_fn``, from weights drawn on the CPU from ``seed``."""
+    import torch
+
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TF
+    from repro_torch.util.tree import tree_map
+
+    model = ED if cfg.is_encdec else TF
+    params = tree_map(lambda t: t.to(dev),
+                      model.init_params(torch.Generator().manual_seed(seed), cfg))
+    inputs = [None if a is None else torch.from_numpy(a).to(dev)
+              for a in train_smoke_inputs(cfg, seed)]
+    loss, aux, grads = STEPS.make_grad_fn(cfg)(params, *inputs)
+    return params, inputs, loss, aux, grads
+
+
+def check_within(what: str, card, cpu, rtol: float, atol: float) -> float:
+    """max |card - cpu| <= rtol * max |cpu| + atol, or raise; returns it."""
+    import torch
+
+    card, cpu = card.detach().double().cpu(), cpu.detach().double().cpu()
+    if card.shape != cpu.shape or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"{what}: shape {tuple(card.shape)} or non-finite")
+    err = float((card - cpu).abs().max()) if cpu.numel() else 0.0
+    tol = rtol * (float(cpu.abs().max()) if cpu.numel() else 0.0) + atol
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |card - cpu| {err:.3e} over {tol:.3e}")
+    return err
+
+
+def train_parity(arch: str) -> dict:
+    """Phase 22(a) for one smoke config: loss, grad_norm and every gradient
+    leaf card against CPU; one microbatches=2 step; ``compress_grads`` and
+    ``adamw.apply`` fed the CPU's gradients on both devices."""
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.util.tree import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compress as COMP
+    from repro_torch.util.tree import leaves
+
+    cfg = get_smoke_config(arch)
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    p_cpu, in_cpu, l_cpu, a_cpu, g_cpu = train_smoke_grads(cfg, cpu, 0)
+    p_card, in_card, l_card, a_card, g_card = train_smoke_grads(cfg, card, 0)
+    out = {"loss": check_within(f"{arch} loss", l_card, l_cpu, TR_RTOL, TR_ATOL),
+           "aux": check_within(f"{arch} moe aux", a_card, a_cpu, TR_RTOL, TR_ATOL),
+           "grad_norm": check_within(f"{arch} grad_norm", adamw.global_norm(g_card),
+                                     adamw.global_norm(g_cpu), TR_RTOL, TR_ATOL)}
+    errs = [check_within(f"{arch} gradient leaf {i} {tuple(g.shape)}", gc, g, TR_RTOL, TR_ATOL)
+            / max(float(g.abs().max()), 1e-30)
+            for i, (gc, g) in enumerate(zip(leaves(g_card), leaves(g_cpu)))]
+    out["leaves"], out["worst_rel"] = len(errs), max(errs)
+
+    # one microbatches=2 step from the same weights on both devices
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    mets = []
+    for params, inputs in ((p_cpu, in_cpu), (p_card, in_card)):
+        params = tree_map(torch.clone, params)
+        _, opt, m = STEPS.make_train_step(cfg, opt_cfg, microbatches=2)(
+            params, adamw.init(params), *inputs)
+        if int(opt.step) != 1:
+            raise AssertionError(f"{arch} microbatches=2: step {int(opt.step)}")
+        mets.append(m)
+    for k in ("loss", "grad_norm", "lr", "moe_aux"):
+        check_within(f"{arch} microbatches=2 {k}", mets[1][k], mets[0][k], TR_RTOL, TR_ATOL)
+
+    # compress_grads (density 0.05, top-k over the reference's stacks) and
+    # adamw.apply on identical gradients
+    comp = COMP.CompressionConfig(density=0.05)
+    groups = STEPS.stacked_leaf_groups(cfg, g_cpu)
+    to_card = lambda tree: tree_map(lambda t: t.to(card), tree)
+    sparse = []
+    for dev_grads, params in ((g_cpu, p_cpu), (to_card(g_cpu), p_card)):
+        sparse.append(COMP.compress_grads(comp, dev_grads, COMP.init(params), groups=groups))
+    (sg_cpu, st_cpu, cm_cpu), (sg_card, st_card, cm_card) = sparse
+    if cm_cpu["compress_ratio"] != cm_card["compress_ratio"]:
+        raise AssertionError(f"{arch} compress_ratio {cm_card} != {cm_cpu}")
+    for a, b in zip(leaves(sg_card) + leaves(st_card.residual),
+                    leaves(sg_cpu) + leaves(st_cpu.residual)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{arch} compress_grads: card and CPU differ on equal inputs")
+    big = max(leaves(g_cpu), key=lambda t: t.numel())
+    k = max(int(big.numel() * comp.density), 1)
+    if not torch.equal(COMP.topk_csr(big.to(card), k)[1].cpu(), COMP.topk_csr(big, k)[1]):
+        raise AssertionError(f"{arch} topk_csr: card and CPU indices differ on equal input")
+    applied = []
+    for params, grads in ((p_cpu, g_cpu), (p_card, to_card(g_cpu))):
+        params = tree_map(torch.clone, params)
+        applied.append(adamw.apply(opt_cfg, params, grads, adamw.init(params)))
+    (np_cpu, s_cpu, m_cpu), (np_card, s_card, m_card) = applied
+    for a, b in zip(leaves(np_card) + leaves(s_card.mu) + leaves(s_card.nu),
+                    leaves(np_cpu) + leaves(s_cpu.mu) + leaves(s_cpu.nu)):
+        check_within(f"{arch} adamw.apply", a, b, TR_ULPS * EPS32, 0.0)
+    out["compress_ratio"] = cm_card["compress_ratio"]
+    return out
+
+
+def train_parity_all() -> None:
+    """Phase 22(a): the ten smoke configs, card against CPU, at f32."""
+    from repro_torch.configs.registry import all_archs
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    for arch in all_archs():
+        r = train_parity(arch)
+        worst = max(worst, r["worst_rel"])
+        log(f"[train/parity] {arch}: loss |card - cpu| {r['loss']:.3e}, grad_norm "
+            f"{r['grad_norm']:.3e}, {r['leaves']} gradient leaves within {TR_RTOL} max|g| + "
+            f"{TR_ATOL} (worst {r['worst_rel']:.3e} of its leaf's max); microbatches=2 step "
+            f"agrees; compress_grads (ratio {r['compress_ratio']:.4f}) and topk_csr bit-equal "
+            f"and adamw.apply within {TR_ULPS} ulps on equal gradients")
+    log(f"[train/parity] ten smoke configs' backward passes card vs CPU at f32 (TF32 off), "
+        f"worst leaf {worst:.3e} of its max ({time.perf_counter() - t0:.1f} s)")
+
+
+class CompressTimer:
+    """Times, while on, each ``compress_grads`` call: host ms to return
+    (enqueue) and device ms between CUDA events around it."""
+
+    def __init__(self, module):
+        self.mod, self.fn = module, module.compress_grads
+        self.host_ms, self.device_ms = [], []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = self.fn(*args, **kw)
+            end.record()
+            self.host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            self.device_ms.append(start.elapsed_time(end))
+            return out
+
+        self.mod.compress_grads = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compress_grads = self.fn
+
+
+def step_bound_ms(n_params: int, tokens: int, mem_rate: float, bf16_rate: float):
+    """(compute ms, optimizer ms): 8 N flops a token (forward, backward and
+    remat's second forward) over the dense bf16 rate; 22 bytes a parameter
+    of the AdamW update over the memory rate."""
+    return (8 * n_params * tokens / bf16_rate * 1e3,
+            OPT_BYTES_PER_PARAM * n_params / mem_rate * 1e3)
+
+
+def free_cuda() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_granite(mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 22(b)+(f): granite-3-2b at full width and depth, bf16, through
+    ``train_with_restart``; then two steps with CSR top-k compression."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import compress as COMP
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainerConfig, train_with_restart
+    from repro_torch.util.tree import leaves
+
+    arch, B, S, steps = TR_GRANITE
+    cfg = get_config(arch)
+    tag = f"[train/{arch}]"
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    log(f"{tag} {cfg.layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}, "
+        f"remat {cfg.remat}; B={B} S={S}, {steps} steps of train_with_restart, lr 3e-4, "
+        f"warmup 2")
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    t0 = time.perf_counter()
+    state = train_with_restart(cfg, opt_cfg, data, TrainerConfig(steps=steps, log_every=steps),
+                               lambda: make_host_mesh(1, device="cuda"), metrics_out=metrics)
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} the last loss {losses[-1]:.4f} is not below the first "
+                             f"{losses[0]:.4f}")
+    n_params = sum(t.numel() for t in leaves(state.params))
+    step_ms = float(np.median([m["time_s"] for m in metrics[1:]])) * 1e3
+    comp_ms, opt_ms = step_bound_ms(n_params, B * S, mem_rate, bf16_rate)
+    log(f"{tag} losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; drop {losses[0] - losses[-1]:.4f}; grad_norm "
+        + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+        + f"; lr " + ", ".join(f"{m['lr']:.2e}" for m in metrics))
+    log(f"{tag} {n_params / 1e9:.3f} G parameters; step {step_ms:.1f} ms (median of steps "
+        f"2-{steps}; first {metrics[0]['time_s'] * 1e3:.1f} ms), {B * S / step_ms * 1e3:.0f} "
+        f"tokens/s; least time {comp_ms:.1f} ms (8 N B S / bf16 peak) + {opt_ms:.1f} ms "
+        f"({OPT_BYTES_PER_PARAM} B a parameter / memory rate) = {comp_ms + opt_ms:.1f} ms, "
+        f"x{step_ms / (comp_ms + opt_ms):.2f}; peak {peak / 2**30:.2f} GiB allocated; "
+        f"{t_run:.1f} s in all")
+
+    # two more steps through the CSR top-k compression at density 0.01
+    comp = COMP.CompressionConfig(density=0.01)
+    step = STEPS.make_train_step(cfg, opt_cfg, compression=comp)
+    comp_state = COMP.init(state.params)
+    mesh = make_host_mesh(1, device="cuda")
+    params, opt_state = state.params, state.opt_state
+    del state
+    # compress_ratio from the sizes of the reference's stacked leaves
+    flat = leaves(params)
+    sizes = [sum(flat[i].numel() for i in g) for g in STEPS.stacked_leaf_groups(cfg, params)]
+    want = (sum(8 * max(int(n * comp.density), 1) if n >= comp.min_size else 4 * n
+                for n in sizes) / sum(4 * n for n in sizes))
+    closses = []
+    with CompressTimer(COMP) as timer:
+        for s in (steps, steps + 1):
+            tokens, labels = global_batch_array(data, s, mesh)
+            params, opt_state, comp_state, m = step(params, opt_state, comp_state, tokens, labels)
+            closses.append(float(m["loss"]))
+            if abs(m["compress_ratio"] - want) > 1e-12 * want:
+                raise AssertionError(f"{tag} compress_ratio {m['compress_ratio']} != {want} "
+                                     f"from the leaf sizes")
+    if not all(np.isfinite(closses)):
+        raise AssertionError(f"{tag} compressed losses {closses}")
+    peak_c = torch.cuda.max_memory_allocated()
+    log(f"{tag} 2 steps with compress_grads at density {comp.density}: losses "
+        + ", ".join(f"{v:.4f}" for v in closses)
+        + f"; compress_ratio {want:.6f} (= the stacks' 8k or 4 size bytes over 4 size); "
+        f"compress_grads host {', '.join(f'{v:.1f}' for v in timer.host_ms)} ms to return, "
+        f"device {', '.join(f'{v:.1f}' for v in timer.device_ms)} ms over {len(flat)} leaves "
+        f"in {len(sizes)} stacks; "
+        f"peak {peak_c / 2**30:.2f} GiB allocated")
+    del params, opt_state, comp_state, m, tokens, labels, flat
+    free_cuda()
+    return {"arch": arch, "step_ms": step_ms, "bound_ms": comp_ms + opt_ms, "peak": peak,
+            "losses": losses, "compress_ms": timer.device_ms}
+
+
+def train_rwkv(mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 22(c)+(f): rwkv6-3b at full depth, bf16, ``make_train_step``."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.util.tree import leaves
+
+    arch, B, S, steps = TR_RWKV
+    cfg = get_config(arch)
+    tag = f"[train/{arch}]"
+    mesh = make_host_mesh(1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt_state = adamw.init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    step = STEPS.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                                        total_steps=steps))
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    losses, times = [], []
+    for s in range(steps):
+        tokens, labels = global_batch_array(data, s, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    comp_ms, opt_ms = step_bound_ms(n_params, B * S, mem_rate, bf16_rate)
+    log(f"{tag} {cfg.layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} G parameters, "
+        f"{cfg.dtype}, remat {cfg.remat}; B={B} S={S}: losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; step {step_ms:.1f} ms (median of steps 2-{steps}; first {times[0] * 1e3:.1f} ms), "
+        f"{B * S / step_ms * 1e3:.0f} tokens/s; least time {comp_ms:.1f} + {opt_ms:.1f} = "
+        f"{comp_ms + opt_ms:.1f} ms, x{step_ms / (comp_ms + opt_ms):.2f}; peak "
+        f"{peak / 2**30:.2f} GiB allocated")
+    del params, opt_state, m
+    free_cuda()
+    return {"arch": arch, "step_ms": step_ms, "bound_ms": comp_ms + opt_ms, "peak": peak,
+            "losses": losses}
+
+
+def fd_gap(loss_at, flat_p, flat_g, idx, eps: float = TR_FD_EPS) -> dict:
+    """The central differences of the loss along v = g_S / |g_S|, the
+    gradient restricted to the leaves ``idx``, at eps and 2 eps, against
+    |g_S| (each point p + k eps v is one rounding from the saved weights,
+    which are put back after)."""
+    import torch
+
+    gnorm = float(torch.sqrt(sum(torch.sum(flat_g[i].double() ** 2) for i in idx)))
+    saved = [flat_p[i].clone() for i in idx]
+    losses = {}
+    with torch.no_grad():
+        for k in (1, -1, 2, -2):
+            for i, p0 in zip(idx, saved):
+                flat_p[i].copy_(p0).add_(flat_g[i], alpha=k * eps / gnorm)
+            losses[k] = loss_at()
+        for i, p0 in zip(idx, saved):
+            flat_p[i].copy_(p0)
+    fd = (losses[1] - losses[-1]) / (2 * eps)
+    fd2 = (losses[2] - losses[-2]) / (4 * eps)
+    rel, rel2 = fd / gnorm - 1, fd2 / gnorm - 1
+    return {"gnorm": gnorm, "fd": fd, "rel": rel, "rel2": rel2,
+            "c": (rel2 - rel) / (3 * eps ** 2), "losses": losses}
+
+
+def train_grad_check() -> dict:
+    """Phase 22(d): granite-3-2b at full width in f32 (TF32 off), B=1 x
+    S=1536, remat on.  Every gradient leaf is nonzero somewhere; the central
+    difference of the loss along the gradient restricted to each part of
+    ``TR_FD_BLOCKS`` (the embedding, attention and MLP of layers 0, 20 and
+    39), normalised, equals that part's |g_S| within ``fd_tolerance``, so
+    a layer whose gradient is lost or mis-scaled fails its own check; then
+    the same along v = g/|g| over every leaf.  The difference at twice the
+    step measures the truncation coefficient the tolerance assumes."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.util.tree import leaf_paths, leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype="float32")
+    tag = "[train/grad-check]"
+    t0 = time.perf_counter()
+    params = TF.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TR_FD_S, global_batch=TR_FD_B)
+    tokens, labels = global_batch_array(data, 0, make_host_mesh(1, device="cuda"))
+    loss, _, grads = STEPS.make_grad_fn(cfg)(params, tokens, labels)
+    flat_p, flat_g, paths = leaves(params), leaves(grads), leaf_paths(params)
+    zero = [paths[i] for i, g in enumerate(flat_g) if not bool(g.any())]
+    if zero:
+        raise AssertionError(f"{tag} leaves whose gradient is zero everywhere: {zero}")
+
+    def loss_at():
+        with torch.inference_mode():
+            return float(STEPS.cross_entropy(TF.forward(params, tokens, cfg)[0], labels))
+
+    L0 = loss_at()
+    log(f"{tag} {cfg.layers} layers f32, B={TR_FD_B} S={TR_FD_S}, remat {cfg.remat}: loss "
+        f"{float(loss):.6f} (forward alone {L0:.6f}); all {len(flat_g)} gradient leaves nonzero; "
+        f"central differences at eps {TR_FD_EPS} along the gradient of each part, normalised:")
+    out = {}
+    for prefix in TR_FD_BLOCKS + ((),):
+        idx = [i for i, q in enumerate(paths) if q[:len(prefix)] == prefix]
+        r = fd_gap(loss_at, flat_p, flat_g, idx)
+        tol = fd_tolerance(L0, r["gnorm"])
+        name = "/".join(map(str, prefix)) or "every leaf"
+        log(f"{tag}   {name} ({len(idx)} leaves): |g_S| {r['gnorm']:.6f}, difference "
+            f"{r['fd']:.6f}, relative gap {r['rel']:+.3e} against the tolerance {tol:.3e}; at "
+            f"2 eps {r['rel2']:+.3e}, so c = {r['c']:+.1f} (assumed |c| <= {TR_FD_TRUNC:.0f}); "
+            f"losses " + ", ".join(f"{k:+d} eps {v:.7f}" for k, v in r["losses"].items()))
+        if not abs(r["rel"]) <= tol or not np.isfinite(r["gnorm"]):
+            raise AssertionError(f"{tag} {name}: the directional derivative {r['fd']:.6f} "
+                                 f"differs from |g_S| {r['gnorm']:.6f} by {r['rel']:+.3e}, "
+                                 f"over {tol:.3e}")
+        out[name] = dict(r, tol=tol)
+    log(f"{tag} {len(out)} directions within their tolerances "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del params, grads, flat_p, flat_g
+    free_cuda()
+    return out
+
+
+def train_restart_check(dev: str = "cuda") -> dict:
+    """Phase 22(e): the reference's restart test shape on the card (granite
+    smoke with 2 layers, seq_len 64): 20 steps straight against 10 +
+    restart + 10 (final losses within rtol 1e-4), a ``failure_at`` run
+    through ``train_with_restart`` (steps 11-12 twice), and bf16 leaves
+    through a checkpoint bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt as CKPT
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.util.tree import tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer as TR
+    from repro_torch.util.tree import leaves
+
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=2)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=1)
+    mesh = lambda: make_host_mesh(1, device=dev)
+
+    def run(steps, ckpt_dir=None, failure_at=None, schedule_steps=None, restart=False):
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=schedule_steps or steps)
+        tcfg = TR.TrainerConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=5, log_every=100,
+                                failure_at=failure_at)
+        metrics = []
+        if restart:
+            TR.train_with_restart(cfg, opt, data, tcfg, mesh, metrics_out=metrics)
+        else:
+            TR.train(cfg, opt, data, tcfg, mesh(), metrics_out=metrics)
+        return metrics
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".ckpt_") as d:
+        straight = run(20)
+        run(10, ckpt_dir=f"{d}/a", schedule_steps=20)
+        resumed = run(20, ckpt_dir=f"{d}/a")
+        failed = run(15, ckpt_dir=f"{d}/b", failure_at=12, restart=True)
+        params = tree_map(lambda t: t.to(torch.bfloat16),
+                          TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg))
+        CKPT.save(f"{d}/c", 1, {"params": params})
+        back, _ = CKPT.restore(f"{d}/c", {"params": tree_map(torch.zeros_like, params)})
+    if resumed[0]["step"] != 11:
+        raise AssertionError(f"resume started at step {resumed[0]['step']}, not 11")
+    a, b = straight[-1]["loss"], resumed[-1]["loss"]
+    if not abs(a - b) <= 1e-4 * abs(b):
+        raise AssertionError(f"restart: final loss {b} against {a} straight, over rtol 1e-4")
+    steps = [m["step"] for m in failed]
+    if steps[-1] != 15 or steps.count(11) != 2 or steps.count(12) != 2:
+        raise AssertionError(f"failure run steps {steps}")
+    for x, y in zip(leaves(back), leaves(params)):
+        if x.dtype != torch.bfloat16 or x.device != y.device or not torch.equal(
+                x.view(torch.int16), y.view(torch.int16)):
+            raise AssertionError("a bf16 leaf did not come back from the checkpoint bit for bit")
+    log(f"[train/restart] on {dev}: final loss {a:.6f} straight, {b:.6f} after 10 + restart + "
+        f"10 (|diff| {abs(a - b):.2e}, rtol 1e-4); failure at step 12 restarted from step 10 "
+        f"(steps 11-12 twice, 15 reached); {len(leaves(params))} bf16 leaves round-trip bit for "
+        f"bit ({time.perf_counter() - t0:.1f} s)")
+    return {"straight": a, "resumed": b}
+
+
+def train_phase(mem_rate: float, bf16_rate: float) -> list:
+    """Phase 22: the LM tree's training path on the card."""
+    import os
+
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must run at full precision (TF32 off) for phase 22")
+    t_phase = time.perf_counter()
+    train_parity_all()
+    rows = [train_granite(mem_rate, bf16_rate), train_rwkv(mem_rate, bf16_rate)]
+    train_grad_check()
+    train_restart_check()
+
+    # (g) the training CLI on the card, full config
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                          "granite-3-2b", "--steps", "3", "--batch", "2", "--seq", "512"],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=str(ROOT))
+    for line in cli.stdout.strip().splitlines():
+        log(f"[train/cli] {line}")
+    if cli.returncode != 0 or "[trainer] step 3 loss" not in cli.stdout or "over 3 steps" \
+            not in cli.stdout:
+        raise AssertionError(f"launch.train --arch granite-3-2b exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    log(f"[train/cli] python -m repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 2 "
+        f"--seq 512 on the card: {time.perf_counter() - t0:.1f} s")
+    log(f"[train] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2366,6 +2931,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_phase(mem_rate, bf16_rate)
+
+    # 22. the LM tree's training path
+    free_cuda()
+    train_phase(mem_rate, bf16_rate)
 
     # 18. result lines
     kernels = {"kernels": [kernel_entry(

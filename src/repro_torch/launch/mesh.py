@@ -1,4 +1,5 @@
-"""The mesh the distributed SpMV layer partitions rows over.
+"""The mesh the distributed SpMV layer partitions rows over, and the one
+device the LM tree's trainer runs on.
 
 Port of the SpMV part of ``repro.launch.mesh`` (``make_host_mesh``).  The
 reference builds a ``jax.sharding.Mesh`` over the devices JAX sees; here a
@@ -6,7 +7,7 @@ mesh is a plain frozen list of ``torch.device``s, one per row-block shard,
 along a single ``"data"`` axis.  Several shards may share a device: with D
 shards on one card, the distributed executor (``repro_torch.core.distributed``)
 runs every shard there, and its x exchange is copies between buffers of that
-card.
+card.  The trainer takes a one-shard mesh (``mesh_device``).
 """
 from __future__ import annotations
 
@@ -57,3 +58,14 @@ def make_host_mesh(num_shards: int | None = None, device="cuda") -> ShardMesh:
     if D < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     return ShardMesh(tuple(visible[d % len(visible)] for d in range(D)))
+
+
+def mesh_device(mesh: ShardMesh) -> torch.device:
+    """The one device of a one-shard mesh, where the LM tree's training state
+    lives.  More shards raise: sharding the parameters comes with the port of
+    ``launch/sharding.py``."""
+    if len(mesh.devices) != 1:
+        raise NotImplementedError(
+            f"a mesh of {len(mesh.devices)} shards: the port's training path runs on one "
+            "device; sharding comes with the port of launch/sharding.py")
+    return mesh.devices[0]

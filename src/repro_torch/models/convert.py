@@ -1,4 +1,5 @@
-"""Carry the reference's weights and decode caches into the port's layouts.
+"""Carry the reference's weights, decode caches and training state into the
+port's layouts.
 
 Port-only.  The reference (``repro.models``) keeps layers in scanned stacks:
 ``layers`` [L, ...]; ``layers_dense`` / ``layers_moe`` for interleaved
@@ -8,7 +9,9 @@ list of per-layer dicts in layer order (``params["layers"][i]``).
 
 Inputs are the reference's pytrees as numpy arrays
 (``jax.tree.map(np.asarray, params)``); bfloat16 arrays (numpy dtype name
-``"bfloat16"``) are carried bit for bit.  Nothing here imports JAX.
+``"bfloat16"``) are carried bit for bit.  The optimizer's moments and the
+compression residual have the params' layout and are carried the same way,
+so both packages can start a step from one state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,7 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import num_layers
+from repro_torch.models.transformer import layer_stack, num_layers
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compress import CompressionState
+from repro_torch.util.tree import tree_map
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -31,37 +37,22 @@ def to_tensor(a, device=None) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
-def tree_map(tree, fn):
-    """``fn`` applied to every leaf of a tree of dicts and lists (tuples
-    become lists), the tree's layout kept."""
-    if isinstance(tree, dict):
-        return {k: tree_map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def _slice(stack, i: int, device):
     """Entry i of a stacked pytree, as tensors."""
-    return tree_map(stack, lambda a: to_tensor(np.asarray(a)[i], device))
+    return tree_map(lambda a: to_tensor(np.asarray(a)[i], device), stack)
 
 
 def _layer_stack(cfg: ModelConfig, ref: Dict[str, Any], i: int):
     """(stacked pytree, index) of layer i in the reference's parameters."""
-    if cfg.attn_period > 0:
-        period, j = divmod(i, cfg.attn_period)
-        return ref["periods"][j], period
-    if cfg.is_moe and cfg.moe_every > 1:
-        moe_i = cfg.layer_is_moe(i)
-        idx = sum(1 for q in range(i) if cfg.layer_is_moe(q) == moe_i)
-        return ref["layers_moe" if moe_i else "layers_dense"], idx
-    return ref["layers"], i
+    key, idx = layer_stack(cfg, i)
+    stack = ref[key[0]]
+    return (stack[key[1]] if len(key) > 1 else stack), idx
 
 
 def params_from_reference(cfg: ModelConfig, ref: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's parameters from the reference's ``init_params`` pytree
     (``transformer`` or, for an encoder–decoder config, ``encdec``)."""
-    top = lambda k: tree_map(ref[k], lambda a: to_tensor(a, device))
+    top = lambda k: tree_map(lambda a: to_tensor(a, device), ref[k])
     if cfg.is_encdec:
         return {
             "embedding": top("embedding"),
@@ -88,5 +79,20 @@ def cache_from_reference(cfg: ModelConfig, ref_cache, device=None) -> List[Dict[
         return [_slice(ref_cache[i % cfg.attn_period], i // cfg.attn_period, device)
                 for i in range(num_layers(cfg))]
     if cfg.is_moe and cfg.moe_every > 1:
-        return [tree_map(c, lambda a: to_tensor(a, device)) for c in ref_cache]
+        return [tree_map(lambda a: to_tensor(a, device), c) for c in ref_cache]
     return [_slice(ref_cache, i, device) for i in range(cfg.layers)]
+
+
+def opt_state_from_reference(cfg: ModelConfig, ref_state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's (``step``, and ``mu`` and
+    ``nu`` in the reference's params layout)."""
+    step, mu, nu = ref_state
+    return AdamWState(to_tensor(np.asarray(step, np.int32), device),
+                      params_from_reference(cfg, mu, device),
+                      params_from_reference(cfg, nu, device))
+
+
+def comp_state_from_reference(cfg: ModelConfig, ref_state, device=None) -> CompressionState:
+    """The port's ``CompressionState`` from the reference's (its residual in
+    the reference's params layout)."""
+    return CompressionState(params_from_reference(cfg, ref_state.residual, device))

@@ -5,12 +5,16 @@ frame embeddings feed the encoder.  The decoder adds cross-attention over the
 encoder output; decoding runs the decoder with a KV cache while the encoder
 output is computed once.  Layers are lists of per-layer dicts
 (``enc_layers``, ``dec_layers``) in place of the reference's scanned stacks.
+With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` while
+autograd records and no cache is given (the reference's ``jax.checkpoint``
+of its layer bodies); serving under ``torch.inference_mode()`` is unchanged.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -82,7 +86,8 @@ def encode(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *, mesh=None)
     refuse_mesh(mesh)
     x = embeds.to(L.param_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["enc_layers"]:
+
+    def layer(lp, x):
         h = L.rmsnorm(lp["ln1"], x)
         a, _ = L.attention_apply(
             lp["attn"], h, num_heads=cfg.num_heads, kv_heads=cfg.kv_heads,
@@ -90,7 +95,11 @@ def encode(params: Params, embeds: torch.Tensor, cfg: ModelConfig, *, mesh=None)
             rope_theta=cfg.rope_theta, causal=False, kv_chunk=cfg.attention_chunk,
         )
         x = x + a
-        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+        return x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params["enc_layers"]:
+        x = checkpoint(layer, lp, x, use_reentrant=False) if remat else layer(lp, x)
     return L.rmsnorm(params["enc_norm"], x)
 
 
@@ -123,9 +132,7 @@ def decode(
     base = int(cache_index) if cache_index is not None else 0
     positions = base + torch.arange(T, device=x.device)
 
-    new_cache = [] if cache is not None else None
-    for i, lp in enumerate(params["dec_layers"]):
-        lc = cache[i] if cache is not None else None
+    def layer(lp, x, lc):
         h = L.rmsnorm(lp["ln1"], x)
         a, nc = L.attention_apply(
             lp["attn"], h, num_heads=cfg.num_heads, kv_heads=cfg.kv_heads,
@@ -137,7 +144,16 @@ def decode(
         hx = L.rmsnorm(lp["ln_x"], x)
         kv = _enc_kv(lp["xattn"], enc_out, cfg)
         x = x + _cross_attention(lp["xattn"], hx, kv, cfg)
-        x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x))
+        return x + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["ln2"], x)), nc
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    new_cache = [] if cache is not None else None
+    for i, lp in enumerate(params["dec_layers"]):
+        lc = cache[i] if cache is not None else None
+        if remat:
+            x, nc = checkpoint(layer, lp, x, lc, use_reentrant=False)
+        else:
+            x, nc = layer(lp, x, lc)
         if new_cache is not None:
             new_cache.append(nc)
     x = L.rmsnorm(params["final_norm"], x)

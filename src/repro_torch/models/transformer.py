@@ -6,14 +6,22 @@ dense/MoE keeps two stacks).  PyTorch runs eagerly, so here the parameters
 are one list of per-layer dicts in layer order, ``params["layers"][i]``, and
 the forward pass is a Python loop over it; ``models/convert.py`` maps the
 reference's stacks onto that list.  The decode cache is likewise one list
-of per-layer entries (``init_cache``).  ``remat``, ``scan_layers`` and
-``analysis_unroll`` change nothing at inference and are ignored.
+of per-layer entries (``init_cache``).
+
+``remat`` is honoured while autograd records (``torch.is_grad_enabled()``,
+no cache): each layer, or each period of a hybrid, runs under
+``torch.utils.checkpoint`` as the reference's scan bodies run under
+``jax.checkpoint``, so the backward pass keeps one layer's activations and
+recomputes them.  As in the reference, the ``scan_layers=False`` path has no
+remat.  Under ``torch.inference_mode()`` (serving) nothing is checkpointed.
+``analysis_unroll`` concerns the reference's HLO cost analysis only.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -39,6 +47,23 @@ def num_layers(cfg: ModelConfig) -> int:
     if cfg.attn_period > 0:
         return (cfg.layers // cfg.attn_period) * cfg.attn_period
     return cfg.layers
+
+
+def layer_stack(cfg: ModelConfig, i: int) -> Tuple[Tuple, int]:
+    """(stack key, index) of layer i in the reference's stacked parameters:
+    ``(("periods", j), period)`` for a hybrid, ``(("layers_moe",), n)`` or
+    ``(("layers_dense",), n)`` for interleaved dense/MoE, else
+    ``(("layers",), i)``.  ``models/convert.py`` reads the reference's
+    weights by it, and the gradient compression takes top-k over each
+    stack as the reference does."""
+    if cfg.attn_period > 0:
+        period, j = divmod(i, cfg.attn_period)
+        return ("periods", j), period
+    if cfg.is_moe and cfg.moe_every > 1:
+        moe_i = cfg.layer_is_moe(i)
+        idx = sum(1 for q in range(i) if cfg.layer_is_moe(q) == moe_i)
+        return ("layers_moe" if moe_i else "layers_dense",), idx
+    return ("layers",), i
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> Tuple[str, bool]:
@@ -160,6 +185,17 @@ def _apply_layer(
     return x, new_cache, aux
 
 
+def _apply_group(group: List[Params], x: torch.Tensor, cfg: ModelConfig, start: int,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers ``start``, ``start + 1``, … (one list entry each) without a
+    cache: (x, their MoE aux summed), as the reference's period body sums."""
+    aux = torch.zeros((), device=x.device)
+    for j, lp in enumerate(group):
+        x, _, a = _apply_layer(lp, x, cfg, *layer_spec(cfg, start + j), positions)
+        aux = aux + a
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -205,14 +241,22 @@ def forward(
 
     aux_total = torch.zeros((), device=x.device)
     new_cache = [] if cache is not None else None
-    for i, lp in enumerate(params["layers"]):
-        kind, is_moe = layer_spec(cfg, i)
-        ci = cache[i] if cache is not None else None
-        x, nc, a = _apply_layer(lp, x, cfg, kind, is_moe, positions,
-                                cache=ci, cache_index=cache_index)
-        aux_total = aux_total + a
-        if new_cache is not None:
-            new_cache.append(nc if nc is not None else ci)
+    if cfg.remat and cfg.scan_layers and cache is None and torch.is_grad_enabled():
+        # one checkpointed group per layer, or per period of a hybrid
+        group = cfg.attn_period if cfg.attn_period > 0 else 1
+        for start in range(0, len(params["layers"]), group):
+            x, a = checkpoint(_apply_group, params["layers"][start:start + group], x, cfg,
+                              start, positions, use_reentrant=False)
+            aux_total = aux_total + a
+    else:
+        for i, lp in enumerate(params["layers"]):
+            kind, is_moe = layer_spec(cfg, i)
+            ci = cache[i] if cache is not None else None
+            x, nc, a = _apply_layer(lp, x, cfg, kind, is_moe, positions,
+                                    cache=ci, cache_index=cache_index)
+            aux_total = aux_total + a
+            if new_cache is not None:
+                new_cache.append(nc if nc is not None else ci)
 
     x = L.rmsnorm(params["final_norm"], x)
     unemb = params.get("unembedding", params["embedding"])

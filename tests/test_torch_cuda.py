@@ -1136,3 +1136,27 @@ def test_lm_granite_full_width_decode_matches_forward(cuda):
     params, prompts = cs.lm_seeded(cfg32, 0, B, P, cuda)
     out = cs.lm_check_f32(cfg32, params, prompts, G, "[granite-3-2b]")
     assert out["drops"] == 0 and 0 < out["checked"] == out["agree"]
+
+
+# --- the LM tree's training path (chip_smoke.py phase 22) ----------------------
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "kimi-k2-1t-a32b", "rwkv6-3b"])
+def test_train_smoke_config_on_card_matches_cpu(cuda, arch):
+    """f32 with full-precision matmuls: loss, aux, grad_norm and every
+    gradient leaf card against CPU within 1e-4 max|cpu| + 1e-6, a
+    microbatches=2 step, and compress_grads (bit-equal) and adamw.apply
+    (4 ulps) fed the same gradients (``chip_smoke.train_parity``, which
+    raises otherwise)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = _chip_smoke().train_parity(arch)
+    assert out["worst_rel"] <= 1e-4 and out["leaves"] > 0
+
+
+def test_train_restart_on_card(cuda):
+    """The reference's restart test shape on the card: 10 + restart + 10
+    steps within rtol 1e-4 of 20 straight, a failure_at run restarted by
+    the supervisor, bf16 leaves through a checkpoint bit for bit
+    (``chip_smoke.train_restart_check``)."""
+    out = _chip_smoke().train_restart_check("cuda")
+    assert abs(out["straight"] - out["resumed"]) <= 1e-4 * abs(out["resumed"])
