@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
 the ELL baseline path, the serving engine, the distributed layer and the LM
-tree's serving and training paths on one NVIDIA GPU.
+tree's serving and training paths, one-device and sharded, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -200,7 +200,28 @@ Phases (any failure exits non-zero and prints no result line):
     time (8 N B S flops over the dense bf16 rate, plus 22 bytes a parameter
     of AdamW over the memory rate); (g) ``python -m
     repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 2 --seq
-    512`` (full config) on the card.
+    512`` (full config) on the card;
+23. (run after 22, before the result lines of 18) the sharded LM path,
+    every shard on the one card: (a) qwen2-7b (2 layers) and jamba at
+    smoke width, one train step on data 2 x model 4 card shards against
+    CPU shards at f32 (loss, grad_norm, every averaged gradient leaf
+    within 1e-4 max|g| + 1e-6, every updated parameter within 1e-4 of its
+    leaf's max where the gradient is outside that bar of 0, else within
+    2 lr more: Adam's first step), and ``moe_apply_ep`` alone; (b)
+    granite-3-2b at full width and depth, bf16, 3 trainer steps on data 2
+    x model 4 from phase 22(b)'s seed and batches, each loss within 1e-2
+    of phase 22(b)'s, step ms, peak memory and the pieces' bytes per
+    shard beside ``state_bytes_per_device``; (c) the same at f32, 2
+    layers, the sharded step against the one-device step (gradients and
+    updated leaves as in (a)); (d) one jamba period with expert
+    parallelism on data 1 x model 4, phase 21's prompts, teacher-forced
+    with phase 21's one-device tokens: at bf16 the argmax equals the next
+    token wherever phase 21's top-2 margin exceeds 2 (2e-3 + 2e-3 |logit|),
+    at f32 every position within 2e-3 + 2e-3 |logit| of the one-device
+    full forward; decode ms/step beside phase 21's, MoE drops; (e) granite
+    smoke on 8 data shards, a failure, a rebuild to 6 and a resume from
+    the checkpoint, equal within rtol 1e-4 to an uninterrupted 6-shard run
+    from that checkpoint.
 """
 from __future__ import annotations
 
@@ -2145,6 +2166,7 @@ def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
         full32 = TF.forward(params, seq, cfg32)[0][:, LM_P - 1:, :V]
     log(f"{tag} bf16 rounding: max |full forward bf16 - f32| on the same weights and tokens "
         f"{float((full - full32).abs().max()):.4f}")
+    one_device = {"tokens": toks.cpu(), "logits": dec.cpu()}
     del full, full32, dec
     check = lm_check_f32(cfg32, params, prompts, LM_G, tag)
     del params
@@ -2184,7 +2206,7 @@ def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
     return {"arch": arch, "layers": cfg.layers, "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound,
             "decode_ms": dec_ms, "decode_bound_ms": dec_bound, "tokens_per_s": tok_s,
             "peak_bytes": peak, "f32_check": check, "step_kernels": work["kernels"],
-            "step_busy_ms": work["busy_ms"]}
+            "step_busy_ms": work["busy_ms"], **one_device}
 
 
 def lm_phase(mem_rate: float, bf16_rate: float) -> list:
@@ -2750,6 +2772,454 @@ def train_phase(mem_rate: float, bf16_rate: float) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the sharded LM path
+# ---------------------------------------------------------------------------
+
+#: Phase 23: the data x model mesh of the smoke and full-width runs; the
+#: smoke configs (arch, layers) and their batch; the card-versus-CPU bar of
+#: a leaf (of its largest entry, phase 22(a)'s); the bf16 loss bar against
+#: phase 22(b) (the reference's, tests/test_distributed.py:111); the restart
+#: batch (divides over 8 and 6 data shards).
+SH_DATA, SH_MODEL = 2, 4
+SH_SMOKE = (("qwen2-7b", 2), ("jamba-v0.1-52b", None))
+SH_B, SH_T = 4, 32
+SH_RTOL = 1e-4
+SH_LOSS_TOL = 1e-2
+SH_STEPS = 3
+SH_RESTART_B = 24
+SH_EP_MODEL = 4
+
+
+def sharded_mesh(dev, data: int = SH_DATA, model: int = SH_MODEL):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(data * model, dev, model=model)
+
+
+def sharded_smoke_step(cfg, dev, seed: int) -> dict:
+    """One sharded train step of ``cfg`` on a 2 x 4 mesh of ``dev`` shards,
+    from weights drawn on the CPU from ``seed`` and numpy-seeded tokens:
+    loss, aux, the averaged gradients and the updated parameters (whole, on
+    the CPU), the step's metrics."""
+    import torch
+
+    from repro_torch.launch import sharded as SHD
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.util import sharded as SU
+
+    mesh = sharded_mesh(dev)
+    params = TF.init_params(torch.Generator().manual_seed(seed), cfg)
+    sp = SHD.shard_tree(params, mesh)
+    rng = np.random.default_rng(seed)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, (SH_B, SH_T)).astype(np.int32))
+                      for _ in range(2))
+    loss, aux, grads = STEPS.make_grad_fn(cfg, mesh=mesh)(sp, tokens, labels)
+    grads = SU.full_tree(grads, "cpu")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=5)
+    sp, opt, m = STEPS.make_train_step(cfg, opt_cfg, mesh)(sp, adamw.init(sp), tokens, labels)
+    if int(opt.step) != 1 or not all(isinstance(s, SU.Sharded) for s in tree_leaves(sp)):
+        raise AssertionError(f"{cfg.name} sharded step on {dev}: state not sharded or no step")
+    return {"loss": loss.cpu(), "aux": aux.cpu(), "grads": grads,
+            "params": SU.full_tree(sp, "cpu"), "metrics": {k: torch.as_tensor(v).cpu()
+                                                           for k, v in m.items()},
+            "lr": float(m["lr"])}
+
+
+def updated_within(what: str, got, want, grads, lr: float, rtol: float = SH_RTOL) -> float:
+    """Updated parameters ``got`` against ``want`` (whole, CPU): within rtol
+    of each leaf's largest entry wherever the gradient ``grads`` is outside
+    the gradient bar (rtol max|g| + 1e-6) of 0, and within that + 2 lr
+    elsewhere (Adam's first step moves such an entry by ~lr sign(g), a sign
+    the rounding does not fix).  Returns the worst gap over the bar."""
+    import torch
+
+    from repro_torch.util.tree import leaf_paths, leaves
+
+    worst = 0.0
+    for path, a, b, g in zip(leaf_paths(want), leaves(got), leaves(want), leaves(grads)):
+        a, b, g = a.double(), b.double(), g.double()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what} {path}: shape {tuple(a.shape)} or non-finite")
+        bar = rtol * float(b.abs().max())
+        fixed = g.abs() > rtol * float(g.abs().max()) + TR_ATOL
+        gap = (a - b).abs()
+        fixed_gap = float(torch.where(fixed, gap, 0).max())
+        if fixed_gap > bar or float(gap.max()) > bar + 2 * lr:
+            raise AssertionError(f"{what} {path}: updated parameter gap {fixed_gap:.3e} "
+                                 f"(any entry {float(gap.max()):.3e}) over {bar:.3e}")
+        worst = max(worst, fixed_gap / max(bar, 1e-30))
+    return worst
+
+
+def sharded_parity() -> dict:
+    """Phase 23(a): the 2 x 4 sharded step at smoke width and moe_apply_ep,
+    card shards against CPU shards at f32."""
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.util.tree import leaves
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers in SH_SMOKE:
+        cfg = get_smoke_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, layers=layers)
+        cpu = sharded_smoke_step(cfg, "cpu", 0)
+        card = sharded_smoke_step(cfg, "cuda", 0)
+        check_within(f"[sharded] {arch} loss", card["loss"], cpu["loss"], TR_RTOL, TR_ATOL)
+        check_within(f"[sharded] {arch} aux", card["aux"], cpu["aux"], TR_RTOL, TR_ATOL)
+        for k in ("loss", "grad_norm", "lr"):
+            check_within(f"[sharded] {arch} step {k}", card["metrics"][k], cpu["metrics"][k],
+                         TR_RTOL, TR_ATOL)
+        g_worst = max(check_within(f"[sharded] {arch} gradient leaf {i}", a, b, SH_RTOL, TR_ATOL)
+                      / max(float(b.abs().max()), 1e-30)
+                      for i, (a, b) in enumerate(zip(leaves(card["grads"]), leaves(cpu["grads"]))))
+        p_worst = updated_within(f"[sharded] {arch}", card["params"], cpu["params"],
+                                 cpu["grads"], cpu["lr"])
+        out[arch] = {"grad_worst": g_worst, "param_worst": p_worst}
+        log(f"[sharded/parity] {arch} ({cfg.layers} layers) on {SH_DATA} x {SH_MODEL} shards: "
+            f"loss {float(card['loss']):.6f} (cpu {float(cpu['loss']):.6f}), "
+            f"{len(leaves(card['grads']))} gradient leaves within {SH_RTOL} max|g| + {TR_ATOL} "
+            f"(worst {g_worst:.3e} of its max), updated parameters within {SH_RTOL} of each "
+            f"leaf's max where the gradient is determined (worst {p_worst:.3f} of the bar)")
+    # expert parallelism alone: E=8 over model=4, x over data=2
+    gen = torch.Generator().manual_seed(0)
+    params = MOE.moe_init(gen, 64, 128, 8)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 16, 64)).astype(np.float32))
+    ys = {}
+    for dev in ("cpu", "cuda"):
+        mesh = sharded_mesh(dev)
+        p = {k: v.to(mesh.devices[0]) for k, v in params.items()}
+        with torch.inference_mode():
+            ys[dev] = [t.cpu() for t in MOE.moe_apply_ep(p, x.to(mesh.devices[0]), num_experts=8,
+                                                           top_k=2, mesh=mesh)]
+    out["moe_ep"] = check_within("[sharded] moe_apply_ep", ys["cuda"][0], ys["cpu"][0],
+                                 SH_RTOL, TR_ATOL)
+    check_within("[sharded] moe_apply_ep aux", ys["cuda"][1], ys["cpu"][1], SH_RTOL, TR_ATOL)
+    log(f"[sharded/parity] moe_apply_ep (8 experts over model 4, 4 x 16 tokens over data 2): "
+        f"max |card - cpu| {out['moe_ep']:.3e}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sharded_granite(mem_rate: float, bf16_rate: float, phase22: dict) -> dict:
+    """Phase 23(b): granite-3-2b at full width and depth, bf16, 3 steps of
+    the trainer on data 2 x model 4 shards on the one card, from phase
+    22(b)'s seed and batches; each loss within 1e-2 of phase 22(b)'s."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer as TR
+    from repro_torch.util import sharded as SU
+    from repro_torch.util.tree import leaves, tree_map
+
+    arch, B, S, steps22 = TR_GRANITE
+    cfg = get_config(arch)
+    tag = f"[sharded/{arch}]"
+    mesh = sharded_mesh("cuda")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps22)
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TR.init_state(cfg, mesh, seed=0)
+    t_init = time.perf_counter() - t0
+    n_params = sum(s.numel() for s in leaves(state.params))
+    meta = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), state.params)
+    want = SH.state_bytes_per_device(meta, SH.params_shardings(meta, mesh), mesh)
+    held = [sum(v) for v in zip(*(SU.bytes_per_shard(t, mesh) for t in
+                                  (state.params, state.opt_state.mu, state.opt_state.nu)))]
+    splits = {}
+    for s in leaves(state.params):
+        splits[len(s.pieces)] = splits.get(len(s.pieces), 0) + 1
+    emb = state.params["embedding"]
+    metrics = []
+    t0 = time.perf_counter()
+    state = TR.train(cfg, opt_cfg, data, TR.TrainerConfig(steps=SH_STEPS, log_every=SH_STEPS),
+                     mesh, state=state, metrics_out=metrics)
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    ref = phase22["losses"][:SH_STEPS]
+    gaps = [abs(a - b) for a, b in zip(losses, ref)]
+    if len(losses) != SH_STEPS or not all(np.isfinite(losses)) or max(gaps) > SH_LOSS_TOL:
+        raise AssertionError(f"{tag} sharded losses {losses} against phase 22(b)'s {ref}: gaps "
+                             f"{gaps} over {SH_LOSS_TOL}")
+    step_ms = float(np.median([m["time_s"] for m in metrics[1:]])) * 1e3
+    comp_ms, opt_ms = step_bound_ms(n_params, B * S, mem_rate, bf16_rate)
+    log(f"{tag} {n_params / 1e9:.3f} G parameters on data {SH_DATA} x model {SH_MODEL} shards "
+        f"(one card); leaves by pieces {dict(sorted(splits.items()))}; embedding spec "
+        f"{tuple(emb.spec)} (padded vocabulary {cfg.padded_vocab}); init + shard {t_init:.1f} s")
+    log(f"{tag} bytes of params + mu + nu per shard: max {max(held) / 2**30:.3f} GiB, min "
+        f"{min(held) / 2**30:.3f} GiB, mean {sum(held) / len(held) / 2**30:.3f} GiB (a block "
+        f"stored once, on its first shard); state_bytes_per_device (every replica, x5 of the "
+        f"bf16 params) {want / 2**30:.3f} GiB")
+    log(f"{tag} {SH_STEPS} steps at B={B} S={S}: losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f" against phase 22(b)'s " + ", ".join(f"{v:.4f}" for v in ref)
+        + f" (|gap| max {max(gaps):.2e}, bar {SH_LOSS_TOL}); grad_norm "
+        + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+        + f"; step {step_ms:.1f} ms (median of steps 2-{SH_STEPS}; first "
+        f"{metrics[0]['time_s'] * 1e3:.1f} ms) against phase 22(b)'s one-device "
+        f"{phase22['step_ms']:.1f} ms and the least {comp_ms + opt_ms:.1f} ms; peak "
+        f"{peak / 2**30:.2f} GiB allocated (one device: {phase22['peak'] / 2**30:.2f} GiB); "
+        f"{t_run:.1f} s")
+    del state, meta
+    free_cuda()
+    return {"step_ms": step_ms, "peak": peak, "losses": losses, "gaps": gaps,
+            "held_max": max(held), "held_min": min(held), "state_bytes": want}
+
+
+def sharded_granite_f32() -> dict:
+    """Phase 23(c): granite-3-2b at full width cut to 2 layers, f32 (TF32
+    off): the sharded step and the one-device step from the same weights,
+    every gradient and updated leaf."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import sharded as SHD
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.util import sharded as SU
+    from repro_torch.util.tree import leaves, tree_map
+
+    arch, B, S, _ = TR_GRANITE
+    cfg = dataclasses.replace(get_config(arch), layers=2, dtype="float32")
+    tag = f"[sharded/{arch} f32]"
+    t0 = time.perf_counter()
+    mesh = sharded_mesh("cuda")
+    one_mesh = sharded_mesh("cuda", 1, 1)
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    params = TF.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sp = SHD.shard_tree(params, mesh)
+    tokens, labels = global_batch_array(data, 0, mesh)
+    t1, l1 = global_batch_array(data, 0, one_mesh)
+    loss_s, _, g_s = STEPS.make_grad_fn(cfg, mesh=mesh)(sp, tokens, labels)
+    loss_1, _, g_1 = STEPS.make_grad_fn(cfg)(params, t1, l1)
+    g_s = SU.full_tree(g_s, "cpu")
+    g_1 = tree_map(lambda t: t.cpu(), g_1)
+    check_within(f"{tag} loss", loss_s, loss_1, TR_RTOL, TR_ATOL)
+    g_worst = max(check_within(f"{tag} gradient leaf {i}", a, b, SH_RTOL, TR_ATOL)
+                  / max(float(b.abs().max()), 1e-30)
+                  for i, (a, b) in enumerate(zip(leaves(g_s), leaves(g_1))))
+    sp, _, m_s = STEPS.make_train_step(cfg, opt_cfg, mesh)(sp, adamw.init(sp), tokens, labels)
+    params, _, m_1 = STEPS.make_train_step(cfg, opt_cfg, one_mesh)(params, adamw.init(params),
+                                                                  t1, l1)
+    check_within(f"{tag} grad_norm", m_s["grad_norm"], m_1["grad_norm"], TR_RTOL, TR_ATOL)
+    p_worst = updated_within(tag, SU.full_tree(sp, "cpu"),
+                             tree_map(lambda t: t.cpu(), params), g_1, float(m_1["lr"]))
+    n = len(leaves(params))
+    log(f"{tag} B={B} S={S}: loss {float(loss_s):.6f} sharded, {float(loss_1):.6f} one device; "
+        f"{n} gradient leaves within {SH_RTOL} max|g| + {TR_ATOL} (worst {g_worst:.3e} of its "
+        f"max); {n} updated leaves within {SH_RTOL} of the leaf's max where the gradient is "
+        f"determined (worst {p_worst:.3f} of the bar); {time.perf_counter() - t0:.1f} s")
+    del params, sp, g_s, g_1
+    free_cuda()
+    return {"grad_worst": g_worst, "param_worst": p_worst}
+
+
+class EPDrops:
+    """Counts, while on, the routings ``moe.csr_dispatch_plan`` drops over
+    capacity, leaving out expert parallelism's dummy bin (the last expert id
+    of a plan built with one more bin than the shard's experts, as
+    ``moe_apply_ep`` builds it); device tensors, no synchronisation."""
+
+    def __init__(self, moe_module, ep: bool):
+        self.moe, self.plan, self.ep = moe_module, moe_module.csr_dispatch_plan, ep
+        self.dropped = []
+
+    def __enter__(self):
+        def plan(expert_idx, num_experts, capacity):
+            dest, keep, row_ptr = self.plan(expert_idx, num_experts, capacity)
+            real = expert_idx.reshape(-1) < num_experts - 1 if self.ep else True
+            self.dropped.append((~keep & real).sum())
+            return dest, keep, row_ptr
+        self.moe.csr_dispatch_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.csr_dispatch_plan = self.plan
+
+    def total(self) -> int:
+        return sum(int(v) for v in self.dropped)
+
+
+def ep_forced(cfg, params, prompts, seq, mesh):
+    """Logits [B, G+1, V] of a prefill of ``prompts`` into the cache, then
+    one decode step per token of ``seq`` after the prompt (teacher forcing),
+    through ``make_decode_step(cfg, mesh)``, and the host seconds of the
+    decode steps."""
+    import torch
+
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+
+    B, P = prompts.shape
+    G = seq.shape[1] - P
+    cache = TF.init_cache(cfg, B, P + G, device=prompts.device)
+    logits, cache, _ = TF.forward(params, prompts, cfg, cache=cache, cache_index=0, mesh=mesh)
+    outs = [logits[:, -1]]
+    del logits
+    step = STEPS.make_decode_step(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G):
+        logits, cache = step(params, cache, seq[:, P + i:P + i + 1], P + i)
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    return torch.stack(outs, 1)[..., :cfg.vocab], time.perf_counter() - t0
+
+
+def sharded_jamba_ep(phase21: dict) -> dict:
+    """Phase 23(d): one jamba period at full width with its MoE layers
+    expert-parallel over data 1 x model 4 (4 experts a shard), from phase
+    21's seed and prompts: at bf16 teacher-forced with phase 21's one-device
+    tokens (argmax = the next token where phase 21's top-2 margin exceeds
+    twice the f32 bound); at f32 every position within 2e-3 + 2e-3 |logit|
+    of the one-device f32 full forward."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    arch = "jamba-v0.1-52b"
+    layers = dict(LM_FULL)[arch]
+    cfg = dataclasses.replace(get_config(arch), layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tag = f"[sharded/{arch} ep]"
+    mesh = sharded_mesh("cuda", 1, SH_EP_MODEL)
+    t0 = time.perf_counter()
+    free_cuda()
+    toks, ref = phase21["tokens"].cuda(), phase21["logits"]           # [B, G+1], [B, G+1, V]
+    with torch.inference_mode():
+        params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
+        seq = torch.cat([prompts, toks[:, :-1]], dim=1)                 # P + G tokens
+        with EPDrops(MOE, ep=True) as drops16:
+            ep16, t_dec = ep_forced(cfg, params, prompts, seq, mesh)
+    ep16 = ep16.float().cpu()
+    tol = LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()
+    top2 = ref.topk(2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1]) > 2 * tol.amax(-1)
+    agree = ep16.argmax(-1) == toks.cpu()
+    if not int(checked.sum()) or bool((checked & ~agree).any()):
+        raise AssertionError(f"{tag} bf16: argmax differs from the one-device token at "
+                             f"{int((checked & ~agree).sum())} of {int(checked.sum())} positions "
+                             f"whose one-device top-2 margin exceeds twice the bound")
+    dec_ms = t_dec * 1e3 / LM_G
+    gap16 = float((ep16 - ref).abs().max())
+    # f32: the same weights; the one-device full forward, then EP teacher-forced
+    upcast_(params)
+    with torch.inference_mode():
+        with EPDrops(MOE, ep=False) as drops_full:
+            full = TF.forward(params, seq, cfg32)[0][:, LM_P - 1:, :cfg.vocab]
+        free_cuda()
+        with EPDrops(MOE, ep=True) as drops32:
+            ep32, _ = ep_forced(cfg32, params, prompts, seq, mesh)
+    tol32 = LM_DECODE_TOL + LM_DECODE_TOL * full.abs()
+    gap32 = (ep32 - full).abs()
+    over = float((gap32 / tol32).max())
+    if ep32.dtype != torch.float32 or over > 1.0:
+        raise AssertionError(f"{tag} f32: EP logits {float(gap32.max()):.3e} from the one-device "
+                             f"full forward, {over:.3f} of {LM_DECODE_TOL} + "
+                             f"{LM_DECODE_TOL}|logit|")
+    log(f"{tag} {TF.num_layers(cfg)} layers, {cfg.num_experts} experts over model "
+        f"{SH_EP_MODEL} (data 1); B={LM_B} P={LM_P} G={LM_G}: bf16 teacher-forced with phase "
+        f"21's tokens, argmax = the next one-device token at {int((checked & agree).sum())} of "
+        f"{int(checked.sum())} positions whose margin exceeds twice the bound ({checked.numel()} "
+        f"positions; max |EP - one device| {gap16:.3f}); f32 within {LM_DECODE_TOL} + "
+        f"{LM_DECODE_TOL}|logit| of the one-device full forward at every position (max |gap| "
+        f"{float(gap32.max()):.3e}, {over:.3f} of the bound); MoE drops: EP bf16 "
+        f"{drops16.total()}, EP f32 {drops32.total()}, one-device f32 forward "
+        f"{drops_full.total()}")
+    log(f"{tag} decode {dec_ms:.3f} ms/step with EP (bf16, teacher-forced) against phase 21's "
+        f"one-device {phase21['decode_ms']:.3f} ms/step; {time.perf_counter() - t0:.1f} s")
+    del params, prompts, full, ep32
+    free_cuda()
+    return {"decode_ms": dec_ms, "over": over, "drops": drops16.total() + drops32.total()}
+
+
+def sharded_restart_check(dev: str = "cuda") -> dict:
+    """Phase 23(e): granite smoke (2 layers) on 8 data shards to a checkpoint
+    at step 4, then a failure after step 5; the supervisor rebuilds the
+    mesh at failed_fraction 0.25 (6 shards) and resumes from step 4.  The
+    resumed losses equal an uninterrupted 6-shard run from a copy of that
+    checkpoint within rtol 1e-4."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh, rebuild_mesh_after_failure
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer as TR
+
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=2)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=SH_RESTART_B, seed=1)
+    t0 = time.perf_counter()
+    meshes = []
+
+    def factory():
+        mesh = (make_host_mesh(8, dev, model=1) if not meshes
+                else rebuild_mesh_after_failure(0.25, 8, dev))
+        meshes.append(mesh)
+        return mesh
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".ckpt_") as d:
+        tcfg = TR.TrainerConfig(steps=7, ckpt_dir=f"{d}/run", ckpt_every=2, log_every=100,
+                                failure_at=5)
+        TR.train(cfg, opt, data, dataclasses.replace(tcfg, steps=4, failure_at=None), factory())
+        shutil.copytree(f"{d}/run", f"{d}/copy")
+        meshes.clear()
+        metrics, straight = [], []
+        TR.train_with_restart(cfg, opt, data, tcfg, factory, metrics_out=metrics)
+        TR.train(cfg, opt, data, dataclasses.replace(tcfg, ckpt_dir=f"{d}/copy", failure_at=None),
+                 rebuild_mesh_after_failure(0.25, 8, dev), metrics_out=straight)
+    shapes = [m.shape for m in meshes]
+    if shapes != [{"data": 8, "model": 1}, {"data": 6, "model": 1}]:
+        raise AssertionError(f"restart meshes {shapes}")
+    if [m["step"] for m in metrics] != [5, 5, 6, 7] or [m["step"] for m in straight] != [5, 6, 7]:
+        raise AssertionError(f"restart steps {[m['step'] for m in metrics]}, "
+                             f"{[m['step'] for m in straight]}")
+    gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics[1:], straight)]
+    if max(gaps) > 1e-4:
+        raise AssertionError(f"resumed losses differ from the uninterrupted 6-shard run: {gaps}")
+    log(f"[sharded/restart] on {dev}: 8 data shards to step 4, failure after step 5, rebuilt "
+        f"to {shapes[1]} and resumed from step 4; losses "
+        + ", ".join(f"{m['loss']:.6f}" for m in metrics[1:]) + " against "
+        + ", ".join(f"{m['loss']:.6f}" for m in straight)
+        + f" uninterrupted on 6 shards (max rel gap {max(gaps):.2e}, rtol 1e-4); B="
+        f"{SH_RESTART_B}; {time.perf_counter() - t0:.1f} s")
+    return {"gaps": gaps}
+
+
+def sharded_phase(mem_rate: float, bf16_rate: float, lm_rows: list, train_rows: list) -> dict:
+    """Phase 23: the sharded LM path on a data x model mesh on the card."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must run at full precision (TF32 off) for phase 23")
+    t_phase = time.perf_counter()
+    out = {"parity": sharded_parity()}
+    out["granite"] = sharded_granite(mem_rate, bf16_rate,
+                                     next(r for r in train_rows if r["arch"] == "granite-3-2b"))
+    out["granite_f32"] = sharded_granite_f32()
+    out["jamba_ep"] = sharded_jamba_ep(next(r for r in lm_rows if r["arch"] == "jamba-v0.1-52b"))
+    out["restart"] = sharded_restart_check()
+    log(f"[sharded] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2930,11 +3400,15 @@ def main() -> int:
     del x, X_true, Bm, b, xb
     gc.collect()
     torch.cuda.empty_cache()
-    lm_phase(mem_rate, bf16_rate)
+    lm_rows = lm_phase(mem_rate, bf16_rate)
 
     # 22. the LM tree's training path
     free_cuda()
-    train_phase(mem_rate, bf16_rate)
+    train_rows = train_phase(mem_rate, bf16_rate)
+
+    # 23. the sharded LM path
+    free_cuda()
+    sharded_phase(mem_rate, bf16_rate, lm_rows, train_rows)
 
     # 18. result lines
     kernels = {"kernels": [kernel_entry(

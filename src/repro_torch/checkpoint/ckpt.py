@@ -13,13 +13,16 @@ Fault-tolerance contract (train/trainer.py):
     mid-write never corrupts the latest checkpoint;
   * ``restore`` reads LATEST, falls back to the newest complete step dir if
     LATEST is stale, and puts each leaf on the device of the target tree's
-    leaf;
+    leaf, or reshards it onto ``shardings`` or the target's own cut
+    (elastic restarts onto a mesh of another shape);
   * keep-k pruning runs after commit, never before.
 
 Leaves are walked in ``repro_torch.util.tree`` order (dicts by sorted key,
 lists, tuples and the ``AdamWState`` NamedTuple in order).  numpy has no
 bfloat16 without JAX's ``ml_dtypes``, so a bf16 leaf is stored as its uint16
-bits with ``"bfloat16"`` in the manifest and restored bit for bit.
+bits with ``"bfloat16"`` in the manifest and restored bit for bit.  A
+sharded state (``util.sharded.Sharded`` leaves) is saved leaf by leaf
+whole, so a mesh and one device write the same files.
 """
 from __future__ import annotations
 
@@ -31,14 +34,16 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.util.sharded import Sharded
 from repro_torch.util.tree import leaves, structure, tree_map
 
 Params = Any
 
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
-    """(host array, manifest dtype name) of one leaf."""
-    t = torch.as_tensor(leaf).detach().cpu()
+    """(host array, manifest dtype name) of one leaf, whole."""
+    t = leaf.full("cpu") if isinstance(leaf, Sharded) else torch.as_tensor(leaf)
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -120,9 +125,13 @@ def restore(
     target_tree: Params,
     *,
     step: Optional[int] = None,
+    shardings: Optional[Params] = None,
 ) -> Tuple[Params, int]:
     """Load into the structure of ``target_tree``: each leaf's shape is
-    checked, cast to the target leaf's dtype and put on its device."""
+    checked and it is cast to the target leaf's dtype, then cut onto
+    ``shardings`` (a tree of ``launch.sharding.NamedSharding`` with the
+    target's structure) where given, else onto the target leaf's own cut
+    where it is ``Sharded``, else put on the target leaf's device."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -133,15 +142,22 @@ def restore(
         raise ValueError(f"checkpoint has {len(dtypes)} leaves, the target "
                          f"{len(leaves(target_tree))}")
     counter = iter(range(len(dtypes)))
+    cuts = iter(leaves(shardings) if shardings is not None else [None] * len(dtypes))
     with np.load(os.path.join(path, "arrays.npz")) as data:
 
         def load(leaf):
             i = next(counter)
+            cut = next(cuts)
             arr = data[f"leaf_{i}"]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(
                     f"checkpoint leaf {i} shape {arr.shape} != target {tuple(leaf.shape)}"
                 )
-            return _from_numpy(arr, dtypes[i]).to(device=leaf.device, dtype=leaf.dtype)
+            t = _from_numpy(arr, dtypes[i]).to(dtype=leaf.dtype)
+            if cut is None and isinstance(leaf, Sharded):
+                cut = leaf
+            if cut is not None:
+                return Sharded.from_full(t, cut.mesh, cut.spec)
+            return t.to(device=leaf.device)
 
         return tree_map(load, target_tree), step

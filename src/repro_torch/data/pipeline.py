@@ -4,9 +4,9 @@ Port of ``repro.data.pipeline``.  A seeded, reproducible token stream
 (Zipfian unigram draws with repeated n-gram motifs, so the LM loss actually
 decreases), chunked into packed [batch, seq] examples.  ``DataConfig`` and
 ``synthesize_batch`` are the reference's numpy, copied: the same (seed, step)
-gives the same tokens bit for bit.  ``global_batch_array`` puts the batch on
-the mesh's device as int32 tensors (the reference builds globally sharded
-arrays; the port's trainer runs on one device).
+gives the same tokens bit for bit.  ``global_batch_array`` gives each data
+shard of the mesh its rows on its device (the reference's
+``make_array_from_callback`` over a batch-sharded spec).
 
 Restart safety: the stream is indexed by (seed, step), so resuming from a
 checkpoint at step k regenerates exactly the batches k, k+1, … with no
@@ -20,7 +20,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import ShardMesh, mesh_device
+from repro_torch.launch.mesh import ShardMesh, batch_axes, dp_size
+from repro_torch.util.sharded import PartitionSpec, Sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +67,21 @@ def global_batch_array(
     step: int,
     mesh: ShardMesh,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tokens, labels) [global_batch, seq_len] int32 on the mesh's device:
-    the batch's rows without their last token, and shifted by one."""
-    dev = mesh_device(mesh)
+    """(tokens, labels) [global_batch, seq_len] int32: the batch's rows
+    without their last token, and shifted by one.  On a mesh of one data
+    shard they are tensors on the mesh's first device; on more, ``Sharded``
+    over the batch axes, data shard d holding rows d·B/D … (d+1)·B/D on its
+    device (B must divide by D, as the reference's sharding requires)."""
     full = torch.from_numpy(synthesize_batch(cfg, step))
-    return full[:, :-1].contiguous().to(dev), full[:, 1:].contiguous().to(dev)
+    tokens, labels = full[:, :-1].contiguous(), full[:, 1:].contiguous()
+    D = dp_size(mesh)
+    if D == 1:
+        return tokens.to(mesh.devices[0]), labels.to(mesh.devices[0])
+    if cfg.global_batch % D:
+        raise ValueError(f"global batch {cfg.global_batch} does not divide over {D} data shards")
+    axes = tuple(a for a in batch_axes(mesh) if a in mesh.axis_names)
+    spec = PartitionSpec(axes if len(axes) > 1 else axes[0], None)
+    return Sharded.from_full(tokens, mesh, spec), Sharded.from_full(labels, mesh, spec)
 
 
 def batches(cfg: DataConfig, mesh: ShardMesh, start_step: int = 0) -> Iterator:

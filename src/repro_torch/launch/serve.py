@@ -115,14 +115,15 @@ def run_spmv_serve(args) -> None:
 def run_lm_smoke(args) -> None:
     """Single-shot generation smoke: one prefill + greedy decode steps."""
     from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.core.spmv import _resolve_device
     from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as TF
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encdec or cfg.frontend is not None:
         raise SystemExit(f"{args.arch}: use examples for frontend archs")
-    device = _resolve_device(args.device)
+    mesh = make_host_mesh(device=args.device, model=1)
+    device = mesh.devices[0]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(0)
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -132,7 +133,7 @@ def run_lm_smoke(args) -> None:
         params = TF.init_params(gen, cfg)
         prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
         cache = TF.init_cache(cfg, B, max_len, device=device)
-        decode_step = STEPS.make_decode_step(cfg)
+        decode_step = STEPS.make_decode_step(cfg, mesh)
 
         reg = get_registry()
         # prefill through the cache path (writes K/V for the prompt)

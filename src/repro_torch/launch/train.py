@@ -10,8 +10,14 @@ On the CPU, at the smoke config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b --smoke \
       --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt --device cpu
 
-The trainer runs on one device: ``--model-axis`` other than 1 raises until
-the port of ``launch/sharding.py``.
+``--shards N`` stands for the reference's forced device count: the trainer
+runs on a ``data × model`` mesh of N shards laid over the visible devices of
+``--device`` (``launch.mesh.make_host_mesh``; on a one-card machine every
+shard sits on the card), ``model = --model-axis`` (clamped to N) and
+``data = N // model``, as the reference's ``make_host_mesh(model=...)``
+splits its devices:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke \
+      --steps 3 --batch 4 --seq 32 --shards 8 --model-axis 4 --device cpu
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shards of the data x model mesh (the reference's device count)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises where there is no card), 'cuda:i' or 'cpu'")
     args = ap.parse_args(argv)
@@ -46,10 +54,6 @@ def main(argv=None) -> None:
             f"{args.arch} needs frontend inputs; use examples/train_lm.py for "
             "decoder-only training or the dry-run for this arch"
         )
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: model parallelism comes with the port of "
-            "launch/sharding.py; the port's trainer runs on one device")
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=max(args.steps // 20, 1))
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     tcfg = TrainerConfig(
@@ -59,7 +63,7 @@ def main(argv=None) -> None:
     metrics = []
     train_with_restart(
         cfg, opt_cfg, data_cfg, tcfg,
-        lambda: make_host_mesh(1, device=args.device),
+        lambda: make_host_mesh(args.shards, device=args.device, model=args.model_axis),
         metrics_out=metrics,
     )
     if metrics:

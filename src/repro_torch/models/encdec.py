@@ -18,9 +18,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import refuse_mesh, mask_pad_vocab
+from repro_torch.models.transformer import mask_pad_vocab
 
 Params = Dict[str, Any]
+
+
+def refuse_mesh(mesh) -> None:
+    """Raise for a mesh: the reference's ``encode`` and ``decode`` take
+    none, so the encoder–decoder has no sharded path to port."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the encoder-decoder runs on one device; the reference's "
+            "encode and decode take no mesh"
+        )
 
 
 def _enc_layer_init(gen, cfg: ModelConfig, dtype) -> Params:

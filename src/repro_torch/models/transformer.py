@@ -15,9 +15,19 @@ no cache): each layer, or each period of a hybrid, runs under
 recomputes them.  As in the reference, the ``scan_layers=False`` path has no
 remat.  Under ``torch.inference_mode()`` (serving) nothing is checkpointed.
 ``analysis_unroll`` concerns the reference's HLO cost analysis only.
+
+With a ``mesh`` (``launch.mesh.ShardMesh``) a MoE layer runs
+``moe.moe_apply_ep`` under the reference's condition (a ``model`` axis that
+divides the experts, a batch that divides over the data axes), else
+``moe_apply``.  The reference also pins the residual stream and the logits
+to batch-sharded layouts (``_constrain_act``, ``_constrain_logits``): those
+are layout hints to XLA's partitioner, and eager PyTorch has none; the
+sharded train step (``launch/sharded.py``) places each data shard's rows
+itself.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -30,15 +40,6 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
-
-
-def refuse_mesh(mesh) -> None:
-    """Raise for a mesh: the port's LM tree has no sharded path yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port's LM tree runs on one device; sharding and expert "
-            "parallelism come with the port of launch/sharding.py"
-        )
 
 
 def num_layers(cfg: ModelConfig) -> int:
@@ -134,6 +135,7 @@ def _apply_layer(
     positions: torch.Tensor,
     cache: Optional[Dict] = None,
     cache_index=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (x, new_cache, moe_aux)."""
     aux = torch.zeros((), device=x.device)
@@ -170,13 +172,27 @@ def _apply_layer(
 
     h = L.rmsnorm(p["ln2"], x)
     if is_moe:
+        dp_axes = tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
+        dp_size = math.prod(mesh.shape[a] for a in dp_axes) if mesh is not None else 1
+        use_ep = (
+            mesh is not None
+            and "model" in mesh.axis_names
+            and cfg.num_experts % mesh.shape["model"] == 0
+            and x.shape[0] % dp_size == 0
+        )
         # per-slot dispatch at decode, the replica path otherwise (the
         # reference's shape-adaptive choice)
         slot_loop = cfg.opt_moe_slot_loop and x.shape[1] == 1
-        y, aux = MOE.moe_apply(
-            p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
-            slot_loop=slot_loop,
-        )
+        if use_ep:
+            y, aux = MOE.moe_apply_ep(
+                p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                mesh=mesh, data_axes=dp_axes, slot_loop=slot_loop,
+            )
+        else:
+            y, aux = MOE.moe_apply(
+                p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                slot_loop=slot_loop,
+            )
         if cfg.shared_expert:
             y = y + L.mlp_apply(p["mlp"], h)
         x = x + y
@@ -186,12 +202,12 @@ def _apply_layer(
 
 
 def _apply_group(group: List[Params], x: torch.Tensor, cfg: ModelConfig, start: int,
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 positions: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layers ``start``, ``start + 1``, … (one list entry each) without a
     cache: (x, their MoE aux summed), as the reference's period body sums."""
     aux = torch.zeros((), device=x.device)
     for j, lp in enumerate(group):
-        x, _, a = _apply_layer(lp, x, cfg, *layer_spec(cfg, start + j), positions)
+        x, _, a = _apply_layer(lp, x, cfg, *layer_spec(cfg, start + j), positions, mesh=mesh)
         aux = aux + a
     return x, aux
 
@@ -227,9 +243,8 @@ def forward(
     [B, T, D] (modality-frontend stubs feed embeddings directly).  With
     ``cache`` (from :func:`init_cache`) the attention layers write their K/V
     rows into it in place; the recurrent layers' states are replaced in the
-    returned list.
+    returned list.  ``mesh``: see the module docstring.
     """
-    refuse_mesh(mesh)
     if tokens_or_embeds.dim() == 2:
         x = params["embedding"][tokens_or_embeds.long()]
     else:
@@ -246,14 +261,14 @@ def forward(
         group = cfg.attn_period if cfg.attn_period > 0 else 1
         for start in range(0, len(params["layers"]), group):
             x, a = checkpoint(_apply_group, params["layers"][start:start + group], x, cfg,
-                              start, positions, use_reentrant=False)
+                              start, positions, mesh, use_reentrant=False)
             aux_total = aux_total + a
     else:
         for i, lp in enumerate(params["layers"]):
             kind, is_moe = layer_spec(cfg, i)
             ci = cache[i] if cache is not None else None
             x, nc, a = _apply_layer(lp, x, cfg, kind, is_moe, positions,
-                                    cache=ci, cache_index=cache_index)
+                                    cache=ci, cache_index=cache_index, mesh=mesh)
             aux_total = aux_total + a
             if new_cache is not None:
                 new_cache.append(nc if nc is not None else ci)

@@ -10,7 +10,9 @@ clip scale is float32.
 ``apply`` updates the params and the moments in place, one leaf at a time
 (the reference's trainer donates both to its step), so at full width the
 float32 temporaries are one leaf's, never the tree's; it returns the params
-as the reference does.
+as the reference does.  On a mesh the leaves are ``util.sharded.Sharded``
+and ``init``, ``global_norm`` and ``apply`` walk their pieces
+(``pieces_of``), each updated on its own shard's device: the ZeRO layout.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.util.sharded import pieces_of, zeros_f32
 from repro_torch.util.tree import leaves, tree_map
 
 Params = Any
@@ -68,18 +71,21 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero moments in the params' layout (pieces where the params are
+    ``Sharded``); the step counter on the first leaf's device."""
     dev = leaves(params)[0].device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        mu=tree_map(zeros, params),
-        nu=tree_map(zeros, params),
+        mu=tree_map(zeros_f32, params),
+        nu=tree_map(zeros_f32, params),
     )
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    """The 2-norm of every leaf (every piece of a ``Sharded`` leaf) together,
+    on the first leaf's device."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in pieces_of(tree)]
+    return torch.sqrt(torch.sum(torch.stack([v.to(sq[0].device) for v in sq])))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -116,7 +122,13 @@ def apply(
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
 
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu), leaves(state.nu)):
+    here = {stepf.device: (scale, lr, b1c, b2c)}
+    for p, g, m, v in zip(pieces_of(params), pieces_of(grads), pieces_of(state.mu),
+                          pieces_of(state.nu)):
+        if p.device not in here:   # a piece on another device than the step counter
+            here[p.device] = tuple(None if t is None else t.to(p.device)
+                                   for t in here[stepf.device])
+        scale, lr, b1c, b2c = here[p.device]
         g32 = g.to(torch.float32)
         if scale is not None:
             g32 = g32 * scale
@@ -128,5 +140,5 @@ def apply(
         delta.add_(cfg.weight_decay * p32)
         p.copy_(p32 - lr * delta)
         del delta, p32
-    metrics = {"lr": lr, "grad_norm": gnorm}
+    metrics = {"lr": here[stepf.device][1], "grad_norm": gnorm}
     return params, AdamWState(step, state.mu, state.nu), metrics

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.util.sharded import Sharded, assign_, whole, zeros_f32
 from repro_torch.util.tree import leaves, tree_map
 
 Params = Any
@@ -74,8 +75,9 @@ class CompressionConfig:
 
 
 def init(params: Params) -> CompressionState:
-    return CompressionState(residual=tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params))
+    """Zero residuals in the params' layout (pieces where they are
+    ``Sharded``)."""
+    return CompressionState(residual=tree_map(zeros_f32, params))
 
 
 def topk_csr(g: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,21 +132,41 @@ def compress_grads(
     bytes counted are the stack's.  None compresses each leaf alone.
 
     The residual is updated in place (at full width the f32 residual is as
-    large as the f32 moments), and returned.  The all-gather of the sparse
-    pairs over a data-parallel axis (``axis_name``) comes with the port of
-    the sharded path and raises until then."""
+    large as the f32 moments), and returned.  A ``util.sharded.Sharded``
+    leaf (the sharded train step's averaged gradients and residual) is
+    gathered whole for its group's top-k, and the sparse gradient and the
+    residual are cut back into its pieces.
+
+    With ``axis_name`` (a data-parallel axis) ``grads`` and ``state`` are
+    sequences, one per shard along that axis in shard order, and so are
+    the grads and states returned: each shard gets what the reference's
+    ``shard_map`` body gives it, the mean over the shards (summed in shard
+    order, in float32) of their sparse gradients, and its own residual; a
+    group under ``min_size`` stays the shard's own dense gradient, as in the
+    reference.  The metrics are shard 0's (every shard's are equal)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: the psum over a data-parallel axis comes with the port of "
-            "launch/sharding.py; the port's trainer runs on one device")
+        return _compress_over_shards(cfg, grads, state, groups)
+    sparse, metrics = _compress_local(cfg, grads, state, groups)
+    new_grads = list(leaves(grads))
+    for i, t in sparse.items():
+        g = new_grads[i]
+        new_grads[i] = g.assign_(t) if isinstance(g, Sharded) else t.to(g.dtype)
+    it = iter(new_grads)
+    return tree_map(lambda _: next(it), grads), state, metrics
+
+
+def _compress_local(cfg, grads, state, groups):
+    """One shard's top-k with error feedback: ({leaf: its float32 sparse
+    gradient} for the compressed groups, metrics); the residual is updated
+    in place."""
     flat_g, flat_r = leaves(grads), leaves(state.residual)
     if groups is None:
         groups = [[i] for i in range(len(flat_g))]
     sent_bytes = 0
     dense_bytes = 0
-    new_grads = list(flat_g)
+    sparse_out = {}
     for group in groups:
-        gs, rs = [flat_g[i] for i in group], [flat_r[i] for i in group]
+        gs, rs = [whole(flat_g[i]) for i in group], [whole(flat_r[i]) for i in group]
         size = sum(g.numel() for g in gs)
         dense_bytes += size * 4
         if size < cfg.min_size:
@@ -156,12 +178,29 @@ def compress_grads(
         sparse = decompress(vals, idx, (size,))
         acc.index_add_(0, idx.long(), -vals)             # acc − sparse, nonzero only at idx
         start = 0
-        for i, g, r in zip(group, gs, rs):
+        for i, g in zip(group, gs):
             n = g.numel()
-            new_grads[i] = sparse[start:start + n].view(g.shape).to(g.dtype)
-            r.copy_(acc[start:start + n].view(r.shape))
+            sparse_out[i] = sparse[start:start + n].view(g.shape)
+            assign_(flat_r[i], acc[start:start + n].view(g.shape))
             start += n
         sent_bytes += k * 8   # 4B value + 4B index
-    it = iter(new_grads)
-    metrics = {"compress_ratio": sent_bytes / max(dense_bytes, 1)}
-    return tree_map(lambda _: next(it), grads), state, metrics
+    return sparse_out, {"compress_ratio": sent_bytes / max(dense_bytes, 1)}
+
+
+def _compress_over_shards(cfg, grads_by_shard, states, groups):
+    """The ``axis_name`` form of :func:`compress_grads`: the reference's
+    ``psum(sparse) / psum(1)`` as a sum over the shards in shard order."""
+    local = [_compress_local(cfg, g, s, groups) for g, s in zip(grads_by_shard, states)]
+    n = len(local)
+    out = []
+    for d, grads in enumerate(grads_by_shard):
+        flat = list(leaves(grads))
+        for i in local[0][0]:
+            dev = flat[i].device
+            total = local[0][0][i].to(dev)
+            for sp, _ in local[1:]:
+                total = total + sp[i].to(dev)
+            flat[i] = (total / torch.tensor(float(n), device=dev)).to(flat[i].dtype)
+        it = iter(flat)
+        out.append(tree_map(lambda _: next(it), grads))
+    return out, list(states), local[0][1]

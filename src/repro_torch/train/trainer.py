@@ -7,13 +7,19 @@ Port of ``repro.train.trainer``:
     path is exercised end-to-end;
   * straggler watchdog — per-step wall times feed an EWMA; steps slower than
     ``straggler_factor`` × EWMA are flagged with the step index;
+  * elastic rebuild — on restart the mesh is re-formed (the caller's
+    factory, e.g. ``launch.mesh.rebuild_mesh_after_failure``) and the
+    checkpoint is resharded onto it;
   * optional CSR top-k gradient compression (optim/compress.py).
 
-The state lives on the one device of a one-shard mesh
-(``launch.mesh.make_host_mesh``; a mesh of more shards raises until the port
-of ``launch/sharding.py``), with weights drawn from a seeded
-``torch.Generator`` there.  A step ends in ``torch.cuda.synchronize()`` on
-the card, where the reference blocks on the loss.
+On a one-shard mesh (``launch.mesh.make_host_mesh``) the state is tensors on
+its device; on a mesh of several shards it is cut by
+``launch.sharding.params_pspecs`` into ``util.sharded.Sharded`` pieces on
+the shards' devices (ZeRO: the moments take the params' cut), and each
+step runs the sharded train step.  Weights are drawn from a seeded
+``torch.Generator`` on the mesh's first device, so every mesh starts from
+the same weights.  A step ends in ``torch.cuda.synchronize()`` of each card
+the mesh uses, where the reference blocks on the loss.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from repro_torch.checkpoint import ckpt as CKPT
 from repro_torch.data.pipeline import DataConfig, global_batch_array
+from repro_torch.launch import sharded as SHD
 from repro_torch.launch import steps as STEPS
 from repro_torch.launch.mesh import ShardMesh, mesh_device
 from repro_torch.models import encdec as ED
@@ -59,9 +66,13 @@ class TrainState:
 
 
 def init_state(cfg: ModelConfig, mesh: ShardMesh, seed: int = 0) -> TrainState:
+    """Seeded weights and zero moments: tensors on a one-shard mesh's device,
+    else pieces cut by ``params_pspecs`` on the mesh."""
     init = ED.init_params if cfg.is_encdec else TF.init_params
     gen = torch.Generator(device=mesh_device(mesh)).manual_seed(seed)
     params = init(gen, cfg)
+    if mesh.size > 1:
+        params = SHD.shard_tree(params, mesh)
     return TrainState(params=params, opt_state=adamw.init(params), step=0)
 
 
@@ -76,7 +87,6 @@ def train(
     metrics_out: Optional[List[Dict]] = None,
 ) -> TrainState:
     """Run (or resume) training. Returns the final state."""
-    dev = mesh_device(mesh)
     if state is None:
         state = init_state(cfg, mesh, tcfg.seed)
         if tcfg.ckpt_dir and CKPT.latest_step(tcfg.ckpt_dir) is not None:
@@ -95,7 +105,11 @@ def train(
         cfg, opt_cfg, mesh, microbatches=tcfg.microbatches,
         compression=compression,
     )
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
 
     ewma = None
     while state.step < tcfg.steps:

@@ -2,7 +2,8 @@
 
 The reference's parameters, optimizer state and checkpoints are JAX pytrees;
 the port's are plain nests of dicts, lists, tuples and NamedTuples
-(``AdamWState``, ``CompressionState``) with tensors at the leaves.  The walk
+(``AdamWState``, ``CompressionState``) with tensors at the leaves (or, on a
+mesh, ``util.sharded.Sharded`` pieces).  The walk
 order is fixed, as ``jax.tree`` fixes it: dict entries in sorted key order,
 sequence entries in order; ``None`` is an empty subtree.  The optimizer pairs
 the leaves of params, gradients and moments by this order, and a checkpoint
@@ -17,13 +18,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_node(x) -> bool:
+    """A list, a tuple or a NamedTuple; another subclass of tuple (a
+    ``PartitionSpec``, a ``torch.Size``) is a leaf, as in ``jax.tree``."""
+    return type(x) in (list, tuple) or _is_namedtuple(x)
+
+
 def leaves(tree) -> List[Any]:
     """The leaves of ``tree`` in walk order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return [x for v in tree for x in leaves(v)]
     return [tree]
 
@@ -35,7 +42,7 @@ def leaf_paths(tree, prefix: tuple = ()) -> List[tuple]:
         return []
     if isinstance(tree, dict):
         return [q for k in sorted(tree) for q in leaf_paths(tree[k], prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return [q for i, v in enumerate(tree) for q in leaf_paths(v, prefix + (i,))]
     return [prefix]
 
@@ -49,7 +56,7 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         out = {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
         return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         vals = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
         if _is_namedtuple(tree):
             return type(tree)(*vals)
@@ -63,7 +70,7 @@ def structure(tree) -> str:
         return "None"
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {structure(tree[k])}" for k in sorted(tree)) + "}"
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         inner = ", ".join(structure(v) for v in tree)
         if _is_namedtuple(tree):
             return f"{type(tree).__name__}({inner})"

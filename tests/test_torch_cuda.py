@@ -1160,3 +1160,62 @@ def test_train_restart_on_card(cuda):
     (``chip_smoke.train_restart_check``)."""
     out = _chip_smoke().train_restart_check("cuda")
     assert abs(out["straight"] - out["resumed"]) <= 1e-4 * abs(out["resumed"])
+
+
+# --- the sharded LM path (chip_smoke.py phase 23) ------------------------------
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-7b", 2), ("jamba-v0.1-52b", None)])
+def test_sharded_step_on_card_shards_matches_cpu_shards(cuda, arch, layers):
+    """f32 with full-precision matmuls: one 2 x 4 sharded train step (jamba's
+    MoE layers expert-parallel) on card shards and on CPU shards from the
+    same weights: loss, grad_norm, every averaged gradient leaf within 1e-4
+    of its max + 1e-6, every updated leaf within 1e-4 of its max where the
+    gradient is determined (``chip_smoke.updated_within``)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.util.sharded import Sharded
+    from repro_torch.util.tree import leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, layers=layers)
+    cpu = cs.sharded_smoke_step(cfg, "cpu", 0)
+    card = cs.sharded_smoke_step(cfg, "cuda", 0)
+    for k in ("loss", "grad_norm", "lr", "moe_aux"):
+        torch.testing.assert_close(card["metrics"][k], cpu["metrics"][k], rtol=1e-4, atol=1e-6)
+    for a, b in zip(leaves(card["grads"]), leaves(cpu["grads"])):
+        assert not isinstance(a, Sharded) and a.device.type == "cpu"
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
+    cs.updated_within(arch, card["params"], cpu["params"], cpu["grads"], cpu["lr"])
+
+
+def test_moe_apply_ep_on_card_shards_matches_cpu_shards(cuda):
+    """Expert parallelism alone, 8 experts over model 4, tokens over data 2,
+    the expert pieces on card shards: within 1e-4 of the CPU shards'."""
+    from repro_torch.models import moe as MOE
+
+    params = MOE.moe_init(torch.Generator().manual_seed(0), 64, 128, 8)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 16, 64)).astype(np.float32))
+    cs = _chip_smoke()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = cs.sharded_mesh(dev)
+        pieces = {k: v.to(mesh.devices[0]) if k == "router" else
+                  tuple(p.to(mesh.device_at(data=0, model=m))
+                        for m, p in enumerate(torch.chunk(v, 4)))
+                  for k, v in params.items()}
+        y, aux = MOE.moe_apply_ep(pieces, x.to(mesh.devices[0]), num_experts=8, top_k=2,
+                                  mesh=mesh)
+        out[dev] = (y.cpu(), aux.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)
+
+
+def test_sharded_restart_on_card(cuda):
+    """8 data shards on the card, a failure, a rebuild to 6 and a resume from
+    the checkpoint: the resumed losses equal an uninterrupted 6-shard run
+    from that checkpoint (``chip_smoke.sharded_restart_check``)."""
+    out = _chip_smoke().sharded_restart_check("cuda")
+    assert max(out["gaps"]) <= 1e-4

@@ -72,9 +72,20 @@ def test_global_batch_array_equals_reference():
 
 
 def test_global_batch_array_refuses_a_two_shard_mesh():
+    """No longer refused: on two data shards each gets its half of the rows
+    on its device (``Sharded`` over ``data``), the reference's rows; a batch
+    that does not divide over the shards is refused, as the reference's
+    sharding refuses it."""
+    from repro_torch.util.sharded import Sharded
+
     cfg = DATA.DataConfig(vocab=512, seq_len=32, global_batch=2)
-    with pytest.raises(NotImplementedError, match="one device"):
-        DATA.global_batch_array(cfg, 0, make_host_mesh(2, device="cpu"))
+    tokens, labels = DATA.global_batch_array(cfg, 0, make_host_mesh(2, device="cpu"))
+    whole, whole_l = DATA.global_batch_array(cfg, 0, CPU_MESH)
+    assert isinstance(tokens, Sharded) and tuple(tokens.spec) == ("data", None)
+    assert [tuple(p.shape) for p in tokens.pieces] == [(1, 32), (1, 32)]
+    assert torch.equal(tokens.full(), whole) and torch.equal(labels.full(), whole_l)
+    with pytest.raises(ValueError, match="does not divide"):
+        DATA.global_batch_array(cfg, 0, make_host_mesh(4, device="cpu"))
 
 
 # --- checkpoints -----------------------------------------------------------------------

@@ -294,16 +294,46 @@ def test_unscanned_layers_and_interleaved_stacks_match_reference(arch, overrides
 
 
 def test_mesh_is_refused():
+    """Only by the encoder-decoder now (the reference's encode and decode take
+    no mesh).  The decoder's forward and the serve steps take a mesh: a
+    dense model runs as without one, and a MoE model (kimi, 2 × 4 shards,
+    8 experts) runs its MoE layers expert-parallel."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+
+    mesh = make_host_mesh(8, "cpu", model=4)
     cfg = REG.get_smoke_config("granite-3-2b")
     params = TF.init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros(1, 4, dtype=torch.int32)
-    mesh = object()
-    with pytest.raises(NotImplementedError):
-        TF.forward(params, tokens, cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError):
-        STEPS.make_decode_step(cfg, mesh)
-    with pytest.raises(NotImplementedError):
-        STEPS.make_prefill_step(cfg, mesh)
+    tokens = torch.zeros(2, 4, dtype=torch.int32)
+    with torch.inference_mode():
+        plain = TF.forward(params, tokens, cfg)[0]
+        assert torch.equal(TF.forward(params, tokens, cfg, mesh=mesh)[0], plain)
+        assert torch.equal(STEPS.make_prefill_step(cfg, mesh)(params, tokens), plain)
+        cache = TF.init_cache(cfg, 2, 5)
+        TF.forward(params, tokens, cfg, cache=cache, cache_index=0)
+        step, _ = STEPS.make_decode_step(cfg, mesh)(params, cache, tokens[:, :1], 4)
+        assert step.shape == (2, 1, cfg.padded_vocab)
+
+        moe_cfg = REG.get_smoke_config("kimi-k2-1t-a32b")
+        assert moe_cfg.num_experts % 4 == 0
+        moe_params = TF.init_params(torch.Generator().manual_seed(0), moe_cfg)
+        calls = []
+        real = MOE.moe_apply_ep
+        MOE.moe_apply_ep = lambda *a, **k: calls.append(k["mesh"]) or real(*a, **k)
+        try:
+            ep, _, _ = TF.forward(moe_params, tokens, moe_cfg, mesh=mesh)
+        finally:
+            MOE.moe_apply_ep = real
+        assert calls and all(m is mesh for m in calls)
+        assert bool(torch.isfinite(ep).all())
+
+    ecfg = REG.get_smoke_config("seamless-m4t-medium")
+    eparams = ED.init_params(torch.Generator().manual_seed(0), ecfg)
+    embeds = torch.zeros(1, ecfg.frontend_seq, ecfg.d_model)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        ED.encode(eparams, embeds, ecfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        ED.decode(eparams, tokens, embeds, ecfg, mesh=mesh)
 
 
 def test_padded_vocab_rows_are_masked_and_never_picked():

@@ -231,6 +231,27 @@ def test_compression_ratio_reported(rng):
 
 
 def test_compress_grads_refuses_an_axis_name():
-    g = {"w": torch.zeros(8)}
-    with pytest.raises(NotImplementedError, match="sharding"):
-        compress.compress_grads(compress.CompressionConfig(), g, compress.init(g), axis_name="data")
+    """No longer refused: with ``axis_name`` it takes one gradient tree and
+    one state per shard and gives each shard the mean of the shards' sparse
+    gradients (the reference's psum / psum(1)), a small leaf its own dense
+    gradient, and its own residual; one shard equals the local form."""
+    rng = np.random.default_rng(7)
+    cfg = compress.CompressionConfig(density=0.05, min_size=64)
+    mk = lambda: {"w": torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32)),
+                  "b": torch.from_numpy(rng.standard_normal(8).astype(np.float32))}
+    grads = [mk() for _ in range(3)]
+    states = [compress.init(g) for g in grads]
+    out, states, m = compress.compress_grads(cfg, grads, states, axis_name="data")
+    local = []
+    for g in grads:
+        sparse, st, m1 = compress.compress_grads(cfg, g, compress.init(g))
+        local.append((sparse, st))
+    assert m == m1
+    mean = (local[0][0]["w"] + local[1][0]["w"] + local[2][0]["w"]) / torch.tensor(3.0)
+    for d in range(3):
+        assert torch.equal(out[d]["w"], mean)
+        assert torch.equal(out[d]["b"], grads[d]["b"])
+        assert torch.equal(states[d].residual["w"], local[d][1].residual["w"])
+    one, _, _ = compress.compress_grads(cfg, [grads[0]], [compress.init(grads[0])],
+                                        axis_name="data")
+    assert torch.equal(one[0]["w"], local[0][0]["w"])

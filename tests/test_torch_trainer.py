@@ -119,11 +119,19 @@ def test_compressed_training_still_learns():
 
 
 def test_trainer_refuses_a_two_shard_mesh():
-    cfg, opt, data, tcfg = _setup(steps=1)
-    with pytest.raises(NotImplementedError, match="one device"):
-        TR.train(cfg, opt, data, tcfg, make_host_mesh(2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="one device"):
-        TR.init_state(cfg, make_host_mesh(2, device="cpu"))
+    """No longer refused: on two data shards the state is cut into pieces and
+    the losses are the one-device run's."""
+    from repro_torch.util.sharded import Sharded
+
+    cfg, opt, data, tcfg = _setup(steps=3)
+    state = TR.init_state(cfg, make_host_mesh(2, device="cpu"))
+    assert all(isinstance(p, Sharded) for p in jax.tree.leaves(
+        state.params, is_leaf=lambda x: isinstance(x, Sharded)))
+    sharded, one = [], []
+    TR.train(cfg, opt, data, tcfg, make_host_mesh(2, device="cpu"), metrics_out=sharded)
+    TR.train(cfg, opt, data, tcfg, cpu_mesh(), metrics_out=one)
+    for a, b in zip(sharded, one):
+        assert abs(a["loss"] - b["loss"]) <= LOSS_RTOL * b["loss"]
 
 
 def test_state_lives_on_the_mesh_device_and_init_is_seeded():
@@ -183,10 +191,12 @@ def test_launch_train_asks_for_one_shard_on_a_host_of_several_cards(monkeypatch)
 
 
 def test_launch_train_refuses_what_the_port_does_not_run():
+    """Frontend archs and a missing card; ``--model-axis`` with ``--shards``
+    now trains on a data × model mesh of CPU shards."""
     with pytest.raises(SystemExit, match="frontend inputs"):
         LAUNCH.main(["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="model-axis"):
-        LAUNCH.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", "--model-axis", "2"])
+    LAUNCH.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", "--model-axis", "2",
+                 "--shards", "4", "--steps", "1", "--batch", "2", "--seq", "16"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LAUNCH.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
