@@ -221,7 +221,22 @@ Phases (any failure exits non-zero and prints no result line):
     full forward; decode ms/step beside phase 21's, MoE drops; (e) granite
     smoke on 8 data shards, a failure, a rebuild to 6 and a resume from
     the checkpoint, equal within rtol 1e-4 to an uninterrupted 6-shard run
-    from that checkpoint.
+    from that checkpoint;
+24. (run after 23, before the result lines of 18) the dry run and the
+    examples: (a) ``launch.dryrun.dryrun_config`` on fake tensors of the
+    cells phases 21-23 measured (granite-3-2b decode at B=4 with a
+    1,568-row cache and its train step at B=4 x S=1536 on one device, the
+    same train step on data 2 x model 4 distinct ``meta`` devices, one
+    jamba period's EP decode on data 1 x model 4), each predicted term
+    printed beside the phase's measured ms and peak; the predicted peak at
+    most the measured one, ``torch.cuda.memory_allocated()`` the same
+    before and after, the constants ``PEAKS["H100"]``'s and ``HBM_BYTES``
+    at most the card's memory; (b) ``python -m repro_torch.launch.dryrun``
+    for granite-3-2b and jamba-v0.1-52b at ``decode_32k`` on the 16 x 16
+    mesh, started in the background after the build and each exiting 0;
+    (c) the three examples on the card at their defaults (``train_lm`` at
+    ``--steps 20``), side by side: ``quickstart``'s CSR-k product within
+    1e-4 of plain CSR.
 """
 from __future__ import annotations
 
@@ -3101,11 +3116,13 @@ def sharded_jamba_ep(phase21: dict) -> dict:
     t0 = time.perf_counter()
     free_cuda()
     toks, ref = phase21["tokens"].cuda(), phase21["logits"]           # [B, G+1], [B, G+1, V]
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
         seq = torch.cat([prompts, toks[:, :-1]], dim=1)                 # P + G tokens
         with EPDrops(MOE, ep=True) as drops16:
             ep16, t_dec = ep_forced(cfg, params, prompts, seq, mesh)
+    peak16 = torch.cuda.max_memory_allocated()
     ep16 = ep16.float().cpu()
     tol = LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()
     top2 = ref.topk(2, dim=-1).values
@@ -3145,7 +3162,8 @@ def sharded_jamba_ep(phase21: dict) -> dict:
         f"one-device {phase21['decode_ms']:.3f} ms/step; {time.perf_counter() - t0:.1f} s")
     del params, prompts, full, ep32
     free_cuda()
-    return {"decode_ms": dec_ms, "over": over, "drops": drops16.total() + drops32.total()}
+    return {"decode_ms": dec_ms, "over": over, "drops": drops16.total() + drops32.total(),
+            "peak": peak16}
 
 
 def sharded_restart_check(dev: str = "cuda") -> dict:
@@ -3220,6 +3238,152 @@ def sharded_phase(mem_rate: float, bf16_rate: float, lm_rows: list, train_rows: 
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the dry run and the examples
+# ---------------------------------------------------------------------------
+
+#: Phase 24(b): the dry-run CLI's cells on the 16 x 16 production mesh, run in
+#: the background from the build on; (c): the examples and their arguments.
+DRY_CLI = (("granite-3-2b", "decode_32k"), ("jamba-v0.1-52b", "decode_32k"))
+EXAMPLES = (("quickstart", ()), ("serve_lm", ()), ("train_lm", ("--steps", "20")))
+
+
+def start_modules(mods) -> list:
+    """``python -m repro_torch.launch.<name> <args>`` for each (name, args),
+    started side by side from the repo's root; killed at exit if still
+    running."""
+    import atexit
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for name, args in mods:
+        p = subprocess.Popen([sys.executable, "-m", f"repro_torch.launch.{name}", *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             env=env, cwd=str(ROOT))
+        procs.append((name, args, time.perf_counter(), p))
+        atexit.register(lambda p=p: p.poll() is None and p.kill())
+    return procs
+
+
+def finish_modules(procs, timeout: float) -> dict:
+    """{name: (exit code, output, seconds from its start until it was
+    joined here)} of ``start_modules``'s processes, each given until
+    ``timeout`` s from now."""
+    out = {}
+    deadline = time.perf_counter() + timeout
+    for name, args, t0, p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+            raise AssertionError(f"{name} {' '.join(args)} still running after its time")
+        out[" ".join((name,) + tuple(args))] = (p.returncode, text, time.perf_counter() - t0)
+    return out
+
+
+def dry_cells(lm_rows: list, train_rows: list, sharded: dict) -> list:
+    """(label, config, shape, mesh shape, measured ms, measured peak bytes) of
+    the cells phases 21-23 measured."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import ShapeConfig
+
+    granite = get_config("granite-3-2b")
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), layers=dict(LM_FULL)["jamba-v0.1-52b"])
+    arch, B, S, _ = TR_GRANITE
+    g21 = next(r for r in lm_rows if r["arch"] == "granite-3-2b")
+    g22 = next(r for r in train_rows if r["arch"] == arch)
+    decode = ShapeConfig("phase21_decode", LM_P + LM_G, LM_B, "decode")
+    train = ShapeConfig("phase22_train", S, B, "train")
+    return [
+        ("granite-3-2b decode (phase 21, run 2)", granite, decode, (1, 1), g21["decode_ms"],
+         g21["peak_bytes"]),
+        ("granite-3-2b train step (phase 22(b))", granite, train, (1, 1), g22["step_ms"],
+         g22["peak"]),
+        ("granite-3-2b train step, data 2 x model 4 (phase 23(b))", granite, train,
+         (SH_DATA, SH_MODEL), sharded["granite"]["step_ms"], sharded["granite"]["peak"]),
+        ("jamba-v0.1-52b period, EP decode on data 1 x model 4 (phase 23(d))", jamba, decode,
+         (1, SH_EP_MODEL), sharded["jamba_ep"]["decode_ms"], sharded["jamba_ep"]["peak"]),
+    ]
+
+
+def dryrun_phase(lm_rows: list, train_rows: list, sharded: dict, dry_cli: list) -> dict:
+    """Phase 24: the dry run's predictions beside phases 21-23's measurements,
+    the dry-run CLI, and the three examples on the card."""
+    import torch
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_meta_mesh
+
+    t_phase = time.perf_counter()
+    examples = start_modules(EXAMPLES)
+    mem_rate, _, bf16_rate = PEAKS["H100"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    if (DR.HBM_BW, DR.PEAK_FLOPS) != (mem_rate, bf16_rate) or not DR.HBM_BYTES <= total:
+        raise AssertionError(f"dry-run constants {DR.HBM_BW}, {DR.PEAK_FLOPS}, {DR.HBM_BYTES} "
+                             f"against PEAKS['H100'] {mem_rate}, {bf16_rate} and the card's "
+                             f"{total} bytes")
+    log(f"[dryrun] constants: HBM_BW {DR.HBM_BW:.3e} B/s and PEAK_FLOPS {DR.PEAK_FLOPS:.3e} "
+        f"FLOP/s (= PEAKS['H100']), LINK_BW {DR.LINK_BW:.3e} B/s, HBM_BYTES {DR.HBM_BYTES:.3e} "
+        f"<= total_memory {total}")
+    rows = []
+    before = torch.cuda.memory_allocated()
+    for label, cfg, shape, mshape, ms, peak in dry_cells(lm_rows, train_rows, sharded):
+        t0 = time.perf_counter()
+        r = DR.dryrun_config(cfg, shape, make_meta_mesh(mshape, ("data", "model")))
+        t = {k: v * 1e3 for k, v in r["terms"].items()}
+        bound = max(t.values())
+        c = r["collective_bytes"]
+        log(f"[dryrun] {label}: B={shape.global_batch} S={shape.seq_len} on "
+            f"{r['mesh']} meta devices; predicted compute {t['compute_s']:.3f} ms, memory "
+            f"{t['memory_s']:.3f} ms, collective {t['collective_s']:.3f} ms (dominant "
+            f"{r['dominant']}); {r['flops_per_device']:.4e} FLOP, "
+            f"{r['hbm_bytes_per_device']:.4e} B (unfused), collective {c['total']} B "
+            + str({k: v for k, v in c.items() if v and k != "total"})
+            + f" a device; measured {ms:.3f} ms = x{ms / bound:.2f} the largest term; peak "
+            f"{r['peak_hbm_per_device'] / 2**30:.3f} GiB predicted a device, {peak / 2**30:.3f} "
+            f"GiB measured on the card; fake run {r['lower_s'] + r['compile_s']:.1f} s "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not r["peak_hbm_per_device"] <= peak:
+            raise AssertionError(f"[dryrun] {label}: predicted peak {r['peak_hbm_per_device']} "
+                                 f"above the measured {peak}")
+        rows.append(dict(r, label=label, measured_ms=ms, measured_peak=peak))
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"[dryrun] memory_allocated {before} before the dry run, {after} "
+                             f"after")
+    log(f"[dryrun] torch.cuda.memory_allocated() {before} before the dry runs and after")
+
+    for cmd, (rc, text, secs) in finish_modules(dry_cli, 300).items():
+        for line in text.strip().splitlines():
+            log(f"[dryrun/cli] {line}")
+        if rc != 0 or "[OK]" not in text or "1 cells compiled, 0 failures" not in text:
+            raise AssertionError(f"python -m repro_torch.launch.{cmd} exited {rc}")
+        log(f"[dryrun/cli] python -m repro_torch.launch.{cmd}: exit 0, done within {secs:.1f} s "
+            f"of its start after the build")
+
+    for cmd, (rc, text, secs) in finish_modules(examples, 300).items():
+        for line in text.strip().splitlines():
+            log(f"[examples] {line}")
+        if rc != 0 or "cuda" not in text:
+            raise AssertionError(f"python -m repro_torch.launch.{cmd} exited {rc} or ran off the "
+                                 f"card")
+        if cmd.startswith("quickstart"):
+            err = float(text.split("max |CSR-k − CSR| = ")[1].split()[0])
+            if not err < 1e-4:
+                raise AssertionError(f"quickstart: max |CSR-k - CSR| {err} over 1e-4")
+        if cmd.startswith("train_lm"):
+            first, last = (float(v) for v in
+                           text.split("loss: ")[1].split(" on ")[0].split(" → "))
+            if not (np.isfinite(first) and np.isfinite(last)):
+                raise AssertionError(f"train_lm losses {first}, {last}")
+        log(f"[examples] python -m repro_torch.launch.{cmd} on the card: exit 0, done within "
+            f"{secs:.1f} s of its start")
+    log(f"[dryrun] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": rows}
+
+
 def main() -> int:
     import torch
 
@@ -3239,8 +3403,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
-    # 1. build
+    # 1. build; then phase 24(b)'s dry-run CLIs, on the host, in the background
     build_all(("spmv_csrk", "spmv_sellcs", "spmv_segsum", "spmv_diahybrid", "spmv_ell"))
+    dry_cli = start_modules(("dryrun", ("--arch", arch, "--shape", shape))
+                            for arch, shape in DRY_CLI)
 
     # 2. card
     card = card_line()
@@ -3408,7 +3574,11 @@ def main() -> int:
 
     # 23. the sharded LM path
     free_cuda()
-    sharded_phase(mem_rate, bf16_rate, lm_rows, train_rows)
+    sharded = sharded_phase(mem_rate, bf16_rate, lm_rows, train_rows)
+
+    # 24. the dry run and the examples
+    free_cuda()
+    dryrun_phase(lm_rows, train_rows, sharded, dry_cli)
 
     # 18. result lines
     kernels = {"kernels": [kernel_entry(

@@ -8,8 +8,9 @@ axes.  The SpMV layer shards rows along a one-axis ``("data",)`` mesh; the
 LM tree shards over ``("data", "model")`` (``("pod", "data", "model")``
 where a pod axis is asked for).  Several shards may share a device: with D
 shards on one card, every shard runs there and the reference's collectives
-are copies between buffers of that card.  ``make_production_mesh`` (the
-256- and 512-chip TPU meshes of the dry run) is not ported.
+are copies between buffers of that card.  ``make_production_mesh`` gives the
+dry run's 256- and 512-device meshes, whose shards are distinct indexed
+``meta`` devices: they hold fake tensors only (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -128,6 +129,25 @@ def make_host_mesh(num_shards: int | None = None, device="cuda", *,
     data = n // model
     return ShardMesh(tuple(visible[d % len(visible)] for d in range(data * model)),
                      ("data", "model"), (data, model))
+
+
+def make_meta_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> ShardMesh:
+    """A mesh of ``shape`` over ``axes`` whose shard i is ``torch.device("meta",
+    i)``: distinct devices that no tensor memory backs.  Only for use under
+    ``FakeTensorMode``, which checks that an op's tensors share a device
+    (plain ``meta`` tensors do not)."""
+    n = math.prod(shape)
+    return ShardMesh(tuple(torch.device("meta", i) for i in range(n)), tuple(axes), tuple(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShardMesh:
+    """16 × 16 single-pod (256 devices, ``("data", "model")``) or 2 × 16 × 16
+    multi-pod (512, ``("pod", "data", "model")``), the reference's shapes,
+    on :func:`make_meta_mesh`'s devices: only for use under
+    ``FakeTensorMode`` (the dry run)."""
+    if multi_pod:
+        return make_meta_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_meta_mesh((16, 16), ("data", "model"))
 
 
 def batch_axes(mesh: ShardMesh) -> Tuple[str, ...]:

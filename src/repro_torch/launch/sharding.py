@@ -200,6 +200,13 @@ def cache_spec(path: Tuple, leaf: Any, mesh, batch: int) -> PartitionSpec:
     return sanitize_spec(shape, tuple(spec), mesh)
 
 
+def cache_shardings(cache: Any, mesh, batch: int) -> Any:
+    """The :class:`NamedSharding` of every leaf of a decode cache
+    (``init_cache``'s per-layer entries) by :func:`cache_spec`."""
+    return _map_with_path(lambda path, leaf: NamedSharding(mesh, cache_spec(path, leaf, mesh, batch)),
+                          cache)
+
+
 def batch_sharding(mesh) -> NamedSharding:
     dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
     return NamedSharding(mesh, PartitionSpec(dp if len(dp) > 1 else dp[0]))

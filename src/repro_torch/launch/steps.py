@@ -8,25 +8,30 @@ device their inputs live on.  With a mesh of several shards the gradients
 are those of ``launch/sharded.py`` (params and moments stored as pieces,
 each data shard's rows on its device), and the microbatch loop, the
 compression and the update are the same code as on one device; with any
-mesh the forward runs expert-parallel MoE where the reference does.  The
-abstract input specs of the reference's dry run (``abstract_params``,
-``abstract_opt_state``, ``abstract_cache``, ``input_specs``) come with the
-port of the dry run.
+mesh the forward runs expert-parallel MoE where the reference does.
+
+The abstract input specs of the dry run (``abstract_params``,
+``abstract_opt_state``, ``abstract_cache``, ``input_specs``) are the port's
+own initialisers run inside a ``FakeTensorMode`` that the caller enters:
+the reference's ``jax.eval_shape`` stand-ins, with no memory behind them.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.launch import sharded as SHD
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import ShardMesh, dp_size
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.frontends import vlm_prepend
+from repro_torch.models.layers import param_dtype
 from repro_torch.optim import adamw
-from repro_torch.util.sharded import Sharded, pieces_of, zeros_f32
+from repro_torch.util.sharded import PartitionSpec, Sharded, pieces_of, zeros_f32
 from repro_torch.util.tree import leaf_paths, leaves, tree_map
 
 
@@ -227,3 +232,110 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         return logits, new_cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract input specs (fake tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _require_fake_mode():
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+        raise RuntimeError("abstract specs are built inside a FakeTensorMode the caller "
+                           "enters (torch._subclasses.fake_tensor.FakeTensorMode)")
+
+
+def abstract_params(cfg: ModelConfig) -> Any:
+    """The port's ``init_params`` under the caller's ``FakeTensorMode``: fake
+    CPU tensors of the parameters' shapes and dtypes, drawn from a CPU
+    generator."""
+    _require_fake_mode()
+    init = ED.init_params if cfg.is_encdec else TF.init_params
+    return init(torch.Generator().manual_seed(0), cfg)
+
+
+def abstract_opt_state(cfg: ModelConfig) -> adamw.AdamWState:
+    """``adamw.init`` of :func:`abstract_params` (fake, as it)."""
+    return adamw.init(abstract_params(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> List:
+    """The port's ``init_cache`` under the caller's ``FakeTensorMode``, on
+    ``device`` (default the CPU)."""
+    _require_fake_mode()
+    init = ED.init_cache if cfg.is_encdec else TF.init_cache
+    return init(cfg, batch, max_len, device=device)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, *,
+                zero_threshold: Optional[float] = None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(args, shardings) for the step of this shape cell, built under the
+    caller's ``FakeTensorMode`` on ``mesh``'s devices.
+
+    The keys are the reference's: train {params, opt_state, tokens, labels,
+    [extra]}, prefill {params, tokens, [extra]}, decode {params, cache,
+    tokens, cache_index, [extra]}.  ``shardings`` holds the
+    :class:`~repro_torch.launch.sharding.NamedSharding` of each leaf by the
+    rules of ``launch/sharding.py``, the batch replicated where B does not
+    divide over the data axes.  ``args`` are placed as the port's steps take
+    them: in training on a mesh of several shards, params and moments as
+    ``Sharded`` pieces in those specs and the batch as ``Sharded`` rows of
+    its data shards where B divides (else whole on the first shard); in
+    serving (and on one shard) every tensor whole on ``mesh.devices[0]``.
+    ``cache_index`` is a Python int (the steps read it on the host).
+
+    In training on a mesh with a ``pod`` axis, where the state per device
+    would pass ``zero_threshold`` bytes (default 14/16 of
+    ``dryrun.HBM_BYTES``, the reference's 14 GiB share of a 16 GiB chip),
+    the FSDP axis grows to pod × data (the reference's auto-ZeRO
+    escalation)."""
+    B, S = shape.global_batch, shape.seq_len
+    dev0 = mesh.devices[0]
+    repl = SH.NamedSharding(mesh, PartitionSpec())
+    b_ok = B % dp_size(mesh) == 0
+    dp = SH.batch_sharding(mesh) if b_ok else repl
+    train = shape.kind == "train"
+
+    params = abstract_params(cfg)
+    p_shard = SH.params_shardings(params, mesh)
+    if train and "pod" in mesh.axis_names:
+        if zero_threshold is None:
+            from repro_torch.launch.dryrun import HBM_BYTES
+            zero_threshold = 14 / 16 * HBM_BYTES
+        if SH.state_bytes_per_device(params, p_shard, mesh) > zero_threshold:
+            p_shard = SH.params_shardings(params, mesh, fsdp_over_pod=True)
+
+    pieces = train and mesh.size > 1
+    if pieces:
+        params = SHD.shard_tree(params, mesh, tree_map(lambda sh: sh.spec, p_shard))
+    else:
+        params = tree_map(lambda t: t.to(dev0), params)
+
+    def batch(shp, dtype):
+        t = torch.zeros(shp, dtype=dtype)
+        if pieces and b_ok:
+            return Sharded.from_full(t, mesh, dp.spec)
+        return t.to(dev0)
+
+    tok = torch.int32
+    has_extra = cfg.is_encdec or (cfg.frontend == "vit" and not shape.is_decode)
+    if train:
+        args = {"params": params, "opt_state": adamw.init(params),
+                "tokens": batch((B, S), tok), "labels": batch((B, S), tok)}
+        shardings = {"params": p_shard,
+                     "opt_state": adamw.AdamWState(step=repl, mu=p_shard, nu=p_shard),
+                     "tokens": dp, "labels": dp}
+    elif shape.kind == "prefill":
+        args = {"params": params, "tokens": batch((B, S), tok)}
+        shardings = {"params": p_shard, "tokens": dp}
+    else:
+        # decode / long_decode: one token per sequence, a cache of length S
+        cache = abstract_cache(cfg, B, S, device=dev0)
+        args = {"params": params, "cache": cache, "tokens": batch((B, 1), tok),
+                "cache_index": S - 1}
+        shardings = {"params": p_shard, "cache": SH.cache_shardings(cache, mesh, B),
+                     "tokens": dp, "cache_index": repl}
+    if has_extra:
+        args["extra"] = batch((B, cfg.frontend_seq, cfg.d_model), param_dtype(cfg.dtype))
+        shardings["extra"] = dp
+    return args, shardings

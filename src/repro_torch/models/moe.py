@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, normal
+from repro_torch.util.costs import move
 
 Params = Dict[str, Any]
 
@@ -232,7 +233,10 @@ def moe_apply_ep(
     (d, m) against piece m, with the capacity from the data shard's own
     tokens; the partial outputs are summed over m in shard order (the
     reference's psum) on ``x``'s device, and the per-shard aux is averaged
-    over the data shards (its pmean).  Returns (output, aux)."""
+    over the data shards (its pmean).  A cost counter files the moves of
+    the rows, the router and the pieces under all-to-all and those of the
+    partial outputs under all-reduce (``util.costs.move``).  Returns
+    (output, aux)."""
     E = num_experts
     ep = mesh.shape[model_axis]
     if E % ep != 0:
@@ -251,15 +255,16 @@ def moe_apply_ep(
         y_d = aux_d = None
         for m in range(ep):
             dev = mesh.device_at(**coords, **{model_axis: m})
+            a2a = lambda t: move(t, dev, "all-to-all")
             y, aux = _ep_body(
-                params["router"].to(dev), pieces["w_in"][m].to(dev),
-                pieces["w_gate"][m].to(dev), pieces["w_out"][m].to(dev), xf.to(dev),
+                a2a(params["router"]), a2a(pieces["w_in"][m]), a2a(pieces["w_gate"][m]),
+                a2a(pieces["w_out"][m]), a2a(xf),
                 E=E, E_loc=E_loc, e_start=m * E_loc, top_k=top_k,
                 capacity_factor=capacity_factor, slot_loop=slot_loop)
-            y = y.to(x.device)
+            y = move(y, x.device, "all-reduce")
             y_d = y if y_d is None else y_d + y              # psum over model, in order
             if aux_d is None:                                 # equal on every model shard
-                aux_d = aux.to(x.device)
+                aux_d = move(aux, x.device, "all-reduce")
         ys.append(y_d.reshape(Bl, T, D))
         auxes.append(aux_d)
     aux = auxes[0]

@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.util.costs import move
 from repro_torch.util.tree import leaves, tree_map
 
 
@@ -115,8 +116,11 @@ class Sharded:
 
     def _gather(self, blocks, device) -> torch.Tensor:
         """The pieces of ``blocks`` (a box of the grid) concatenated on
-        ``device``, one dimension at a time from the last."""
-        parts = {b: p.to(device) for b, p in zip(self.blocks(), self.pieces) if b in blocks}
+        ``device``, one dimension at a time from the last.  The moves are
+        an all-gather, and their gradients' way back a reduce-scatter
+        (``util.costs.move``)."""
+        parts = {b: move(p, device, "all-gather", "reduce-scatter")
+                 for b, p in zip(self.blocks(), self.pieces) if b in blocks}
         for dim in reversed(range(len(self.grid))):
             if self.grid[dim] > 1:
                 runs: Dict[tuple, list] = {}
@@ -131,7 +135,7 @@ class Sharded:
         mesh's first shard); differentiable with respect to the pieces."""
         device = self.device if device is None else device
         if len(self.pieces) == 1:
-            return self.pieces[0].to(device)
+            return move(self.pieces[0], device, "all-gather", "reduce-scatter")
         return self._gather(set(self.blocks()), device)
 
     def model_pieces(self, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:

@@ -1219,3 +1219,35 @@ def test_sharded_restart_on_card(cuda):
     from that checkpoint (``chip_smoke.sharded_restart_check``)."""
     out = _chip_smoke().sharded_restart_check("cuda")
     assert max(out["gaps"]) <= 1e-4
+
+
+def test_examples_on_card(cuda, capsys):
+    """The three examples at small sizes on the card: quickstart's CSR-k
+    product within 1e-4 of plain CSR through the CUDA kernel."""
+    from repro_torch.launch import quickstart, serve_lm, train_lm
+
+    launches = spmv_csrk_tiles.launches
+    assert quickstart.main(["--grid", "32"]) == 0
+    out = capsys.readouterr().out
+    assert float(out.split("max |CSR-k − CSR| = ")[1].split()[0]) < 1e-4 and "on cuda" in out
+    assert spmv_csrk_tiles.launches > launches
+    assert serve_lm.main(["--batch", "2", "--prompt-len", "16", "--gen", "4"]) == 0
+    assert train_lm.main(["--steps", "3", "--layers", "2", "--d-model", "96", "--vocab", "512",
+                          "--batch", "4", "--seq", "32"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("on cuda") == 2
+
+
+def test_dry_run_leaves_card_memory_alone(cuda):
+    """A fake run of a smoke train step on a 2 × 4 ``meta`` mesh allocates
+    nothing on the card."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_meta_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    before = torch.cuda.memory_allocated()
+    r = DR.dryrun_config(get_smoke_config("jamba-v0.1-52b"), ShapeConfig("t", 32, 4, "train"),
+                         make_meta_mesh((2, 4), ("data", "model")))
+    assert r["collective_bytes"]["all-gather"] > 0
+    assert torch.cuda.memory_allocated() == before
