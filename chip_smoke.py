@@ -214,20 +214,27 @@ Phases (any failure exits non-zero and prints no result line):
     shard beside ``state_bytes_per_device``; (c) the same at f32, 2
     layers, the sharded step against the one-device step (gradients and
     updated leaves as in (a)); (d) one jamba period with expert
-    parallelism on data 1 x model 4, phase 21's prompts, teacher-forced
-    with phase 21's one-device tokens: at bf16 the argmax equals the next
-    token wherever phase 21's top-2 margin exceeds 2 (2e-3 + 2e-3 |logit|),
-    at f32 every position within 2e-3 + 2e-3 |logit| of the one-device
-    full forward; decode ms/step beside phase 21's, MoE drops; (e) granite
+    parallelism on data 1 x model 4, params, cache and token rows in
+    pieces (the expert leaves kept as their model pieces), phase 21's
+    prompts, teacher-forced with phase 21's one-device tokens: at bf16 the
+    argmax equals the next token wherever phase 21's top-2 margin exceeds
+    2 (2e-3 + 2e-3 |logit|), at f32 every position within 2e-3 + 2e-3
+    |logit| of the one-device full forward; the state bytes of each shard
+    equal to the dry run's ``state_bytes_per_device`` for the same
+    placement; decode ms/step beside phase 21's, MoE drops; (e) granite
     smoke on 8 data shards, a failure, a rebuild to 6 and a resume from
     the checkpoint, equal within rtol 1e-4 to an uninterrupted 6-shard run
-    from that checkpoint;
+    from that checkpoint; (f) granite-3-2b greedy serving at full width
+    on data 2 x model 4, params, cache and token rows in pieces, with
+    (d)'s bars against phase 21's granite run, its state bytes per shard
+    equal to the dry run's, decode ms/step and the peak beside phase 21's;
 24. (run after 23, before the result lines of 18) the dry run and the
     examples: (a) ``launch.dryrun.dryrun_config`` on fake tensors of the
     cells phases 21-23 measured (granite-3-2b decode at B=4 with a
     1,568-row cache and its train step at B=4 x S=1536 on one device, the
     same train step on data 2 x model 4 distinct ``meta`` devices, one
-    jamba period's EP decode on data 1 x model 4), each predicted term
+    jamba period's EP decode on data 1 x model 4, granite's decode on data
+    2 x model 4), each predicted term
     printed beside the phase's measured ms and peak; the predicted peak at
     most the measured one, ``torch.cuda.memory_allocated()`` the same
     before and after, the constants ``PEAKS["H100"]``'s and ``HBM_BYTES``
@@ -3068,102 +3075,221 @@ class EPDrops:
         return sum(int(v) for v in self.dropped)
 
 
-def ep_forced(cfg, params, prompts, seq, mesh):
-    """Logits [B, G+1, V] of a prefill of ``prompts`` into the cache, then
-    one decode step per token of ``seq`` after the prompt (teacher forcing),
-    through ``make_decode_step(cfg, mesh)``, and the host seconds of the
-    decode steps."""
+def map_leaves_(tree, fn, path=()):
+    """Replace each leaf of a dict/list tree by ``fn(path, leaf)`` in place,
+    leaf by leaf, releasing each old leaf's memory to the device as it goes
+    (two full copies of a full-width model do not fit beside each other);
+    returns the tree."""
     import torch
 
+    for k in list(tree.keys()) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[k], (dict, list)):
+            map_leaves_(tree[k], fn, path + (k,))
+        else:
+            big = tree[k].numel() * tree[k].element_size() >= 1 << 26
+            tree[k] = fn(path + (k,), tree[k])
+            if big:
+                torch.cuda.empty_cache()
+    return tree
+
+
+def to_pieces_(params, mesh):
+    """Whole params cut into ``Sharded`` pieces by ``param_spec``, leaf by leaf."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.util.sharded import Sharded
+
+    return map_leaves_(params, lambda path, t: Sharded.from_full(
+        t, mesh, SH.param_spec(path, t, mesh)))
+
+
+def batch_rows(t, mesh):
+    """A batch as the serve steps take it on ``mesh``: ``Sharded`` rows of the
+    data shards where B divides over them, else whole."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import dp_size
+    from repro_torch.util.sharded import Sharded
+
+    if t.shape[0] % dp_size(mesh):
+        return t
+    return Sharded.from_full(t, mesh, SH.batch_sharding(mesh).spec)
+
+
+def sharded_forced(cfg, sp, prompts, seq, mesh):
+    """Logits [B, G+1, V] of a prefill of ``prompts`` into a cache in pieces
+    (cut by ``cache_spec``), then one decode step per token of ``seq`` after
+    the prompt (teacher forcing), all through ``make_decode_step(cfg,
+    mesh)`` on ``Sharded`` params ``sp``, cache and token rows; the cache,
+    and the host seconds of the decode steps."""
+    import torch
+
+    from repro_torch.launch import sharded as SHD
+    from repro_torch.launch import sharding as SH
     from repro_torch.launch import steps as STEPS
     from repro_torch.models import transformer as TF
 
     B, P = prompts.shape
     G = seq.shape[1] - P
     cache = TF.init_cache(cfg, B, P + G, device=prompts.device)
-    logits, cache, _ = TF.forward(params, prompts, cfg, cache=cache, cache_index=0, mesh=mesh)
+    cache = SHD.shard_tree(cache, mesh, SH.cache_pspecs(cache, mesh, B))
+    step = STEPS.make_decode_step(cfg, mesh)
+    logits, cache = step(sp, cache, batch_rows(prompts, mesh), 0)
     outs = [logits[:, -1]]
     del logits
-    step = STEPS.make_decode_step(cfg, mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(G):
-        logits, cache = step(params, cache, seq[:, P + i:P + i + 1], P + i)
+        logits, cache = step(sp, cache, batch_rows(seq[:, P + i:P + i + 1], mesh), P + i)
         outs.append(logits[:, 0])
     torch.cuda.synchronize()
-    return torch.stack(outs, 1)[..., :cfg.vocab], time.perf_counter() - t0
+    return torch.stack(outs, 1)[..., :cfg.vocab], cache, time.perf_counter() - t0
+
+
+def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
+    """Phase 23(d) and (f): ``cfg``'s state in pieces on ``mesh``, from phase
+    21's seed and prompts: at bf16 teacher-forced with phase 21's
+    one-device tokens (argmax = the next token where phase 21's top-2
+    margin exceeds twice the f32 bound, at one position at least); the
+    state bytes of each shard equal to the dry run's
+    ``state_bytes_per_device`` for the same placement (on distinct ``meta``
+    devices); at f32 every position within 2e-3 + 2e-3 |logit| of the
+    one-device f32 full forward (its weights the pieces made whole, which
+    are the one-device weights bit for bit).  ``drops``: an ``EPDrops``
+    factory, for MoE."""
+    import contextlib
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_meta_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import ShapeConfig
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    counted = drops or (lambda ep: contextlib.nullcontext())
+    toks, ref = phase21["tokens"].cuda(), phase21["logits"]           # [B, G+1], [B, G+1, V]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
+        sp = to_pieces_(params, mesh)
+        seq = torch.cat([prompts, toks[:, :-1]], dim=1)                 # P + G tokens
+        with counted(True) as drops16:
+            out16, cache, t_dec = sharded_forced(cfg, sp, prompts, seq, mesh)
+    peak16 = torch.cuda.max_memory_allocated()
+    out16 = out16.float().cpu()
+    tol = LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()
+    top2 = ref.topk(2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1]) > 2 * tol.amax(-1)
+    agree = out16.argmax(-1) == toks.cpu()
+    if not int(checked.sum()) or bool((checked & ~agree).any()):
+        raise AssertionError(f"{tag} bf16: argmax differs from the one-device token at "
+                             f"{int((checked & ~agree).sum())} of {int(checked.sum())} positions "
+                             f"whose one-device top-2 margin exceeds twice the bound")
+    S = LM_P + LM_G
+    rows = batch_rows(torch.zeros(LM_B, 1, dtype=torch.int32, device=mesh.devices[0]), mesh)
+    state = DR.state_bytes_per_device({"params": sp, "cache": cache, "tokens": rows,
+                                       "cache_index": S - 1}, "decode", mesh)
+    meta = make_meta_mesh(tuple(mesh.shape.values()), mesh.axis_names)
+    with FakeTensorMode():
+        fake, _ = STEPS.input_specs(cfg, ShapeConfig("forced_decode", S, LM_B, "decode"), meta)
+        want = DR.state_bytes_per_device(fake, "decode", meta)
+    if state != want:
+        raise AssertionError(f"{tag} state bytes per shard {state} against the dry run's {want}")
+    del cache, rows
+    # f32: the one-device full forward on the pieces made whole, then the
+    # steps on the same weights in pieces (the tree is converted in place)
+    whole = map_leaves_(sp, lambda _, s: s.full().float())
+    with torch.inference_mode():
+        with counted(False) as drops_full:
+            full = TF.forward(whole, seq, cfg32)[0][:, LM_P - 1:, :cfg.vocab]
+        sp32 = to_pieces_(whole, mesh)
+        free_cuda()
+        with counted(True) as drops32:
+            out32, _, _ = sharded_forced(cfg32, sp32, prompts, seq, mesh)
+    tol32 = LM_DECODE_TOL + LM_DECODE_TOL * full.abs()
+    gap32 = (out32 - full).abs()
+    over = float((gap32 / tol32).max())
+    if out32.dtype != torch.float32 or over > 1.0:
+        raise AssertionError(f"{tag} f32: logits {float(gap32.max()):.3e} from the one-device "
+                             f"full forward, {over:.3f} of {LM_DECODE_TOL} + "
+                             f"{LM_DECODE_TOL}|logit|")
+    del sp32, full, out32
+    return {"decode_ms": t_dec * 1e3 / LM_G, "peak": peak16, "checked": int(checked.sum()),
+            "gap16": float((out16 - ref).abs().max()), "gap32": float(gap32.max()),
+            "over": over, "state": state,
+            "drops": {"bf16": drops16, "f32": drops32, "full": drops_full}}
 
 
 def sharded_jamba_ep(phase21: dict) -> dict:
-    """Phase 23(d): one jamba period at full width with its MoE layers
-    expert-parallel over data 1 x model 4 (4 experts a shard), from phase
-    21's seed and prompts: at bf16 teacher-forced with phase 21's one-device
-    tokens (argmax = the next token where phase 21's top-2 margin exceeds
-    twice the f32 bound); at f32 every position within 2e-3 + 2e-3 |logit|
-    of the one-device f32 full forward."""
-    import torch
-
+    """Phase 23(d): one jamba period at full width, its state in pieces on
+    data 1 x model 4, the MoE layers expert-parallel (4 experts a shard, the
+    expert leaves kept as their model pieces), from phase 21's seed and
+    prompts: the bars of ``forced_checks``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
 
     arch = "jamba-v0.1-52b"
-    layers = dict(LM_FULL)[arch]
-    cfg = dataclasses.replace(get_config(arch), layers=layers)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), layers=dict(LM_FULL)[arch])
     tag = f"[sharded/{arch} ep]"
     mesh = sharded_mesh("cuda", 1, SH_EP_MODEL)
     t0 = time.perf_counter()
     free_cuda()
-    toks, ref = phase21["tokens"].cuda(), phase21["logits"]           # [B, G+1], [B, G+1, V]
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
-        seq = torch.cat([prompts, toks[:, :-1]], dim=1)                 # P + G tokens
-        with EPDrops(MOE, ep=True) as drops16:
-            ep16, t_dec = ep_forced(cfg, params, prompts, seq, mesh)
-    peak16 = torch.cuda.max_memory_allocated()
-    ep16 = ep16.float().cpu()
-    tol = LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()
-    top2 = ref.topk(2, dim=-1).values
-    checked = (top2[..., 0] - top2[..., 1]) > 2 * tol.amax(-1)
-    agree = ep16.argmax(-1) == toks.cpu()
-    if not int(checked.sum()) or bool((checked & ~agree).any()):
-        raise AssertionError(f"{tag} bf16: argmax differs from the one-device token at "
-                             f"{int((checked & ~agree).sum())} of {int(checked.sum())} positions "
-                             f"whose one-device top-2 margin exceeds twice the bound")
-    dec_ms = t_dec * 1e3 / LM_G
-    gap16 = float((ep16 - ref).abs().max())
-    # f32: the same weights; the one-device full forward, then EP teacher-forced
-    upcast_(params)
-    with torch.inference_mode():
-        with EPDrops(MOE, ep=False) as drops_full:
-            full = TF.forward(params, seq, cfg32)[0][:, LM_P - 1:, :cfg.vocab]
-        free_cuda()
-        with EPDrops(MOE, ep=True) as drops32:
-            ep32, _ = ep_forced(cfg32, params, prompts, seq, mesh)
-    tol32 = LM_DECODE_TOL + LM_DECODE_TOL * full.abs()
-    gap32 = (ep32 - full).abs()
-    over = float((gap32 / tol32).max())
-    if ep32.dtype != torch.float32 or over > 1.0:
-        raise AssertionError(f"{tag} f32: EP logits {float(gap32.max()):.3e} from the one-device "
-                             f"full forward, {over:.3f} of {LM_DECODE_TOL} + "
-                             f"{LM_DECODE_TOL}|logit|")
+    r = forced_checks(tag, cfg, mesh, phase21, drops=lambda ep: EPDrops(MOE, ep=ep))
+    d = r["drops"]
     log(f"{tag} {TF.num_layers(cfg)} layers, {cfg.num_experts} experts over model "
-        f"{SH_EP_MODEL} (data 1); B={LM_B} P={LM_P} G={LM_G}: bf16 teacher-forced with phase "
-        f"21's tokens, argmax = the next one-device token at {int((checked & agree).sum())} of "
-        f"{int(checked.sum())} positions whose margin exceeds twice the bound ({checked.numel()} "
-        f"positions; max |EP - one device| {gap16:.3f}); f32 within {LM_DECODE_TOL} + "
+        f"{SH_EP_MODEL} (data 1), params and cache in pieces; B={LM_B} P={LM_P} G={LM_G}: bf16 "
+        f"teacher-forced with phase 21's tokens, argmax = the next one-device token at all "
+        f"{r['checked']} positions whose margin exceeds twice the bound ({LM_B * (LM_G + 1)} "
+        f"positions; max |EP - one device| {r['gap16']:.3f}); f32 within {LM_DECODE_TOL} + "
         f"{LM_DECODE_TOL}|logit| of the one-device full forward at every position (max |gap| "
-        f"{float(gap32.max()):.3e}, {over:.3f} of the bound); MoE drops: EP bf16 "
-        f"{drops16.total()}, EP f32 {drops32.total()}, one-device f32 forward "
-        f"{drops_full.total()}")
-    log(f"{tag} decode {dec_ms:.3f} ms/step with EP (bf16, teacher-forced) against phase 21's "
-        f"one-device {phase21['decode_ms']:.3f} ms/step; {time.perf_counter() - t0:.1f} s")
-    del params, prompts, full, ep32
+        f"{r['gap32']:.3e}, {r['over']:.3f} of the bound); MoE drops: EP bf16 "
+        f"{d['bf16'].total()}, EP f32 {d['f32'].total()}, one-device f32 forward "
+        f"{d['full'].total()}")
+    log(f"{tag} state bytes per shard " + ", ".join(str(v) for v in r["state"])
+        + " = the dry run's state_bytes_per_device on 1 x 4 meta devices")
+    log(f"{tag} decode {r['decode_ms']:.3f} ms/step with EP (bf16, teacher-forced) against phase "
+        f"21's one-device {phase21['decode_ms']:.3f} ms/step; peak {r['peak'] / 2**30:.2f} GiB "
+        f"allocated; {time.perf_counter() - t0:.1f} s")
     free_cuda()
-    return {"decode_ms": dec_ms, "over": over, "drops": drops16.total() + drops32.total(),
-            "peak": peak16}
+    return {"decode_ms": r["decode_ms"], "over": r["over"],
+            "drops": d["bf16"].total() + d["f32"].total(), "peak": r["peak"]}
+
+
+def sharded_granite_serve(phase21: dict) -> dict:
+    """Phase 23(f): granite-3-2b greedy serving at full width (40 layers),
+    params, cache and token rows in pieces on data 2 x model 4 shards of
+    the card, from phase 21's seed and prompts: the bars of
+    ``forced_checks``, and the state bytes of each shard equal to the dry
+    run's ``state_bytes_per_device`` for the same placement."""
+    from repro_torch.configs.registry import get_config
+
+    arch = "granite-3-2b"
+    cfg = get_config(arch)
+    tag = f"[sharded/{arch} serve]"
+    mesh = sharded_mesh("cuda")
+    t0 = time.perf_counter()
+    free_cuda()
+    r = forced_checks(tag, cfg, mesh, phase21)
+    card = r["state"]
+    log(f"{tag} {cfg.layers} layers, d_model {cfg.d_model}, params, cache ({LM_P + LM_G} positions) and "
+        f"token rows in pieces on data {SH_DATA} x model {SH_MODEL} (one card); B={LM_B} P={LM_P} "
+        f"G={LM_G}: bf16 teacher-forced with phase 21's tokens, argmax = the next one-device "
+        f"token at all {r['checked']} positions whose margin exceeds twice the bound "
+        f"({LM_B * (LM_G + 1)} positions; max |sharded - one device| {r['gap16']:.3f}); f32 "
+        f"within {LM_DECODE_TOL} + {LM_DECODE_TOL}|logit| of the one-device full forward at "
+        f"every position (max |gap| {r['gap32']:.3e}, {r['over']:.3f} of the bound)")
+    log(f"{tag} state bytes per shard " + ", ".join(str(v) for v in card)
+        + f" = the dry run's state_bytes_per_device on {SH_DATA} x {SH_MODEL} meta devices "
+        f"(max {max(card) / 2**30:.3f} GiB, shard 0; {sum(card) / 2**30:.3f} GiB in all)")
+    log(f"{tag} decode {r['decode_ms']:.3f} ms/step (bf16, teacher-forced, 2 units of "
+        f"{LM_B // SH_DATA} rows, each layer gathered per unit) against phase 21's one-device "
+        f"{phase21['decode_ms']:.3f} ms/step; peak {r['peak'] / 2**30:.2f} GiB allocated (phase "
+        f"21 run 2: {phase21['peak_bytes'] / 2**30:.2f} GiB); {time.perf_counter() - t0:.1f} s")
+    free_cuda()
+    return {"decode_ms": r["decode_ms"], "over": r["over"], "peak": r["peak"],
+            "state": card}
 
 
 def sharded_restart_check(dev: str = "cuda") -> dict:
@@ -3234,6 +3360,8 @@ def sharded_phase(mem_rate: float, bf16_rate: float, lm_rows: list, train_rows: 
     out["granite_f32"] = sharded_granite_f32()
     out["jamba_ep"] = sharded_jamba_ep(next(r for r in lm_rows if r["arch"] == "jamba-v0.1-52b"))
     out["restart"] = sharded_restart_check()
+    out["granite_serve"] = sharded_granite_serve(
+        next(r for r in lm_rows if r["arch"] == "granite-3-2b"))
     log(f"[sharded] phase done in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3305,6 +3433,9 @@ def dry_cells(lm_rows: list, train_rows: list, sharded: dict) -> list:
          (SH_DATA, SH_MODEL), sharded["granite"]["step_ms"], sharded["granite"]["peak"]),
         ("jamba-v0.1-52b period, EP decode on data 1 x model 4 (phase 23(d))", jamba, decode,
          (1, SH_EP_MODEL), sharded["jamba_ep"]["decode_ms"], sharded["jamba_ep"]["peak"]),
+        ("granite-3-2b decode, data 2 x model 4 (phase 23(f))", granite, decode,
+         (SH_DATA, SH_MODEL), sharded["granite_serve"]["decode_ms"],
+         sharded["granite_serve"]["peak"]),
     ]
 
 

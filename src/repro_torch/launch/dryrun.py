@@ -79,13 +79,19 @@ def _step(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, args: Dict[str,
 
 
 def state_bytes_per_device(args: Dict[str, Any], kind: str, mesh: ShardMesh) -> List[int]:
-    """The bytes each device of ``mesh`` holds between steps: the arguments
+    """The bytes each shard of ``mesh`` holds between steps: the arguments
     where ``input_specs`` placed them (a ``Sharded`` leaf's pieces on their
-    owners), plus, in training, twice the parameter bytes on that device
+    owner shards, the params, moments, decode cache and batch rows of a
+    mesh of several shards; a whole tensor on the first shard on its
+    device), plus, in training, twice the parameter bytes of that shard
     (the transient f32 gradient tree, the reference's rule).
     ``cache_index``, a Python int that the step reads on the host, counts
-    as the reference's int32 scalar on the first shard."""
-    index = {d: i for i, d in enumerate(mesh.devices)}
+    as the reference's int32 scalar on the first shard.  On distinct
+    devices (the dry run's ``meta:i``) a shard is a device; on one card
+    the count is by shard all the same."""
+    first = {}
+    for i, d in enumerate(mesh.devices):
+        first.setdefault(d, i)
     state = [0] * mesh.size
     params = [0] * mesh.size
     for key, tree in args.items():
@@ -93,11 +99,15 @@ def state_bytes_per_device(args: Dict[str, Any], kind: str, mesh: ShardMesh) -> 
             if isinstance(leaf, int):
                 state[0] += 4
                 continue
-            for p in (leaf.pieces if isinstance(leaf, Sharded) else (leaf,)):
+            if isinstance(leaf, Sharded):
+                held = [(leaf.owner_index(b), p) for b, p in zip(leaf.blocks(), leaf.pieces)]
+            else:
+                held = [(first[leaf.device], leaf)]
+            for i, p in held:
                 n = p.numel() * p.element_size()
-                state[index[p.device]] += n
+                state[i] += n
                 if key == "params":
-                    params[index[p.device]] += n
+                    params[i] += n
     if kind == "train":
         state = [s + 2 * p for s, p in zip(state, params)]
     return state

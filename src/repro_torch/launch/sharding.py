@@ -207,6 +207,12 @@ def cache_shardings(cache: Any, mesh, batch: int) -> Any:
                           cache)
 
 
+def cache_pspecs(cache: Any, mesh, batch: int) -> Any:
+    """The :func:`cache_spec` of every leaf of a decode cache (the cut
+    ``sharded.shard_tree`` takes for the serve steps' cache in pieces)."""
+    return _map_with_path(lambda path, leaf: cache_spec(path, leaf, mesh, batch), cache)
+
+
 def batch_sharding(mesh) -> NamedSharding:
     dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
     return NamedSharding(mesh, PartitionSpec(dp if len(dp) > 1 else dp[0]))

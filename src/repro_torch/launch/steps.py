@@ -6,9 +6,11 @@ sent through the CSR top-k compression) and the serve steps
 (``make_prefill_step``, ``make_decode_step``).  The steps run eagerly on the
 device their inputs live on.  With a mesh of several shards the gradients
 are those of ``launch/sharded.py`` (params and moments stored as pieces,
-each data shard's rows on its device), and the microbatch loop, the
-compression and the update are the same code as on one device; with any
-mesh the forward runs expert-parallel MoE where the reference does.
+each data shard's rows on its device, the layers gathered one at a time),
+and the microbatch loop, the compression and the update are the same code
+as on one device; the serve steps take params, cache and batch in pieces
+there too (``sharded.serve``).  With any mesh the forward runs
+expert-parallel MoE where the reference does.
 
 The abstract input specs of the dry run (``abstract_params``,
 ``abstract_opt_state``, ``abstract_cache``, ``input_specs``) are the port's
@@ -53,23 +55,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def make_loss_fn(cfg: ModelConfig, *, aux_weight: float = 0.01):
-    """Returns loss_fn(params, tokens, labels, extra=None, mesh=None) →
-    (loss + aux_weight·aux, loss, aux): the reference train step's
-    ``loss_fn``, the decoder's forward run with ``mesh`` (the
-    encoder–decoder's takes none, as in the reference)."""
+def _decoder_forward(cfg: ModelConfig):
+    """Returns forward(params, tokens, extra=None, **kw) → (logits, cache,
+    aux) of a decoder-only model: the patch embeddings ``extra`` prepended
+    (``vlm_prepend``) where the model has a ``vit`` frontend, then
+    ``transformer.forward(..., **kw)``.  With the sharded executor's
+    ``gather`` the embedding is gathered for the prepend."""
 
-    def loss_fn(params, tokens, labels, extra=None, mesh=None):
+    def forward(params, tokens, extra=None, **kw):
+        inp = tokens
+        if cfg.frontend == "vit" and extra is not None:
+            gather = kw.get("gather")
+            emb = params if gather is None else {"embedding": gather(params["embedding"])}
+            inp = vlm_prepend(emb, extra, tokens, cfg)
+        return TF.forward(params, inp, cfg, **kw)
+
+    return forward
+
+
+def make_loss_fn(cfg: ModelConfig, *, aux_weight: float = 0.01):
+    """Returns loss_fn(params, tokens, labels, extra=None, mesh=None,
+    gather=None) → (loss + aux_weight·aux, loss, aux): the reference train
+    step's ``loss_fn``, the decoder's forward run with ``mesh`` (the
+    encoder–decoder's takes none, as in the reference).  ``gather`` is the
+    sharded executor's (``sharded.unit_gather``): the decoder gathers its
+    layers one at a time, the encoder–decoder (one device only) its whole
+    tree first."""
+    forward = _decoder_forward(cfg)
+
+    def loss_fn(params, tokens, labels, extra=None, mesh=None, gather=None):
         if cfg.is_encdec:
+            if gather is not None:
+                params = gather(params)
             enc_out = ED.encode(params, extra, cfg)
             logits, _ = ED.decode(params, tokens, enc_out, cfg)
             aux = torch.zeros((), device=logits.device)
         else:
-            inp = tokens
             if cfg.frontend == "vit" and extra is not None:
-                inp = vlm_prepend(params, extra, tokens, cfg)
                 labels = F.pad(labels, (extra.shape[1], 0), value=0)
-            logits, _, aux = TF.forward(params, inp, cfg, mesh=mesh)
+            logits, _, aux = forward(params, tokens, extra, mesh=mesh, gather=gather)
         loss = cross_entropy(logits, labels)
         return loss + aux_weight * aux, loss, aux
 
@@ -203,28 +227,56 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 
 
+def _pieces(cfg: ModelConfig, mesh, *state) -> bool:
+    """Whether a serve step runs on state in pieces (``sharded.serve``):
+    ``Sharded`` leaves, which need a mesh of several shards and a
+    decoder-only model.  Whole tensors run on their device, with ``mesh``
+    for expert parallelism only."""
+    if not SHD.in_pieces(*state):
+        return False
+    if cfg.is_encdec:
+        raise ValueError("the encoder-decoder runs on one device: its state is not taken in "
+                         "pieces")
+    if mesh is None or mesh.size == 1:
+        raise ValueError("state in Sharded pieces needs the mesh of several shards it is cut on")
+    return True
+
+
 def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """Logits of a prompt.  On a mesh of several shards the params are
+    ``Sharded`` pieces and the batch tensors or ``Sharded`` rows
+    (``steps.input_specs``), and the logits come back whole on the first
+    shard's device."""
+    forward = _decoder_forward(cfg)
+
     def prefill_step(params, tokens, extra=None):
+        if _pieces(cfg, mesh, params):
+            return SHD.serve(cfg, mesh, forward, params, tokens, extra)[0]
         if cfg.is_encdec:
             enc_out = ED.encode(params, extra, cfg)
             logits, _ = ED.decode(params, tokens, enc_out, cfg)
             return logits
-        inp = tokens
-        if cfg.frontend == "vit" and extra is not None:
-            inp = vlm_prepend(params, extra, tokens, cfg)
-        logits, _, _ = TF.forward(params, inp, cfg, mesh=mesh)
+        logits, _, _ = forward(params, tokens, extra, mesh=mesh)
         return logits
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
-    """One new token against a KV cache / recurrent state of seq_len.
+    """One new token against a KV cache / recurrent state of seq_len (or T
+    tokens: a prefill into the cache).
 
     ``cache_index`` is a Python int (a tensor is read to the host); the
-    attention layers write into ``cache`` in place."""
+    attention layers write into ``cache`` in place.  On a mesh of several
+    shards params and cache are ``Sharded`` pieces (the cache cut by
+    ``sharding.cache_spec``), updated in place and returned; the logits
+    come back whole on the first shard's device."""
+    forward = _decoder_forward(cfg)
 
     def decode_step(params, cache, tokens, cache_index, extra=None):
+        if _pieces(cfg, mesh, params, cache):
+            return SHD.serve(cfg, mesh, forward, params, tokens, cache=cache,
+                             cache_index=cache_index)
         if cfg.is_encdec:
             return ED.decode(params, tokens, extra, cfg, cache=cache, cache_index=cache_index)
         logits, new_cache, _ = TF.forward(params, tokens, cfg, cache=cache,
@@ -278,11 +330,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, *,
     :class:`~repro_torch.launch.sharding.NamedSharding` of each leaf by the
     rules of ``launch/sharding.py``, the batch replicated where B does not
     divide over the data axes.  ``args`` are placed as the port's steps take
-    them: in training on a mesh of several shards, params and moments as
-    ``Sharded`` pieces in those specs and the batch as ``Sharded`` rows of
-    its data shards where B divides (else whole on the first shard); in
-    serving (and on one shard) every tensor whole on ``mesh.devices[0]``.
-    ``cache_index`` is a Python int (the steps read it on the host).
+    them: on a mesh of several shards, for every kind, params (and moments)
+    as ``Sharded`` pieces in those specs, the decode cache as ``Sharded``
+    pieces by ``cache_spec``, and the batch as ``Sharded`` rows of its data
+    shards where B divides (else whole on the first shard); on one shard,
+    and for the encoder–decoder's serve steps (which run on one device),
+    every tensor whole on ``mesh.devices[0]``.  ``cache_index`` is a Python
+    int (the steps read it on the host).
 
     In training on a mesh with a ``pod`` axis, where the state per device
     would pass ``zero_threshold`` bytes (default 14/16 of
@@ -305,7 +359,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, *,
         if SH.state_bytes_per_device(params, p_shard, mesh) > zero_threshold:
             p_shard = SH.params_shardings(params, mesh, fsdp_over_pod=True)
 
-    pieces = train and mesh.size > 1
+    pieces = mesh.size > 1 and (train or not cfg.is_encdec)
     if pieces:
         params = SHD.shard_tree(params, mesh, tree_map(lambda sh: sh.spec, p_shard))
     else:
@@ -330,11 +384,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, *,
         shardings = {"params": p_shard, "tokens": dp}
     else:
         # decode / long_decode: one token per sequence, a cache of length S
-        cache = abstract_cache(cfg, B, S, device=dev0)
+        cache = abstract_cache(cfg, B, S)
+        c_shard = SH.cache_shardings(cache, mesh, B)
+        if pieces:
+            cache = SHD.shard_tree(cache, mesh, tree_map(lambda sh: sh.spec, c_shard))
+        else:
+            cache = tree_map(lambda t: t.to(dev0), cache)
         args = {"params": params, "cache": cache, "tokens": batch((B, 1), tok),
                 "cache_index": S - 1}
-        shardings = {"params": p_shard, "cache": SH.cache_shardings(cache, mesh, B),
-                     "tokens": dp, "cache_index": repl}
+        shardings = {"params": p_shard, "cache": c_shard, "tokens": dp, "cache_index": repl}
     if has_extra:
         args["extra"] = batch((B, cfg.frontend_seq, cfg.d_model), param_dtype(cfg.dtype))
         shardings["extra"] = dp

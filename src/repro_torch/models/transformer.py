@@ -22,8 +22,15 @@ divides the experts, a batch that divides over the data axes), else
 ``moe_apply``.  The reference also pins the residual stream and the logits
 to batch-sharded layouts (``_constrain_act``, ``_constrain_logits``): those
 are layout hints to XLA's partitioner, and eager PyTorch has none; the
-sharded train step (``launch/sharded.py``) places each data shard's rows
+sharded executor (``launch/sharded.py``) places each data shard's rows
 itself.
+
+With ``gather`` (the sharded executor's, for one data shard) the params are
+``util.sharded.Sharded`` leaves, and the forward makes them whole where it
+uses them: each layer's subtree (each checkpointed group's, under remat,
+inside the group, so the backward's recompute gathers it again) just before
+the layer runs, the embedding, final norm and unembedding at their use, so
+at most one group's weights (and the embeddings) are whole at once.
 """
 from __future__ import annotations
 
@@ -202,9 +209,13 @@ def _apply_layer(
 
 
 def _apply_group(group: List[Params], x: torch.Tensor, cfg: ModelConfig, start: int,
-                 positions: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 positions: torch.Tensor, mesh=None, gather=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layers ``start``, ``start + 1``, … (one list entry each) without a
-    cache: (x, their MoE aux summed), as the reference's period body sums."""
+    cache: (x, their MoE aux summed), as the reference's period body sums.
+    With ``gather`` the group's weights are gathered here, inside the
+    checkpointed function, and freed after it."""
+    if gather is not None:
+        group = gather(group)
     aux = torch.zeros((), device=x.device)
     for j, lp in enumerate(group):
         x, _, a = _apply_layer(lp, x, cfg, *layer_spec(cfg, start + j), positions, mesh=mesh)
@@ -236,6 +247,7 @@ def forward(
     cache: Optional[List] = None,
     cache_index=None,
     mesh=None,
+    gather=None,
 ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
     """Returns (logits, new_cache, moe_aux_sum).
 
@@ -243,10 +255,19 @@ def forward(
     [B, T, D] (modality-frontend stubs feed embeddings directly).  With
     ``cache`` (from :func:`init_cache`) the attention layers write their K/V
     rows into it in place; the recurrent layers' states are replaced in the
-    returned list.  ``mesh``: see the module docstring.
+    returned list.  ``mesh`` and ``gather``: see the module docstring; with
+    ``gather``, ``cache`` is the executor's view of a sharded cache
+    (``cache[i]`` gathers layer i's entry, ``cache[i] = entry`` writes the
+    layer's writes back into the pieces), and that view is returned.
     """
+    whole = gather if gather is not None else (lambda t: t)
+    tied = None
     if tokens_or_embeds.dim() == 2:
-        x = params["embedding"][tokens_or_embeds.long()]
+        emb = whole(params["embedding"])
+        x = emb[tokens_or_embeds.long()]
+        if "unembedding" not in params:
+            tied = emb                      # gathered once for both uses
+        del emb
     else:
         x = tokens_or_embeds.to(L.param_dtype(cfg.dtype))
     B, T = x.shape[:2]
@@ -255,26 +276,33 @@ def forward(
         positions = base + torch.arange(T, device=x.device)
 
     aux_total = torch.zeros((), device=x.device)
-    new_cache = [] if cache is not None else None
+    new_cache = None if cache is None else ([] if gather is None else cache)
     if cfg.remat and cfg.scan_layers and cache is None and torch.is_grad_enabled():
         # one checkpointed group per layer, or per period of a hybrid
         group = cfg.attn_period if cfg.attn_period > 0 else 1
         for start in range(0, len(params["layers"]), group):
             x, a = checkpoint(_apply_group, params["layers"][start:start + group], x, cfg,
-                              start, positions, mesh, use_reentrant=False)
+                              start, positions, mesh, gather, use_reentrant=False)
             aux_total = aux_total + a
     else:
         for i, lp in enumerate(params["layers"]):
             kind, is_moe = layer_spec(cfg, i)
             ci = cache[i] if cache is not None else None
-            x, nc, a = _apply_layer(lp, x, cfg, kind, is_moe, positions,
+            x, nc, a = _apply_layer(whole(lp), x, cfg, kind, is_moe, positions,
                                     cache=ci, cache_index=cache_index, mesh=mesh)
             aux_total = aux_total + a
             if new_cache is not None:
-                new_cache.append(nc if nc is not None else ci)
+                entry = nc if nc is not None else ci
+                if gather is None:
+                    new_cache.append(entry)
+                else:
+                    new_cache[i] = entry        # written back into the pieces
 
-    x = L.rmsnorm(params["final_norm"], x)
-    unemb = params.get("unembedding", params["embedding"])
+    x = L.rmsnorm(whole(params["final_norm"]), x)
+    if "unembedding" in params:
+        unemb = whole(params["unembedding"])
+    else:
+        unemb = tied if tied is not None else whole(params["embedding"])
     logits = mask_pad_vocab(L.unembed(x, unemb), cfg)
     return logits, new_cache, aux_total
 

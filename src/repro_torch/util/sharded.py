@@ -22,8 +22,9 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.util.costs import move
+from repro_torch.util.costs import gather_into, move
 from repro_torch.util.tree import leaves, tree_map
 
 
@@ -104,8 +105,14 @@ class Sharded:
 
     @classmethod
     def from_full(cls, t: torch.Tensor, mesh, spec) -> "Sharded":
-        """``t`` cut into its blocks, each copied to its owner's device."""
+        """``t`` cut into its blocks, each copied to its owner's device (of a
+        fake tensor, which has no values, each allocated there: one fake op
+        a piece, not three)."""
         s = cls(mesh, spec, t.shape, None)
+        if isinstance(t, FakeTensor):
+            shape = [n // g for n, g in zip(s.shape, s.grid)]
+            s.pieces = [torch.empty(shape, dtype=t.dtype, device=s.owner(b)) for b in s.blocks()]
+            return s
         s.pieces = [t[s._slices(b)].to(s.owner(b), copy=True).contiguous()
                     for b in s.blocks()]
         return s
@@ -114,36 +121,75 @@ class Sharded:
         """A Sharded of the same cut whose pieces are ``fn(piece)``."""
         return Sharded(self.mesh, self.spec, self.shape, [fn(p) for p in self.pieces])
 
-    def _gather(self, blocks, device) -> torch.Tensor:
-        """The pieces of ``blocks`` (a box of the grid) concatenated on
-        ``device``, one dimension at a time from the last.  The moves are
-        an all-gather, and their gradients' way back a reduce-scatter
-        (``util.costs.move``)."""
-        parts = {b: move(p, device, "all-gather", "reduce-scatter")
-                 for b, p in zip(self.blocks(), self.pieces) if b in blocks}
-        for dim in reversed(range(len(self.grid))):
-            if self.grid[dim] > 1:
+    def box(self, blocks, device) -> torch.Tensor:
+        """The pieces of ``blocks`` (a box of the grid) as one tensor on
+        ``device``; a box of one block is its piece, moved.  Pieces that
+        all lie on ``device`` (every shard on one card) are concatenated
+        there, one dimension at a time from the last; else each piece is
+        copied into its slice of the box.  The copies are an all-gather,
+        and their gradients' way back a reduce-scatter
+        (``util.costs.gather_into``, ``util.costs.move``)."""
+        held = [(b, p) for b, p in zip(self.blocks(), self.pieces) if b in blocks]
+        if len(held) == 1:
+            return move(held[0][1], device, "all-gather", "reduce-scatter")
+        device = torch.device(device)
+        if all(p.device == device for _, p in held):
+            parts = dict(held)
+            for dim in reversed(range(len(self.grid))):
                 runs: Dict[tuple, list] = {}
                 for b in sorted(parts):
                     runs.setdefault(b[:dim] + b[dim + 1:], []).append(parts[b])
-                parts = {k[:dim] + (0,) + k[dim:]: torch.cat(v, dim=dim) for k, v in runs.items()}
-        (out,) = parts.values()
-        return out
+                parts = {k[:dim] + (0,) + k[dim:]: torch.cat(v, dim=dim) if len(v) > 1 else v[0]
+                         for k, v in runs.items()}
+            (out,) = parts.values()
+            return out
+        origin = tuple(min(b[k] for b, _ in held) for k in range(len(self.grid)))
+        rel = [tuple(x - o for x, o in zip(b, origin)) for b, _ in held]
+        shape = [(max(r[k] for r in rel) + 1) * (n // g)
+                 for k, (n, g) in enumerate(zip(self.shape, self.grid))]
+        return gather_into(shape, [self._slices(r) for r in rel], [p for _, p in held], device,
+                           "all-gather", "reduce-scatter")
 
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the first piece's, the
         mesh's first shard); differentiable with respect to the pieces."""
-        device = self.device if device is None else device
-        if len(self.pieces) == 1:
-            return move(self.pieces[0], device, "all-gather", "reduce-scatter")
-        return self._gather(set(self.blocks()), device)
+        return self.box(set(self.blocks()), self.device if device is None else device)
 
     def model_pieces(self, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
         """One tensor per block along dimension 0 (the expert dimension, split
         over ``model``), each gathered over the other dimensions onto
         ``devices[m]``: the experts of model shard m."""
-        return tuple(self._gather({b for b in self.blocks() if b[0] == m}, devices[m])
+        return tuple(self.box({b for b in self.blocks() if b[0] == m}, devices[m])
                      for m in range(self.grid[0]))
+
+    @torch.no_grad()
+    def write_(self, t: torch.Tensor, blocks, dim: Optional[int] = None, lo: int = 0,
+               hi: int = 0) -> "Sharded":
+        """Write ``t``, the box of ``blocks`` as :meth:`box` gathers it, back
+        into those blocks' pieces.  With ``dim`` None each piece is replaced
+        by its part of ``t``; else only the part of ``t`` within [lo, hi)
+        of the whole tensor along ``dim`` is copied into the pieces, in
+        place.  The moves to the owners are a collective-permute."""
+        origin = tuple(min(b[k] for b in blocks) for k in range(len(self.grid)))
+        for i, b in enumerate(self.blocks()):
+            if b not in blocks:
+                continue
+            src = list(self._slices(tuple(x - o for x, o in zip(b, origin))))
+            dst = [slice(None)] * len(self.grid)
+            if dim is not None:
+                start = self._slices(b)[dim].start
+                a = max(lo - start, 0)
+                z = min(hi - start, src[dim].stop - src[dim].start)
+                if a >= z:
+                    continue
+                dst[dim] = slice(a, z)
+                src[dim] = slice(src[dim].start + a, src[dim].start + z)
+            part = move(t[tuple(src)], self.owner(b), "collective-permute")
+            if dim is None:
+                self.pieces[i] = part
+            else:
+                self.pieces[i][tuple(dst)].copy_(part)
+        return self
 
     @torch.no_grad()
     def assign_(self, t: torch.Tensor) -> "Sharded":

@@ -341,6 +341,97 @@ def test_sharded_step_equals_one_device_step_on_a_dense_model():
             assert float(gap.max()) <= PARAM_RTOL * float(w.abs().max()) + 2 * LR, path
 
 
+def _track_gathers(monkeypatch):
+    """Wrap ``Sharded.full`` and ``Sharded.model_pieces`` so that each tensor
+    they make (a piece handed back as it is is not one) adds its bytes to
+    the bytes alive, until ``weakref.finalize`` takes them off; returns the
+    record ``{"alive", "peak"}``."""
+    import weakref
+
+    rec = {"alive": 0, "peak": 0}
+
+    def add(s, t):
+        if any(t is p for p in s.pieces):
+            return t
+        n = t.numel() * t.element_size()
+        rec["alive"] += n
+        rec["peak"] = max(rec["peak"], rec["alive"])
+        weakref.finalize(t, lambda: rec.__setitem__("alive", rec["alive"] - n))
+        return t
+
+    real_full, real_mp = Sharded.full, Sharded.model_pieces
+    monkeypatch.setattr(Sharded, "full", lambda s, *a, **k: add(s, real_full(s, *a, **k)))
+    monkeypatch.setattr(Sharded, "model_pieces",
+                        lambda s, *a, **k: tuple(add(s, t) for t in real_mp(s, *a, **k)))
+    return rec
+
+
+def test_sharded_remat_step_holds_one_group_whole_at_a_time(monkeypatch):
+    """granite smoke, 4 layers, remat on, on 2 × 4: the step gathers the
+    layers inside their checkpointed groups (again in the backward's
+    recompute), so the gathered bytes alive at once stay within the largest
+    group's plus the (tied) embedding's, strictly below the whole tree's;
+    without remat autograd keeps every layer's gathered weights for the
+    backward.  Loss and gradients equal the one-device step's within the
+    gradient bar."""
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=4, remat=True)
+    assert cfg.tie_embeddings and cfg.scan_layers
+    mesh = mesh24()
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    params = TF.init_params(torch.Generator().manual_seed(0), cfg)
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in leaves(tree))
+    group = max(nbytes(lp) for lp in params["layers"])
+    bound = group + nbytes(params["embedding"])
+    loss1, _, g1 = STEPS.make_grad_fn(cfg)(tree_map(torch.clone, params), tokens, labels)
+
+    peaks = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        sp = SHD.shard_tree(params, mesh)
+        with monkeypatch.context() as mp:
+            rec = _track_gathers(mp)
+            loss, _, grads = STEPS.make_grad_fn(c, mesh=mesh)(sp, tokens, labels)
+        peaks[remat] = rec["peak"]
+        assert abs(float(loss) - float(loss1)) <= LOSS_RTOL * float(loss1)
+        for path, g, w in zip(leaf_paths(g1), leaves(full_tree(grads, "cpu")), leaves(g1)):
+            _close(g, w, GRAD_RTOL, GRAD_ATOL, path)
+    assert 0 < peaks[True] <= bound < nbytes(params)
+    assert peaks[False] >= nbytes(params["layers"]) > bound
+
+
+def test_gather_from_other_devices_equals_the_concatenation():
+    """Pieces on another device than the unit's are copied into their slices
+    of the box (``util.costs.gather_into``), where pieces on the unit's own
+    device are concatenated: on a mesh whose shards alternate between the
+    ``cpu:0`` and ``cpu`` devices (unequal as devices, one memory; each
+    data row's first shard, a unit's device, is ``cpu:0``, and its pieces
+    report ``cpu``), the remat train step's loss and gradients and the
+    serve steps' logits and cache equal those on an all-``cpu`` mesh bit
+    for bit."""
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=2, remat=True)
+    devs = tuple(torch.device("cpu") if i % 2 else torch.device("cpu", 0) for i in range(8))
+    meshes = {"one": mesh24(), "two": ShardMesh(devs, ("data", "model"), (2, 4))}
+    params = TF.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    out = {}
+    for name, mesh in meshes.items():
+        sp = SHD.shard_tree(params, mesh)
+        loss, _, grads = STEPS.make_grad_fn(cfg, mesh=mesh)(sp, tokens, labels)
+        cache = TF.init_cache(cfg, 4, 20)
+        cache = SHD.shard_tree(cache, mesh, SH.cache_pspecs(cache, mesh, 4))
+        with torch.inference_mode():
+            _, cache = STEPS.make_decode_step(cfg, mesh)(sp, cache, tokens, 0)
+            logits, cache = STEPS.make_decode_step(cfg, mesh)(sp, cache, labels[:, :1], 16)
+        out[name] = [loss, logits] + [p for s in leaves(grads) + leaves(cache) for p in s.pieces]
+    assert len(out["one"]) == len(out["two"])
+    for a, b in zip(out["one"], out["two"]):
+        assert torch.equal(a, b)
+
+
 def test_sharded_bf16_microbatched_step_hands_adamw_f32_gradients(monkeypatch):
     """granite (2 layers) in bf16, microbatches 2: as in the reference
     (``launch/steps.py``: bf16 gradients of each microbatch summed into an
