@@ -3093,33 +3093,14 @@ def map_leaves_(tree, fn, path=()):
     return tree
 
 
-def to_pieces_(params, mesh):
-    """Whole params cut into ``Sharded`` pieces by ``param_spec``, leaf by leaf."""
-    from repro_torch.launch import sharding as SH
-    from repro_torch.util.sharded import Sharded
-
-    return map_leaves_(params, lambda path, t: Sharded.from_full(
-        t, mesh, SH.param_spec(path, t, mesh)))
-
-
-def batch_rows(t, mesh):
-    """A batch as the serve steps take it on ``mesh``: ``Sharded`` rows of the
-    data shards where B divides over them, else whole."""
-    from repro_torch.launch import sharding as SH
-    from repro_torch.launch.mesh import dp_size
-    from repro_torch.util.sharded import Sharded
-
-    if t.shape[0] % dp_size(mesh):
-        return t
-    return Sharded.from_full(t, mesh, SH.batch_sharding(mesh).spec)
-
-
-def sharded_forced(cfg, sp, prompts, seq, mesh):
+def sharded_forced(cfg, sp, prompts, seq, mesh, pieces: bool = True):
     """Logits [B, G+1, V] of a prefill of ``prompts`` into a cache in pieces
     (cut by ``cache_spec``), then one decode step per token of ``seq`` after
     the prompt (teacher forcing), all through ``make_decode_step(cfg,
     mesh)`` on ``Sharded`` params ``sp``, cache and token rows; the cache,
-    and the host seconds of the decode steps."""
+    and the host seconds of the decode steps.  With ``pieces`` False,
+    ``sp``, the cache and the tokens are whole tensors (the mesh for expert
+    parallelism only)."""
     import torch
 
     from repro_torch.launch import sharded as SHD
@@ -3130,21 +3111,23 @@ def sharded_forced(cfg, sp, prompts, seq, mesh):
     B, P = prompts.shape
     G = seq.shape[1] - P
     cache = TF.init_cache(cfg, B, P + G, device=prompts.device)
-    cache = SHD.shard_tree(cache, mesh, SH.cache_pspecs(cache, mesh, B))
+    rows = (lambda t: SHD.batch_rows(t, mesh)) if pieces else (lambda t: t)
+    if pieces:
+        cache = SHD.shard_tree(cache, mesh, SH.cache_pspecs(cache, mesh, B))
     step = STEPS.make_decode_step(cfg, mesh)
-    logits, cache = step(sp, cache, batch_rows(prompts, mesh), 0)
+    logits, cache = step(sp, cache, rows(prompts), 0)
     outs = [logits[:, -1]]
     del logits
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(G):
-        logits, cache = step(sp, cache, batch_rows(seq[:, P + i:P + i + 1], mesh), P + i)
+        logits, cache = step(sp, cache, rows(seq[:, P + i:P + i + 1]), P + i)
         outs.append(logits[:, 0])
     torch.cuda.synchronize()
     return torch.stack(outs, 1)[..., :cfg.vocab], cache, time.perf_counter() - t0
 
 
-def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
+def forced_checks(tag, cfg, mesh, phase21: dict, drops=None, whole_too: bool = False) -> dict:
     """Phase 23(d) and (f): ``cfg``'s state in pieces on ``mesh``, from phase
     21's seed and prompts: at bf16 teacher-forced with phase 21's
     one-device tokens (argmax = the next token where phase 21's top-2
@@ -3154,13 +3137,17 @@ def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
     devices); at f32 every position within 2e-3 + 2e-3 |logit| of the
     one-device f32 full forward (its weights the pieces made whole, which
     are the one-device weights bit for bit).  ``drops``: an ``EPDrops``
-    factory, for MoE."""
+    factory, for MoE.  ``whole_too``: the bf16 steps also run on the same
+    state whole (``make_decode_step(cfg, mesh)`` on whole tensors, the mesh
+    for expert parallelism only), and their logits must equal the pieces'
+    bit for bit."""
     import contextlib
 
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import sharded as SHD
     from repro_torch.launch import steps as STEPS
     from repro_torch.launch.mesh import make_meta_mesh
     from repro_torch.models import transformer as TF
@@ -3172,11 +3159,19 @@ def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
-        sp = to_pieces_(params, mesh)
         seq = torch.cat([prompts, toks[:, :-1]], dim=1)                 # P + G tokens
+        whole16, drops_whole = None, None
+        if whole_too:
+            with counted(True) as drops_whole:
+                whole16, _, _ = sharded_forced(cfg, params, prompts, seq, mesh, pieces=False)
+        sp = SHD.shard_tree_(params, mesh)
         with counted(True) as drops16:
             out16, cache, t_dec = sharded_forced(cfg, sp, prompts, seq, mesh)
     peak16 = torch.cuda.max_memory_allocated()
+    if whole_too and not torch.equal(whole16, out16):
+        raise AssertionError(f"{tag} bf16: the steps on whole state differ from those on "
+                             f"pieces by {float((whole16.float() - out16.float()).abs().max()):.3e}")
+    del whole16
     out16 = out16.float().cpu()
     tol = LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()
     top2 = ref.topk(2, dim=-1).values
@@ -3187,7 +3182,7 @@ def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
                              f"{int((checked & ~agree).sum())} of {int(checked.sum())} positions "
                              f"whose one-device top-2 margin exceeds twice the bound")
     S = LM_P + LM_G
-    rows = batch_rows(torch.zeros(LM_B, 1, dtype=torch.int32, device=mesh.devices[0]), mesh)
+    rows = SHD.batch_rows(torch.zeros(LM_B, 1, dtype=torch.int32, device=mesh.devices[0]), mesh)
     state = DR.state_bytes_per_device({"params": sp, "cache": cache, "tokens": rows,
                                        "cache_index": S - 1}, "decode", mesh)
     meta = make_meta_mesh(tuple(mesh.shape.values()), mesh.axis_names)
@@ -3203,7 +3198,7 @@ def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
     with torch.inference_mode():
         with counted(False) as drops_full:
             full = TF.forward(whole, seq, cfg32)[0][:, LM_P - 1:, :cfg.vocab]
-        sp32 = to_pieces_(whole, mesh)
+        sp32 = SHD.shard_tree_(whole, mesh)
         free_cuda()
         with counted(True) as drops32:
             out32, _, _ = sharded_forced(cfg32, sp32, prompts, seq, mesh)
@@ -3218,14 +3213,17 @@ def forced_checks(tag, cfg, mesh, phase21: dict, drops=None) -> dict:
     return {"decode_ms": t_dec * 1e3 / LM_G, "peak": peak16, "checked": int(checked.sum()),
             "gap16": float((out16 - ref).abs().max()), "gap32": float(gap32.max()),
             "over": over, "state": state,
-            "drops": {"bf16": drops16, "f32": drops32, "full": drops_full}}
+            "drops": {"bf16": drops16, "f32": drops32, "full": drops_full,
+                      "whole": drops_whole}}
 
 
 def sharded_jamba_ep(phase21: dict) -> dict:
     """Phase 23(d): one jamba period at full width, its state in pieces on
     data 1 x model 4, the MoE layers expert-parallel (4 experts a shard, the
     expert leaves kept as their model pieces), from phase 21's seed and
-    prompts: the bars of ``forced_checks``."""
+    prompts: the bars of ``forced_checks``, and the bf16 steps on the same
+    state whole (the experts split on every call) equal to those on pieces
+    bit for bit."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
@@ -3236,10 +3234,13 @@ def sharded_jamba_ep(phase21: dict) -> dict:
     mesh = sharded_mesh("cuda", 1, SH_EP_MODEL)
     t0 = time.perf_counter()
     free_cuda()
-    r = forced_checks(tag, cfg, mesh, phase21, drops=lambda ep: EPDrops(MOE, ep=ep))
+    r = forced_checks(tag, cfg, mesh, phase21, drops=lambda ep: EPDrops(MOE, ep=ep),
+                      whole_too=True)
     d = r["drops"]
     log(f"{tag} {TF.num_layers(cfg)} layers, {cfg.num_experts} experts over model "
         f"{SH_EP_MODEL} (data 1), params and cache in pieces; B={LM_B} P={LM_P} G={LM_G}: bf16 "
+        f"logits equal bit for bit to the same steps on whole state (the experts split on "
+        f"every call, MoE drops {d['whole'].total()}); bf16 "
         f"teacher-forced with phase 21's tokens, argmax = the next one-device token at all "
         f"{r['checked']} positions whose margin exceeds twice the bound ({LM_B * (LM_G + 1)} "
         f"positions; max |EP - one device| {r['gap16']:.3f}); f32 within {LM_DECODE_TOL} + "
@@ -3254,7 +3255,8 @@ def sharded_jamba_ep(phase21: dict) -> dict:
         f"allocated; {time.perf_counter() - t0:.1f} s")
     free_cuda()
     return {"decode_ms": r["decode_ms"], "over": r["over"],
-            "drops": d["bf16"].total() + d["f32"].total(), "peak": r["peak"]}
+            "drops": d["bf16"].total() + d["f32"].total() + d["whole"].total(),
+            "peak": r["peak"]}
 
 
 def sharded_granite_serve(phase21: dict) -> dict:

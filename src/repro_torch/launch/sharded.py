@@ -51,7 +51,7 @@ from typing import Any
 import torch
 
 from repro_torch.launch.mesh import ShardMesh, batch_axes, dp_size
-from repro_torch.launch.sharding import params_pspecs
+from repro_torch.launch.sharding import batch_sharding, params_pspecs
 from repro_torch.models.layers import cache_write_start
 from repro_torch.util.costs import move
 from repro_torch.util.sharded import Sharded, spec_axes
@@ -66,6 +66,31 @@ def shard_tree(tree: Any, mesh: ShardMesh, pspecs: Any = None) -> Any:
     if pspecs is None:
         pspecs = params_pspecs(tree, mesh)
     return tree_map(lambda t, spec: Sharded.from_full(t, mesh, spec), tree, pspecs)
+
+
+def shard_tree_(tree: Any, mesh: ShardMesh, pspecs: Any = None) -> Any:
+    """:func:`shard_tree` in place on a tree of dicts and lists, leaf by
+    leaf: each whole leaf is dropped as soon as its pieces are cut, so that
+    a model that fits once on the card is not held twice; returns
+    ``tree``."""
+    if pspecs is None:
+        pspecs = params_pspecs(tree, mesh)
+    for path, spec in zip(leaf_paths(tree), leaves(pspecs)):
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = Sharded.from_full(node[path[-1]], mesh, spec)
+    return tree
+
+
+def batch_rows(t: torch.Tensor, mesh: ShardMesh):
+    """A batch tensor as the steps take it on ``mesh``: ``Sharded`` rows of
+    the data shards (``sharding.batch_sharding``) where B divides over
+    them, else ``t`` as it is (the reference does not split such a
+    batch)."""
+    if t.shape[0] % dp_size(mesh):
+        return t
+    return Sharded.from_full(t, mesh, batch_sharding(mesh).spec)
 
 
 def in_pieces(*trees) -> bool:

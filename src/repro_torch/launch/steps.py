@@ -367,9 +367,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh, *,
 
     def batch(shp, dtype):
         t = torch.zeros(shp, dtype=dtype)
-        if pieces and b_ok:
-            return Sharded.from_full(t, mesh, dp.spec)
-        return t.to(dev0)
+        return SHD.batch_rows(t, mesh) if pieces and b_ok else t.to(dev0)
 
     tok = torch.int32
     has_extra = cfg.is_encdec or (cfg.frontend == "vit" and not shape.is_decode)

@@ -126,17 +126,25 @@ class CostCounter(TorchDispatchMode):
             self.flops[outs[0].device] += int(flop_registry[packet](*args, **kwargs, out_val=out))
         if func.is_view or func in _VIEWS:
             return
+        if packet is aten.copy_:
+            self.record_copy(args[1], args[0].device, _nbytes(args[0]))
+            return
         for t in tree_leaves((args, kwargs)):
             if isinstance(t, torch.Tensor):
                 self.bytes[t.device] += _nbytes(t)
         for t in outs:
             self.bytes[t.device] += _nbytes(t)
         if packet is aten._to_copy and outs:
-            src, dst = args[0], outs[0].device
-        elif packet is aten.copy_:
-            src, dst = args[1], args[0].device
-        else:
-            return
+            self._moved(args[0], outs[0].device)
+
+    def record_copy(self, src: torch.Tensor, dst: torch.device, dst_bytes: int) -> None:
+        """The counts of a ``copy_`` of ``src`` into ``dst_bytes`` on ``dst``:
+        the source read, the destination read and written, and the move."""
+        self.bytes[src.device] += _nbytes(src)
+        self.bytes[dst] += 2 * dst_bytes
+        self._moved(src, dst)
+
+    def _moved(self, src: torch.Tensor, dst: torch.device) -> None:
         # a host scalar that a decomposition moves onto the device is no
         # transfer between shards
         host_scalar = src.device.type == "cpu" and src.dim() == 0
@@ -200,20 +208,15 @@ class _GatherInto(torch.autograd.Function):
         ctx.parts, ctx.back_kind = parts, back_kind
         ctx.devices = [p.device for p in pieces]
         out = torch.empty(shape, dtype=pieces[0].dtype, device=device)
-        if isinstance(out, FakeTensor):
-            # what the counter records for each copy_ below, without an op
-            # per piece: a fake op costs a fraction of a millisecond, and a
-            # 16 x 16 mesh has 256 pieces a leaf
-            counters, dst = _active_counters(), out.device
-            for p in pieces:
-                n, src = _nbytes(p), p.device
-                for c in counters:
-                    c.bytes[src] += n
-                    c.bytes[dst] += 2 * n
-                    if src != dst:
-                        c.coll[dst][kind] += n
-            return out
         with _filed_under(kind):
+            if isinstance(out, FakeTensor):
+                # the counters record each copy_ below without an op per
+                # piece: a fake op costs a fraction of a millisecond, and a
+                # 16 x 16 mesh has 256 pieces a leaf
+                for c in _active_counters():
+                    for p in pieces:
+                        c.record_copy(p, out.device, _nbytes(p))
+                return out
             for sl, p in zip(parts, pieces):
                 out[sl].copy_(p)
         return out

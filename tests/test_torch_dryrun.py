@@ -342,13 +342,15 @@ def test_dry_run_allocates_nothing():
 
 def test_cli_json_renders_in_the_report(tmp_path, capsys):
     out = tmp_path / "dryrun.json"
-    assert DR.main(["--arch", "granite-3-2b", "--shape", "decode_32k", "--multi-pod",
+    # a batch of 1 runs as one unit on the first shard: the cheapest cell of
+    # the 512-device mesh to fake-run
+    assert DR.main(["--arch", "rwkv6-3b", "--shape", "long_500k", "--multi-pod",
                     "--json", str(out)]) == 0
-    assert "[OK] granite-3-2b × decode_32k × 2x16x16" in capsys.readouterr().out
+    assert "[OK] rwkv6-3b × long_500k × 2x16x16" in capsys.readouterr().out
     cells = json.loads(out.read_text())
     assert cells[0]["devices"] == 512
     table = dryrun_table(str(out)).splitlines()
-    assert len(table) == 3 and table[2].startswith("| granite-3-2b | decode_32k | 2x16x16 |")
+    assert len(table) == 3 and table[2].startswith("| rwkv6-3b | long_500k | 2x16x16 |")
 
     roof = tmp_path / "roofline.json"
     assert SWEEP.main(["--out", str(roof), "--variant", "optimized",

@@ -9,12 +9,14 @@ granite-3-2b, rwkv6-3b and jamba-v0.1-52b at smoke size, under the mesh
 ``test_torch_sharded_lm.py`` runs it), the prefill step's logits, a
 prefill of the prompt into the cache and one cached decode step.  The port runs the same weights (``models.convert``)
 cut by ``sharded.shard_tree``, the cache cut by ``sharding.cache_pspecs``
-and the batch as ``Sharded`` rows, through ``make_prefill_step`` and
-``make_decode_step`` on ``make_host_mesh(8, "cpu", model=4)``.
+and the batch as ``Sharded`` rows (``sharded.batch_rows``), through
+``make_prefill_step`` and ``make_decode_step`` on
+``make_host_mesh(8, "cpu", model=4)``.
 
 Cases: B = 4 (one unit per data shard, two rows each) and B = 3 (no split:
 one unit, the whole batch on the first shard, as the reference does not
-split it); a cache of 40 positions, so that where the kv heads (2) do not
+split it), with a prompt of T = 32, and jamba at B = 4 with a prompt of
+T = 16; a cache of 40 positions, so that where the kv heads (2) do not
 divide the model axis (4) the cache is split along S, over model at B = 4
 and over every axis at B = 3.
 
@@ -24,11 +26,17 @@ bit at f32, to those of the same steps on whole tensors on one device
 cut by ``cache_spec``), so the pieces add no rounding of their own; the
 logits on the first shard's device and within 1e-5 + 1e-5·max|ref| of the
 reference's (the bar of
-``test_torch_sharded_lm.py::test_forward_on_a_mesh_serves_as_the_reference``)
-for granite and rwkv6.  jamba's are held within 1e-4 + 1e-4·max|ref|, the
-bar of ``tests/test_torch_models.py``: the port's jamba forward on one
-device, with no mesh, is already 1.8e-5-4.4e-5 from the reference's on
-these inputs (max |logit| about 0.95), and the reference's own mesh run
+``test_torch_sharded_lm.py::test_forward_on_a_mesh_serves_as_the_reference``).
+jamba with a prompt of 32 is held within 1e-4 + 1e-4·max|ref|, the bar of
+``tests/test_torch_models.py``.  Its gap to the reference there comes from
+the mamba layers' chunked scan, which both packages compute in the
+factored form exp(W_t)·exp(−W_s) at f32 over one chunk of the whole
+prompt: over 32 tokens the log decay spans 67-73 nats, and each package's
+scan output is then 0.6e-4-1.9e-4 from the exact (float64) recurrence and
+0.9e-4-2.6e-4 from the other's, at max |output| 39-65
+(``test_jamba_gap_over_32_tokens_is_the_scans_f32_rounding``); over 16
+tokens the span halves and jamba's logits are held at the 1e-5 bar.
+The reference's own mesh run
 equals its one-device run bit for bit.
 """
 import dataclasses
@@ -57,9 +65,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("granite-3-2b", "rwkv6-3b", "jamba-v0.1-52b")
 BATCHES = (4, 3)
 T, S = 32, 40
-#: (rtol of max|ref|, atol) against the reference; jamba's is its model's
-#: own bar (see the module docstring)
-BARS = {"granite-3-2b": (1e-5, 1e-5), "rwkv6-3b": (1e-5, 1e-5), "jamba-v0.1-52b": (1e-4, 1e-4)}
+#: (arch, B, prompt length) of each reference job
+JOBS = [(a, b, T) for a in ARCHS for b in BATCHES] + [("jamba-v0.1-52b", 4, 16)]
+#: (rtol of max|ref|, atol) against the reference
+BAR = (1e-5, 1e-5)
+#: jamba's over a prompt of 32, its model's own bar (see the module docstring)
+JAMBA_32_BAR = (1e-4, 1e-4)
 
 REFERENCE = r'''
 import os, pickle, sys
@@ -73,11 +84,11 @@ from repro.configs.registry import get_smoke_config
 from repro.launch import steps as STEPS
 from repro.models import transformer as TF
 
-ARCHS, BATCHES, T, S = {archs!r}, {batches!r}, {T}, {S}
+JOBS, S = {jobs!r}, {S}
 np_tree = lambda t: jax.tree.map(np.asarray, t)
 mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
 
-def run(arch, B):
+def run(arch, B, T):
     cfg = get_smoke_config(arch)
     params = TF.init_params(jax.random.PRNGKey(0), cfg)
     rng = np.random.default_rng(B)
@@ -90,12 +101,12 @@ def run(arch, B):
             p, t, cfg, cache=c, cache_index=0, mesh=mesh))(p, tokens[:, :T], cache)
         step, _ = jax.jit(STEPS.make_decode_step(cfg, mesh))(
             p, cache, tokens[:, T:], jnp.asarray(T, jnp.int32))
-    return (arch, B), {{"params": np_tree(params), "tokens": np.asarray(tokens),
+    return (arch, B, T), {{"params": np_tree(params), "tokens": np.asarray(tokens),
                        "prefill": np.asarray(prefill), "into": np.asarray(into),
                        "decode": np.asarray(step)}}
 
 # XLA compiles with the GIL released: the jobs run side by side, jamba's first
-jobs = sorted(((a, b) for a in ARCHS for b in BATCHES), key=lambda j: not j[0].startswith("jamba"))
+jobs = sorted(JOBS, key=lambda j: not j[0].startswith("jamba"))
 with ThreadPoolExecutor(6) as ex:
     out = dict(f.result() for f in [ex.submit(run, *j) for j in jobs])
 with open(sys.argv[1], "wb") as fh:
@@ -105,7 +116,7 @@ with open(sys.argv[1], "wb") as fh:
 
 @pytest.fixture(scope="module")
 def ref():
-    script = REFERENCE.format(archs=ARCHS, batches=BATCHES, T=T, S=S)
+    script = REFERENCE.format(jobs=JOBS, S=S)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "ref.pkl")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -127,23 +138,12 @@ def _close(ours, want, bar, what):
     assert err <= bar[0] * float(want.abs().max()) + bar[1], (what, err)
 
 
-def _rows(t, mesh):
-    """The batch as the serve steps take it: ``Sharded`` rows of the data
-    shards where B divides over them, else whole."""
-    if t.shape[0] % mesh.shape["data"]:
-        return t
-    return Sharded.from_full(t, mesh, SH.batch_sharding(mesh).spec)
-
-
 def _sharded_cache(cfg, B, mesh):
     cache = TF.init_cache(cfg, B, S)
     return SHD.shard_tree(cache, mesh, SH.cache_pspecs(cache, mesh, B))
 
 
-@pytest.mark.parametrize("B", BATCHES)
-@pytest.mark.parametrize("arch", ARCHS)
-def test_serve_steps_on_pieces_match_the_reference(ref, arch, B):
-    r = ref[(arch, B)]
+def _serve_on_pieces(r, arch, B, T, bar):
     cfg = get_smoke_config(arch)
     mesh = mesh24()
     params = params_from_reference(cfg, r["params"])
@@ -156,14 +156,14 @@ def test_serve_steps_on_pieces_match_the_reference(ref, arch, B):
         assert kv == {want}          # kv heads 2 do not divide model 4: S is split
     step = STEPS.make_decode_step(cfg, mesh)
     with torch.inference_mode():
-        prefill = STEPS.make_prefill_step(cfg, mesh)(sp, _rows(tokens[:, :T], mesh))
-        into, cache2 = step(sp, cache, _rows(tokens[:, :T], mesh), 0)
-        logits, cache3 = step(sp, cache, _rows(tokens[:, T:], mesh), T)
+        prefill = STEPS.make_prefill_step(cfg, mesh)(sp, SHD.batch_rows(tokens[:, :T], mesh))
+        into, cache2 = step(sp, cache, SHD.batch_rows(tokens[:, :T], mesh), 0)
+        logits, cache3 = step(sp, cache, SHD.batch_rows(tokens[:, T:], mesh), T)
     assert cache2 is cache and cache3 is cache           # updated in place
     assert prefill.device == mesh.devices[0] == logits.device
-    _close(prefill, r["prefill"], BARS[arch], "prefill")
-    _close(into, r["into"], BARS[arch], "prefill into the cache")
-    _close(logits, r["decode"], BARS[arch], "decode")
+    _close(prefill, r["prefill"], bar, "prefill")
+    _close(into, r["into"], bar, "prefill into the cache")
+    _close(logits, r["decode"], bar, "decode")
 
     # the same steps on whole tensors on one device, the mesh for EP only
     whole = TF.init_cache(cfg, B, S)
@@ -182,6 +182,66 @@ def test_serve_steps_on_pieces_match_the_reference(ref, arch, B):
             assert torch.equal(got, want), path
 
 
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_steps_on_pieces_match_the_reference(ref, arch, B):
+    bar = JAMBA_32_BAR if arch == "jamba-v0.1-52b" else BAR
+    _serve_on_pieces(ref[(arch, B, T)], arch, B, T, bar)
+
+
+def test_jamba_on_pieces_matches_the_reference_over_a_short_prompt(ref):
+    """jamba, B = 4, a prompt of 16: within the 1e-5 bar, where the mamba
+    scan's log decay spans half of what it does over 32 tokens."""
+    _serve_on_pieces(ref[("jamba-v0.1-52b", 4, 16)], "jamba-v0.1-52b", 4, 16, BAR)
+
+
+def _exact_scan(r, k, v, log_w):
+    """The recurrence the chunked scan computes, step by step in float64:
+    o_t = r_t · S_{t-1}, S_t = diag(w_t) S_{t-1} + k_t v_tᵀ, from S = 0."""
+    r, k, v, log_w = (a.double() for a in (r, k, v, log_w))
+    S = torch.zeros(*r.shape[:2], r.shape[-1], v.shape[-1], dtype=torch.float64)
+    out = []
+    for t in range(r.shape[2]):
+        out.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], S))
+        S = S * log_w[:, :, t].exp()[..., None] + k[:, :, t, :, None] * v[:, :, t, None, :]
+    return torch.stack(out, 2)
+
+
+def test_jamba_gap_over_32_tokens_is_the_scans_f32_rounding(ref, monkeypatch):
+    """What puts jamba's logits past the 1e-5 bar over a prompt of 32: each
+    mamba layer's chunked scan, port and reference alike, on the inputs the
+    port's forward gives it.  Each package's f32 output is within
+    4e-6·max|exact| of the float64 recurrence, and the port's is no more
+    than 2x as far from it as the reference's: the two differ by their own
+    rounding of the factored form, not by a fault of either (``-s`` prints
+    the readings)."""
+    import jax.numpy as jnp
+    from repro.models import linear_attention as RLA
+    from repro_torch.models import mamba as PM
+
+    r = ref[("jamba-v0.1-52b", 4, T)]
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    calls, scan = [], PM.chunked_linear_attention
+    monkeypatch.setattr(PM, "chunked_linear_attention",
+                        lambda *a, **k: calls.append((a, k)) or scan(*a, **k))
+    with torch.inference_mode():
+        TF.forward(params_from_reference(cfg, r["params"]), to_tensor(r["tokens"])[:, :T], cfg)
+    assert len(calls) == sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.layers)) > 0
+    for (rr, k, v, log_w), kw in calls:
+        exact = _exact_scan(rr, k, v, log_w)
+        port = scan(rr, k, v, log_w, **kw)[0].double()
+        theirs = torch.tensor(np.asarray(RLA.chunked_linear_attention(
+            *(jnp.asarray(a.numpy()) for a in (rr, k, v, log_w)), chunk=kw["chunk"])[0]),
+            dtype=torch.float64)
+        scale = float(exact.abs().max())
+        e_port, e_ref = float((port - exact).abs().max()), float((theirs - exact).abs().max())
+        span = -float(torch.cumsum(log_w, 2).min())
+        print(f"span {span:.1f} nats, max|exact| {scale:.3f}: |port - exact| {e_port:.3e}, "
+              f"|reference - exact| {e_ref:.3e}, |port - reference| "
+              f"{float((port - theirs).abs().max()):.3e}")
+        assert max(e_port, e_ref) <= 4e-6 * scale and e_port <= 2 * e_ref
+
+
 def test_decode_writes_back_only_the_positions_it_wrote():
     """granite, B = 4, S split over model: a decode step at position 33
     changes only that position of the pieces (here in the fourth S block,
@@ -196,7 +256,7 @@ def test_decode_writes_back_only_the_positions_it_wrote():
             p.fill_(7.0)
     tokens = torch.zeros(4, 1, dtype=torch.int32)
     with torch.inference_mode():
-        STEPS.make_decode_step(cfg, mesh)(sp, cache, _rows(tokens, mesh), 33)
+        STEPS.make_decode_step(cfg, mesh)(sp, cache, SHD.batch_rows(tokens, mesh), 33)
     for s in leaves(cache):
         full = s.full()
         changed = (full != 7.0).any(dim=(0, 2, 3)).nonzero().flatten().tolist()
