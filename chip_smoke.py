@@ -244,6 +244,38 @@ Phases (any failure exits non-zero and prints no result line):
     (c) the three examples on the card at their defaults (``train_lm`` at
     ``--steps 20``), side by side: ``quickstart``'s CSR-k product within
     1e-4 of plain CSR.
+
+bf16 x, inside the phases above (each kernel reads a bf16 x, sums in f32
+and writes y in bf16, rounded once):
+
+(a) in 3, 6, 9, 12 and 15, each kernel on the same small matrices at bf16
+    x with f32 and bf16 values (and int8 where the route takes it), B = 1
+    and 8 (ELL: 1): y bf16; every row within ``(r_i 2^-8 + (2 k_i + 2)
+    eps32) (|A| |x|)_i`` of a float64 product of the same bf16 x and
+    dequantised values (r_i = 1, ``FOLD_ROUNDINGS`` on a CSR-k row the ops
+    layer folds a remainder into in bf16: phase 3 adds the 64x1024 matrix
+    whose far entries ride the remainder) and within ``(k_i + 2) 2^-7
+    (|A| |x|)_i`` of the plain version, which multiplies and sums in bf16;
+    repeat launches and the columns of B = 8 bit-equal; CSR-k's tile rows
+    bit-equal to ``ref.csrk_tile_rows_in_order``'s bf16 form; segsum, DIA
+    and ELL into NaN-filled bf16 output; phase 3 also holds ``spmm_width=8``
+    padding to each bf16 column's lone launch;
+(b) in 4, 7, 10, 13 and 16, each route's operator (``apply_original``; the
+    ELL path at B = 1) at bf16 x on its full-size matrix against a float64
+    CSR product, every row within the float64 bound, the kernel's launches
+    counted from 0 over that run;
+(c) in 5, 8, 11, 14 and 17, bf16 x at B = 1 and 8 (ELL: 1, on both of its
+    matrices) with f32 values, timed as the f32 cases, beside
+    ``torch.sparse`` CSR at bf16 where torch runs it on the card (else
+    logged, timing nothing); the bound counts x and y at 2 bytes;
+(d) in 19, a fifth of each stream's requests in bf16 x: every result in
+    its x's dtype and bit-equal to a direct call, no batch mixing dtypes,
+    a float16 x refused unqueued;
+(e) in 20, every sharded operator at bf16 x too (B = 1 and 8), bit-equal
+    to the single-device operator.
+
+Each kernel's entry in the ``kernels`` line carries a ``bf16_x`` part: its
+launches on (b), its worst errors in (a) and (b) and the (c) variants.
 """
 from __future__ import annotations
 
@@ -377,6 +409,135 @@ def check_close(y, y_ref, bound, what: str) -> float:
     return float(err.max())
 
 
+#: bf16 x: one rounding to bf16 (its unit roundoff) and its machine epsilon
+BF16_ROUND = 2.0 ** -8
+BF16_EPS = 2.0 ** -7
+#: bf16 roundings on the path of a CSR-k row the ops layer folds a COO
+#: remainder into in y's dtype: the tile row's store, the remainder value's
+#: cast, its product, the bf16 sum, the add to y (4 + 1: first order, with
+#: a margin for the higher-order terms)
+FOLD_ROUNDINGS = 5
+
+
+def bf16_bounds(abs_prod, row_nnz, folded=None):
+    """The two per-row bounds at bf16 x: against a float64 product of the
+    same bf16 x and dequantised values, ``(r_i 2^-8 + (2 k_i + 2) eps32)
+    (|A| |x|)_i`` (one rounding of an f32 sum, ``r_i`` roundings on a folded
+    row); against the plain version, which multiplies and sums in bf16,
+    ``(k_i + 2) 2^-7 (|A| |x|)_i``.  ``abs_prod`` is float64, with a
+    trailing batch axis where x has one; ``folded`` a bool mask of rows."""
+    import torch
+
+    k = row_nnz.to(torch.float64)
+    r = torch.ones_like(k)
+    if folded is not None:
+        r = torch.where(folded, torch.full_like(k, FOLD_ROUNDINGS), r)
+    if abs_prod.ndim == 2:
+        k, r = k[:, None], r[:, None]
+    return ((r * BF16_ROUND + (2 * k + 2) * EPS32) * abs_prod,
+            (k + 2) * BF16_EPS * abs_prod)
+
+
+def bf16x_checks(what, run, plain, abs_plain, n, row_nnz, seed: int, folded=None,
+                 batched: bool = True, in_order=None) -> dict:
+    """Phase (a) at bf16 x for one kernel path ``run`` (x -> y): at B = 1
+    and 8 (1 alone unless ``batched``), y is bf16 and within the float64
+    bound of ``plain`` run on the float64 x (which sums in float64) and
+    within the plain bound of ``plain`` run on the bf16 x; a repeat launch
+    and ``in_order`` (where given) are bit-equal; column j of B = 8 equals
+    a B = 1 launch.  ``abs_plain`` gives |A| |x| from a float64 |x|.
+    Returns {"f64": worst |err| against float64, "plain": against plain}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, 8), generator=gen, device="cuda").to(torch.bfloat16)
+    errs = {"f64": 0.0, "plain": 0.0}
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X))[: 2 if batched else 1]:
+        y = run(xb)
+        if y.dtype != torch.bfloat16:
+            raise AssertionError(f"{what} B={B}: y is {y.dtype}, not bfloat16")
+        x64 = xb.double()
+        b64, b_plain = bf16_bounds(abs_plain(x64.abs()), row_nnz, folded)
+        errs["f64"] = max(errs["f64"], check_close(y, plain(x64), b64,
+                                                   f"{what} bf16 x B={B} vs float64"))
+        errs["plain"] = max(errs["plain"], check_close(y, plain(xb), b_plain,
+                                                       f"{what} bf16 x B={B} vs plain"))
+        if not torch.equal(y, run(xb)):
+            raise AssertionError(f"{what} bf16 x B={B}: repeat launch differs")
+        if in_order is not None and not torch.equal(*in_order(xb)):
+            raise AssertionError(f"{what} bf16 x B={B}: kernel != in-order plain bits")
+    if batched:
+        Y8 = run(X)
+        for j in range(8):
+            if not torch.equal(Y8[:, j], run(X[:, j].contiguous())):
+                raise AssertionError(f"{what} bf16 x: column {j} of B=8 != B=1")
+    return errs
+
+
+def bf16x_full(tag, apply, A_dev, seed: int, folded=None, batched: bool = True) -> float:
+    """Phase (b): ``apply`` (x in the original index space) at bf16 x, B = 1
+    and 8, against a float64 CSR product of A (its f32 values) on the same
+    x, every row within the float64 bound.  Returns the worst |err|."""
+    import torch
+
+    from repro_torch.sparse import CSRMatrix
+
+    A64 = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double(), A_dev.shape)
+    A_abs = CSRMatrix(A_dev.row_ptr, A_dev.col_idx, A_dev.vals.double().abs(), A_dev.shape)
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((A_dev.shape[1], 8)).astype(np.float32))
+    X = X.cuda().to(torch.bfloat16)
+    worst = 0.0
+    for B, xb in ((1, X[:, 0].contiguous()), (8, X))[: 2 if batched else 1]:
+        y = apply(xb)
+        if y.dtype != torch.bfloat16:
+            raise AssertionError(f"{tag} bf16 x B={B}: y is {y.dtype}, not bfloat16")
+        x64 = xb.double()
+        b64, _ = bf16_bounds(csr_product(A_abs, x64.abs()), A_dev.row_lengths(), folded)
+        err = check_close(y, csr_product(A64, x64), b64, f"{tag} bf16 x B={B} vs float64 CSR")
+        log(f"[{tag}] bf16 x B={B}: y bf16, every row within (r 2^-8 + (2k+2) eps32)|A||x| "
+            f"of the float64 CSR product, max |err| {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def library_bf16(csr):
+    """``torch.sparse`` CSR of ``csr`` with bf16 values, or None where torch
+    does not run a bf16 CSR product on this card (the reason is logged)."""
+    import torch
+
+    sp = library_csr(csr)
+    sp = torch.sparse_csr_tensor(sp.crow_indices(), sp.col_indices(),
+                                 sp.values().to(torch.bfloat16), size=sp.shape,
+                                 check_invariants=True)
+    try:
+        for x in (torch.ones(csr.shape[1], dtype=torch.bfloat16, device="cuda"),
+                  torch.ones((csr.shape[1], 8), dtype=torch.bfloat16, device="cuda")):
+            sp @ x
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[bf16x] torch.sparse CSR at bf16 does not run on this card, timed nothing: "
+            f"{str(exc).splitlines()[0]}")
+        return None
+    return sp
+
+
+def bf16x_time(tag, xb, kernel, plain, abs_plain, row_nnz, sp16, nbytes, nnz, rates) -> dict:
+    """Phase (c): one bf16-x case (f32 values): the kernel path ``kernel``
+    checked against ``plain`` on the float64 x within the float64 bound,
+    then timed as ``time_variant`` times the others, beside ``torch.sparse``
+    CSR at bf16 (``sp16``, None where it does not run).  ``nbytes`` counts x
+    and y at 2 bytes."""
+    B = 1 if xb.ndim == 1 else int(xb.shape[1])
+    x64 = xb.double()
+    b64, _ = bf16_bounds(abs_plain(x64.abs()), row_nnz)
+    err = check_close(kernel(xb), plain(x64), b64, f"{tag} bf16 x B={B} vs float64")
+    rec = time_variant(f"{tag}/bf16x", "f32", B, err, lambda: kernel(xb), lambda: plain(xb),
+                       None if sp16 is None else (lambda: sp16 @ xb), nbytes, nnz, rates)
+    rec["x_dtype"] = "bf16"
+    return rec
+
+
 def abs_tiles(view):
     """The same tile view with |values| (for the |A| |x| bound)."""
     from repro_torch.sparse import CSRkTileBuckets
@@ -443,8 +604,8 @@ def csrk_in_order(view, x):
         return spmv_csrk_tiles(view.vals, view.local_col, view.local_row, view.win_block, x,
                                view.val_scale, rows_per_tile=R, window=W,
                                tile_nnz=view.tile_nnz), plain(view)
-    y = torch.full((view.num_tiles * R,) + tail, float("nan"), device=x.device)
-    want = torch.full((view.num_tiles, R) + tail, float("nan"), device=x.device)
+    y = torch.full((view.num_tiles * R,) + tail, float("nan"), dtype=x.dtype, device=x.device)
+    want = torch.full((view.num_tiles, R) + tail, float("nan"), dtype=x.dtype, device=x.device)
     for b, ids in zip(view.buckets, view.tile_ids):
         spmv_csrk_tiles(b.vals, b.local_col, b.local_row, b.win_block, x, b.val_scale,
                         rows_per_tile=R, window=W, tile_nnz=b.tile_nnz, tile_ids=ids, out=y)
@@ -465,6 +626,66 @@ def views_for(csrk, dtypes, layouts=("monolithic", "bucketed")):
             v["bucketed"] = bucket_tiles(tiles).to("cuda")
         out[dt] = v
     return out
+
+
+def far_entries_csrk():
+    """The port's tests' 64x1024 matrix (a near diagonal and one far entry
+    per row) as CSR-k with a 128-column window: every tile's far entries
+    ride the COO remainder, which the ops layer folds into y."""
+    from repro_torch.sparse import CSRMatrix, build_csrk
+
+    dense = np.zeros((64, 1024), np.float32)
+    for i in range(64):
+        dense[i, i] = 2.0
+        dense[i, 600 + (i * 37) % 400] = 1.0
+    return build_csrk(CSRMatrix.fromdense(dense), srs=4, ssrs=2, k=3)
+
+
+def csrk_bf16x_small(op_small, A_small) -> dict:
+    """Phase 3(a): the CSR-k kernel at bf16 x on ecology1/64 and on the
+    64x1024 matrix with a remainder, at f32, bf16 and int8 values, both
+    layouts (``bf16x_checks``, the tile rows bit-equal to
+    ``ref.csrk_tile_rows_in_order``'s bf16 form); then ``PreparedSpMV``
+    with ``spmm_width=8``: each column of a zero-padded bf16 block, and a
+    bf16 [n] x, give the bits of their lone launch, through ``__call__`` and
+    ``apply_original``.  Returns {case: worst errors}."""
+    import torch
+
+    from repro_torch.core import prepare
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sparse import bucket_tiles, tiles_from_csrk
+
+    run = {"monolithic": ops.spmv_csrk, "bucketed": ops.spmv_csrk_bucketed}
+    plain = {"monolithic": ref.spmv_csrk_tiles, "bucketed": ref.spmv_csrk_buckets}
+    errs = {}
+    for name, csrk, kw in (("ecology1/64", op_small.csrk, {}),
+                           ("64x1024 remainder", far_entries_csrk(), {"window": 128})):
+        row_nnz = csrk.csr.row_lengths().to("cuda")
+        for dt in ("f32", "bf16", "int8"):
+            tiles = tiles_from_csrk(csrk, value_dtype=dt, **kw)
+            folded = torch.zeros(csrk.csr.shape[0], dtype=torch.bool, device="cuda")
+            folded[tiles.rem_row.long().to("cuda")] = True
+            for layout, view in (("monolithic", tiles.to("cuda")),
+                                 ("bucketed", bucket_tiles(tiles).to("cuda"))):
+                abs_view = abs_tiles(view)
+                errs[(name, dt, layout)] = bf16x_checks(
+                    f"{name} {dt} {layout} (remainder {tiles.remainder_nnz})",
+                    lambda x: run[layout](view, x), lambda x: plain[layout](view, x),
+                    lambda x: plain[layout](abs_view, x), csrk.csr.shape[1], row_nnz, 6,
+                    folded=folded, in_order=lambda x: csrk_in_order(view, x))
+    op8 = prepare(A_small, device="cuda", format="auto", spmm_width=8)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.randn((A_small.n, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    for call in ("__call__", "apply_original"):
+        padded, lone = getattr(op8, call), getattr(op_small, call)
+        Y = padded(X)
+        for j in range(3):
+            xj = X[:, j].contiguous()
+            if not (torch.equal(Y[:, j], lone(xj)) and torch.equal(padded(xj), lone(xj))):
+                raise AssertionError(f"spmm_width=8 {call}: bf16 column {j} != its lone launch")
+        if Y.dtype != torch.bfloat16:
+            raise AssertionError(f"spmm_width=8 {call}: y is {Y.dtype}")
+    return errs
 
 
 def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
@@ -512,11 +733,26 @@ def time_variant(tag, dt, B, err, run, plain, library, nbytes, nnz, rates,
     return rec
 
 
+def bf16_entry(launches, small_errs, full_err, variants) -> dict:
+    """A kernel's bf16-x part of the ``kernels`` line: the wrapper's
+    launches on the full-size bf16-x path (phase (b)), the worst |err| of
+    the small cases (phase (a)) against float64 and against the plain
+    version, and of the full-size run against float64, and the timed
+    variants (phase (c), f32 values)."""
+    return {
+        "launches": launches,
+        "max_abs_err_f64": max([full_err] + [e["f64"] for e in small_errs.values()]),
+        "max_abs_err_plain": max(e["plain"] for e in small_errs.values()),
+        "variants": variants,
+    }
+
+
 def kernel_entry(name, source, replaces, launches, variants, shape,
-                 cuda_launches_per_call: int = 1) -> dict:
+                 cuda_launches_per_call: int = 1, bf16_x=None) -> dict:
     """One kernel's record of the ``kernels`` line; the headline numbers are
-    its first variant's (f32, B=1).  ``launches`` counts wrapper calls, each
-    ``cuda_launches_per_call`` CUDA launches."""
+    its first variant's (f32 x and values, B=1).  ``launches`` counts
+    wrapper calls, each ``cuda_launches_per_call`` CUDA launches; ``bf16_x``
+    is the kernel's bf16-x part (``bf16_entry``)."""
     head = variants[0]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -525,6 +761,7 @@ def kernel_entry(name, source, replaces, launches, variants, shape,
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": shape,
         "variants": variants,
+        "bf16_x": bf16_x,
     }
 
 
@@ -617,9 +854,9 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
     from repro_torch.obs import get_registry
     from repro_torch.sparse import CSRMatrix, sellcs_from_csr
 
-    # 6. kernel vs plain on small matrices
+    # 6. kernel vs plain on small matrices; (a) at bf16 x
     t0 = time.perf_counter()
-    errs = {}
+    errs, errs16 = {}, {}
     for name, A_s in (("bmwcra_1/64", load_suite(scale=64, ids=[16])["bmwcra_1"]),
                       ("pareto", pareto_rows(1003, seed=3))):
         sell_s = sellcs_from_csr(A_s)
@@ -628,9 +865,18 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
                 f"{int(sell_s.chunk_widths().max())}, W {views['f32'].width})")
         errs.update({(name,) + k: v for k, v in sell_kernel_vs_plain(
             views, A_s.row_lengths().cuda(), A_s.n, 2, what).items()})
+        for dt, view in views.items():
+            abs_view = dataclasses.replace(view, vals=view.vals.abs())
+            errs16[(name, dt)] = bf16x_checks(
+                f"{what} {dt}", lambda x: ops.spmv_sellcs(view, x),
+                lambda x: ref.spmv_sellcs_tiles(view, x),
+                lambda x: ref.spmv_sellcs_tiles(abs_view, x), A_s.n, A_s.row_lengths().cuda(), 6)
     torch.cuda.synchronize()
     log(f"[sellcs/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
-        f"bit-equal; max |err| {max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+        f"bit-equal; max |err| {max(errs.values()):.3e}; bf16 x: {len(errs16)} cases (B=1 "
+        f"and 8) y bf16 within the float64 and plain bounds, repeat and B=8 columns "
+        f"bit-equal, worst |err| {max(e['f64'] for e in errs16.values()):.3e} vs float64 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 7. the SELL-C-σ path at the paper's bmwcra_1 size
     t0 = time.perf_counter()
@@ -699,6 +945,12 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
         f"launches {spmv_csrk_tiles.launches}")
     if launches == 0:
         raise AssertionError("the SELL-C-σ path never launched its CUDA kernel")
+    spmv_sellcs_chunks.launches = 0
+    err16 = bf16x_full("sellcs/main", op.apply_original, A_dev, 8)
+    bf16_launches = spmv_sellcs_chunks.launches
+    log(f"[sellcs/main] bf16 x path: spmv_sellcs launches {bf16_launches}")
+    if bf16_launches == 0:
+        raise AssertionError("the bf16-x SELL-C-σ path never launched its CUDA kernel")
 
     # 8. timing at the bmwcra_1 shapes
     t0 = time.perf_counter()
@@ -732,12 +984,25 @@ def sellcs_phases(mem_rate: float, f32_rate: float):
                 lambda: ref.spmv_sellcs_tiles(view, xb),
                 (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
                 yardstick=yardstick))
+    sp16 = library_bf16(A_dev)
+    abs_tiles_ = dataclasses.replace(tiles, vals=tiles.vals.abs())
+    bf16_variants = []
+    for B in (1, 8):
+        xb = torch.randn((n, B), generator=gen, device="cuda").to(torch.bfloat16)
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        bf16_variants.append(bf16x_time(
+            "sellcs/time", xb, lambda x: ops.spmv_sellcs(tiles, x),
+            lambda x: ref.spmv_sellcs_tiles(tiles, x),
+            lambda x: ref.spmv_sellcs_tiles(abs_tiles_, x), row_nnz, sp16,
+            nnz * (4 + 4) + 4 * m_pad + 4 * T + 2 * n * B + 2 * m * B, nnz,
+            (mem_rate, f32_rate)))
     log(f"[sellcs/time] done in {time.perf_counter() - t0:.1f} s")
     entry = kernel_entry(
         "spmv_sellcs", "src/repro_torch/csrc/spmv_sellcs.cu",
         "src/repro/kernels/spmv_sellcs.py:103", launches, variants,
         {"matrix": "bmwcra_1", "m": m, "n": n, "nnz": nnz, "C": tiles.C, "chunks": T,
-         "W": tiles.width, "value_dtype": "f32", "B": 1})
+         "W": tiles.width, "value_dtype": "f32", "B": 1},
+        bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants))
     return entry, {"A": A, "A_dev": A_dev, "op": op, "diag": diag, "b": b1}
 
 
@@ -771,6 +1036,19 @@ def segsum_kernel_vs_plain(seg, row_nnz, n, seed: int, what: str):
         if not torch.equal(Y8[:, j], ops.spmv_segsum(seg, X[:, j].contiguous())):
             raise AssertionError(f"{what}: column {j} of B=8 != B=1")
     return errs
+
+
+def segsum_into_nan(seg, x):
+    """The segmented-sum kernel into an output of x's dtype filled with NaN
+    before the call: every row, empty ones too, must be written."""
+    import torch
+
+    from repro_torch.kernels.spmv_segsum import spmv_segsum_chunks
+
+    out = torch.full((seg.m,) + tuple(x.shape[1:]), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    return spmv_segsum_chunks(seg.vals, seg.col_idx, seg.seg_row, seg.seg_start, seg.carry, x,
+                              seg.val_scale, m=seg.m, nnz=seg.nnz, out=out)
 
 
 def segsum_pattern_exact(seg, row_nnz, what: str) -> None:
@@ -877,9 +1155,9 @@ def segsum_phases(mem_rate: float, f32_rate: float):
     from repro_torch.obs import get_registry
     from repro_torch.sparse import segsum_from_csr
 
-    # 9. kernel vs plain on small matrices
+    # 9. kernel vs plain on small matrices; (a) at bf16 x
     t0 = time.perf_counter()
-    errs = {}
+    errs, errs16 = {}, {}
     cases = (("powerlaw_zipf(2048)", powerlaw_zipf(2048), (128, 512)),
              ("empty margins", empty_margin_rows(300, seed=3), (128, 512)),
              ("three chunks", three_chunk_matrix(), (128,)),
@@ -894,6 +1172,10 @@ def segsum_phases(mem_rate: float, f32_rate: float):
                 errs.update({(name, S, dt, B): e for B, e in segsum_kernel_vs_plain(
                     seg, row_nnz, A_s.n, 4, what).items()})
                 segsum_pattern_exact(seg, row_nnz, what)
+                errs16[(name, S, dt)] = bf16x_checks(
+                    what, lambda x: segsum_into_nan(seg, x), lambda x: ref.spmv_segsum(seg, x),
+                    lambda x: ref.spmv_segsum(dataclasses.replace(seg, vals=seg.vals.abs()), x),
+                    A_s.n, row_nnz, 6)
     seg = segsum_from_csr(three_chunk_matrix(), chunk_slots=128).to("cuda")
     x = torch.from_numpy((np.arange(512) % 7 + 1).astype(np.float32)).cuda()
     y = ops.spmv_segsum(seg, x).cpu().numpy()
@@ -903,7 +1185,11 @@ def segsum_phases(mem_rate: float, f32_rate: float):
     log(f"[segsum/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
         f"bit-equal, empty rows 0 in NaN-filled output, unit-value products exactly the "
         f"row lengths (a row over 40 chunks among them); three-chunk carry exactly "
-        f"{y.tolist()}; max |err| {max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+        f"{y.tolist()}; max |err| {max(errs.values()):.3e}; bf16 x: {len(errs16)} cases (B=1 "
+        f"and 8, into NaN-filled bf16 output) y bf16 within the float64 and plain bounds, "
+        f"repeat and B=8 columns bit-equal, worst |err| "
+        f"{max(e['f64'] for e in errs16.values()):.3e} vs float64 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 10. the segmented-sum path at powerlaw_zipf's full size
     t0 = time.perf_counter()
@@ -951,6 +1237,12 @@ def segsum_phases(mem_rate: float, f32_rate: float):
         f"spmv_csrk_tiles {spmv_csrk_tiles.launches}, spmv_sellcs {spmv_sellcs_chunks.launches}")
     if launches == 0:
         raise AssertionError("the segmented-sum path never launched its CUDA kernel")
+    spmv_segsum_chunks.launches = 0
+    err16 = bf16x_full("segsum/main", op.apply_original, A_dev, 9)
+    bf16_launches = spmv_segsum_chunks.launches
+    log(f"[segsum/main] bf16 x path: spmv_segsum launches {bf16_launches}")
+    if bf16_launches == 0:
+        raise AssertionError("the bf16-x segmented-sum path never launched its CUDA kernel")
 
     # 11. timing at the powerlaw_zipf shapes
     t0 = time.perf_counter()
@@ -1002,6 +1294,17 @@ def segsum_phases(mem_rate: float, f32_rate: float):
                 f"{read_bytes / 1e6:.1f} MB against {nbytes / 1e6:.1f} MB least, "
                 f"{old_bytes / 1e6:.1f} MB for the earlier kernel, which read local_seg")
             variants.append(rec)
+    sp16 = library_bf16(A_dev)
+    abs_seg = dataclasses.replace(seg, vals=seg.vals.abs())
+    bf16_variants = []
+    for B in (1, 8):
+        xb = torch.randn((n, B), generator=gen, device="cuda").to(torch.bfloat16)
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        bf16_variants.append(bf16x_time(
+            "segsum/time", xb, lambda x: ops.spmv_segsum(seg, x),
+            lambda x: ref.spmv_segsum(seg, x), lambda x: ref.spmv_segsum(abs_seg, x), row_nnz,
+            sp16, nnz * (4 + 4) + 4 * (2 * n_real + T) + 2 * n * B + 2 * m * B, nnz,
+            (mem_rate, f32_rate)))
     log(f"[segsum/time] unit-value products exactly the row lengths at full size "
         f"(f32/bf16/int8, B=1 and 8); done in {time.perf_counter() - t0:.1f} s")
     return kernel_entry(
@@ -1009,7 +1312,8 @@ def segsum_phases(mem_rate: float, f32_rate: float):
         "src/repro/kernels/spmv_segsum.py:101", launches, variants,
         {"matrix": "powerlaw_zipf", "m": m, "n": n, "nnz": nnz, "chunks": T, "S": S, "R": R,
          "value_dtype": "f32", "B": 1},
-        cuda_launches_per_call=2 if seg.carry.shape[0] else 1), A
+        cuda_launches_per_call=2 if seg.carry.shape[0] else 1,
+        bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants)), A
 
 
 def abs_dia(d):
@@ -1047,6 +1351,19 @@ def dia_kernel_vs_plain(d, row_nnz, seed: int, what: str):
     return errs
 
 
+def dia_into_nan(d, x):
+    """The DIA/CSR-hybrid kernel into an output of x's dtype filled with NaN
+    before the call: every row must be written."""
+    import torch
+
+    from repro_torch.kernels.spmv_diahybrid import spmv_diahybrid_rows
+
+    out = torch.full((d.m,) + tuple(x.shape[1:]), float("nan"), dtype=x.dtype, device=x.device)
+    r = d.remainder
+    return spmv_diahybrid_rows(d.diag_vals, d.offset_vec, d.rem_rows, d.rem_start, d.rem_mask,
+                               r.col_idx, r.vals, x, m=d.m, n=d.n, out=out)
+
+
 def dia_phases(mem_rate: float, f32_rate: float):
     """Phases 12-14: the DIA/CSR-hybrid kernel, its path at
     stencil_fringe(side=2048), timing.  Returns the kernel's entry of the
@@ -1066,9 +1383,9 @@ def dia_phases(mem_rate: float, f32_rate: float):
     from repro_torch.obs import get_registry
     from repro_torch.sparse import diahybrid_from_csr
 
-    # 12. kernel vs plain on small matrices
+    # 12. kernel vs plain on small matrices; (a) at bf16 x
     t0 = time.perf_counter()
-    errs = {}
+    errs, errs16 = {}, {}
     # remainder rows of 1..129 entries at mask-word edges and the last row
     lengths = lambda m: dict(zip((0, 31, 32, 33, 63, 64, m - 1),  # noqa: E731
                                  (1, 2, 31, 32, 33, 64, 129)))
@@ -1096,6 +1413,10 @@ def dia_phases(mem_rate: float, f32_rate: float):
                     f"{d.remainder.nnz} in {R} rows, G {fringe_lanes(d.remainder.nnz, R)}) {dt}")
             errs.update({(name, dt, B): e for B, e in dia_kernel_vs_plain(
                 d, row_nnz, 7, what).items()})
+            abs_d = abs_dia(d)
+            errs16[(name, dt)] = bf16x_checks(
+                what, lambda x: dia_into_nan(d, x), lambda x: ref.spmv_diahybrid(d, x),
+                lambda x: ref.spmv_diahybrid(abs_d, x), A_s.n, row_nnz, 6)
     A_h = dia_hand_matrix()
     X = torch.arange(1, 9, dtype=torch.float32)[:, None] * torch.tensor([1.0, -2.0, 3.0])
     want = (A_h.todense().double() @ X.double()).float().cuda()
@@ -1115,17 +1436,22 @@ def dia_phases(mem_rate: float, f32_rate: float):
         xb = torch.randn((A_f.n, B), device="cuda")
         xb[[0, 100, A_f.n - 1]] = bad[:, None]
         xb = xb[:, 0].contiguous() if B == 1 else xb
-        y, yp = ops.spmv_diahybrid(d, xb), ref.spmv_diahybrid(d, xb)
-        for test in (torch.isnan, torch.isposinf, torch.isneginf):
-            if not torch.equal(test(y), test(yp)):
-                raise AssertionError(f"non-finite x, B={B}: {test.__name__} differs from plain")
+        for xd in (xb, xb.to(torch.bfloat16)):
+            y, yp = ops.spmv_diahybrid(d, xd), ref.spmv_diahybrid(d, xd)
+            for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(test(y), test(yp)):
+                    raise AssertionError(f"non-finite {xd.dtype} x, B={B}: {test.__name__} "
+                                         f"differs from plain")
         n_bad[B] = (int(torch.isnan(y).sum()), int(torch.isinf(y).sum()))
     torch.cuda.synchronize()
     log(f"[dia/kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
         f"bit-equal, every row written into NaN-filled output; hand case exact "
-        f"(f32/bf16, B=1 and 3); inf/-inf/NaN in x: NaN and inf rows equal the plain "
-        f"version's (NaN, inf rows at B=1 {n_bad[1]}, B=8 {n_bad[8]}); max |err| "
-        f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+        f"(f32/bf16, B=1 and 3); inf/-inf/NaN in x (f32 and bf16): NaN and inf rows equal "
+        f"the plain version's (NaN, inf rows at B=1 {n_bad[1]}, B=8 {n_bad[8]}); max |err| "
+        f"{max(errs.values()):.3e}; bf16 x: {len(errs16)} cases (B=1 and 8, into NaN-filled "
+        f"bf16 output) y bf16 within the float64 and plain bounds, repeat and B=8 columns "
+        f"bit-equal, worst |err| {max(e['f64'] for e in errs16.values()):.3e} vs float64 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 13. the DIA/CSR-hybrid path at stencil_fringe(side=2048)
     t0 = time.perf_counter()
@@ -1170,6 +1496,13 @@ def dia_phases(mem_rate: float, f32_rate: float):
     if launches != spmvs:
         raise AssertionError(f"the DIA/CSR-hybrid path made {launches} kernel launches for "
                              f"{spmvs} SpMVs, expected one each")
+    spmv_diahybrid_rows.launches = 0
+    err16 = bf16x_full("dia/main", op.apply_original, A_dev, 10)
+    bf16_launches = spmv_diahybrid_rows.launches
+    log(f"[dia/main] bf16 x path: spmv_diahybrid launches {bf16_launches} over 2 SpMVs")
+    if bf16_launches != 2:
+        raise AssertionError(f"the bf16-x DIA/CSR-hybrid path made {bf16_launches} kernel "
+                             f"launches for 2 SpMVs, expected one each")
 
     # 14. timing at the stencil_fringe(2048) shapes
     t0 = time.perf_counter()
@@ -1214,13 +1547,25 @@ def dia_phases(mem_rate: float, f32_rate: float):
                 f"({rec['ms'] / rec['row_ptr_bound_ms']:.2f} x), beside the bound's "
                 f"{nbytes / 1e6:.1f} MB, {rec['bound_ms']:.4f} ms")
             variants.append(rec)
+    sp16 = library_bf16(A_dev)
+    abs_view = abs_dia(dia)
+    bf16_variants = []
+    for B in (1, 8):
+        xb = torch.randn((n, B), generator=gen, device="cuda").to(torch.bfloat16)
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        bf16_variants.append(bf16x_time(
+            "dia/time", xb, lambda x: ops.spmv_diahybrid(dia, x),
+            lambda x: ref.spmv_diahybrid(dia, x), lambda x: ref.spmv_diahybrid(abs_view, x),
+            row_nnz, sp16, dia.n_diag * m * 4 + 8 * rem_nnz + 4 * (2 * R + 1)
+            + 4 * -(-m // 32) + 2 * n * B + 2 * m * B, nnz, (mem_rate, f32_rate)))
     log(f"[dia/time] done in {time.perf_counter() - t0:.1f} s")
     entry = kernel_entry(
         "spmv_diahybrid", "src/repro_torch/csrc/spmv_diahybrid.cu",
         "src/repro/kernels/spmv_diahybrid.py:84", launches, variants,
         {"matrix": "stencil_fringe(side=2048)", "m": m, "n": n, "nnz": nnz,
          "n_diag": dia.n_diag, "diag_nnz": dia.diag_nnz, "remainder_nnz": rem_nnz,
-         "value_dtype": "f32", "B": 1})
+         "value_dtype": "f32", "B": 1},
+        bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants))
     return entry, A
 
 
@@ -1248,6 +1593,29 @@ def ell_kernel_vs_plain(e, n, seed: int, what: str) -> float:
     if not torch.equal(y, spmv_ell_rows(e.col_idx, e.vals, x, m=m, n=n)):
         raise AssertionError(f"{what}: repeat launch differs")
     return err
+
+
+def ell_into_nan(e, x):
+    """The ELL kernel into an output of x's dtype filled with NaN before the
+    call: every row must be written."""
+    import torch
+
+    from repro_torch.kernels.spmv_ell import spmv_ell_rows
+
+    m = e.shape[0]
+    out = torch.full((m,), float("nan"), dtype=x.dtype, device=x.device)
+    return spmv_ell_rows(e.col_idx, e.vals, x, m=m, n=x.shape[0], out=out)
+
+
+def ell_bf16x(e, n, what: str) -> dict:
+    """Phase 15(a) for one slab: bf16 x (``bf16x_checks``, vector only)."""
+    from repro_torch.kernels import ref
+
+    abs_vals = e.vals.abs()
+    return bf16x_checks(what, lambda x: ell_into_nan(e, x),
+                        lambda x: ref.ell_rows(e.col_idx, e.vals, x),
+                        lambda x: ref.ell_rows(e.col_idx, abs_vals, x), n,
+                        (e.vals != 0).sum(dim=1), 6, batched=False)
 
 
 def shifted(t, by: int):
@@ -1288,10 +1656,15 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
     cases += [(f"m 1003, kmax {k}", A_s, None) for k, A_s in widths.items()]
     cases += [("m 1003, kmax 129 cut at 40", widths[129], 40),
               ("all empty 37x20", CSRMatrix.fromdense(np.zeros((37, 20), np.float32)), None)]
-    errs = {}
+    errs, errs16 = {}, {}
     for name, A_s, cut in cases:
         e = ell_from_csr(A_s, cut).to("cuda")
         errs[name] = ell_kernel_vs_plain(e, A_s.n, 10, f"{name} (kmax {e.kmax})")
+        e16 = dataclasses.replace(e, vals=e.vals.to(torch.bfloat16))
+        errs[name + ", bf16 values"] = ell_kernel_vs_plain(
+            e16, A_s.n, 10, f"{name} (kmax {e.kmax}), bf16 values")
+        for dt, ed in (("f32", e), ("bf16", e16)):
+            errs16[(name, dt)] = ell_bf16x(ed, A_s.n, f"{name} (kmax {e.kmax}) {dt} values")
     # views whose base pointers are off 16-byte boundaries: at one phase
     # (vectors) and at two (slot by slot); rows of kmax 73 start at every phase
     views = {}
@@ -1302,6 +1675,12 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
             views[label] = (dataclasses.replace(e, col_idx=shifted(e.col_idx, sc),
                                                 vals=shifted(e.vals, sv)), A_s.n)
             errs[label] = ell_kernel_vs_plain(views[label][0], A_s.n, 10, label)
+            e16 = dataclasses.replace(e, col_idx=shifted(e.col_idx, sc),
+                                      vals=shifted(e.vals.to(torch.bfloat16), sv))
+            errs[label + ", bf16 values"] = ell_kernel_vs_plain(
+                e16, A_s.n, 10, label + ", bf16 values")
+            errs16[(label, "f32")] = ell_bf16x(views[label][0], A_s.n, label)
+            errs16[(label, "bf16")] = ell_bf16x(e16, A_s.n, label + ", bf16 values")
     bad = torch.tensor([float("inf"), float("-inf"), float("nan")], device="cuda")
     n_bad = {}
     nonfinite = [(name, ell_from_csr(A_s).to("cuda"), A_s.n) for name, A_s in (
@@ -1321,7 +1700,10 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
         f"boundaries) within bound, repeat launches bit-equal, every row written into "
         f"NaN-filled output; inf/-inf/NaN in x (inf at x[0]) on aligned and unaligned slabs: "
         f"NaN and inf rows equal the plain version's (NaN, inf rows {n_bad}); max |err| "
-        f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+        f"{max(errs.values()):.3e} (f32 and bf16 values); bf16 x: {len(errs16)} cases (f32 "
+        f"and bf16 values, into NaN-filled bf16 output) y bf16 within the float64 and plain "
+        f"bounds, repeat bit-equal, worst |err| {max(e['f64'] for e in errs16.values()):.3e} "
+        f"vs float64 ({time.perf_counter() - t0:.1f} s)")
 
     # 16. the ELL path at bmwcra_1's full size
     A, A_dev, op, diag, b = (bmw[k] for k in ("A", "A_dev", "op", "diag", "b"))
@@ -1372,6 +1754,12 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
     if launches != spmvs or any(other.values()):
         raise AssertionError(f"the ELL path made {launches} ELL launches for {spmvs} SpMVs "
                              f"and {other} others, expected one ELL launch each")
+    spmv_ell_rows.launches = 0
+    err16 = bf16x_full("ell/main", lambda v: ops.spmv_ell(ell, v), A_dev, 11, batched=False)
+    bf16_launches = spmv_ell_rows.launches
+    log(f"[ell/main] bf16 x path: spmv_ell launches {bf16_launches} over 1 SpMV")
+    if bf16_launches != 1:
+        raise AssertionError(f"the bf16-x ELL path made {bf16_launches} launches for 1 SpMV")
 
     # 17. timing on bmwcra_1 and stencil_fringe(2048)
     def time_ell(label, A_t, A_t_dev, ell_t):
@@ -1396,10 +1784,18 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
         beside = others["spmv_sellcs" if label == "bmwcra_1" else "spmv_diahybrid"]
         log(f"[ell/time] {label}: ELL {rec['ms']:.4f} ms beside {beside['name']} "
             f"{beside['ms']:.4f} ms and cuSPARSE {rec['library_ms']:.4f} ms (this run)")
-        return rec
+        abs_vals = ell_t.vals.abs()
+        rec16 = bf16x_time(
+            "ell/time", xt.to(torch.bfloat16), lambda x: ops.spmv_ell(ell_t, x),
+            lambda x: ref.ell_rows(ell_t.col_idx, ell_t.vals, x),
+            lambda x: ref.ell_rows(ell_t.col_idx, abs_vals, x), (ell_t.vals != 0).sum(dim=1),
+            library_bf16(A_t_dev), 8 * slots_t + 2 * A_t.n + 2 * A_t.m, slots_t,
+            (mem_rate, f32_rate))
+        rec16["matrix"] = label
+        return rec, rec16
 
     t0 = time.perf_counter()
-    variants = [time_ell("bmwcra_1", A, A_dev, ell)]
+    variants, bf16_variants = (list(r) for r in zip(time_ell("bmwcra_1", A, A_dev, ell)))
     t1 = time.perf_counter()
     ell_f = ell_from_csr(fringe)
     t_build = time.perf_counter() - t1
@@ -1408,8 +1804,9 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
         f"({ell_f.vals.numel() / fringe.nnz:.2f} x nnz), padding_overhead "
         f"{ell_f.padding_overhead():.4f}, slab {8 * ell_f.vals.numel() / 1e9:.2f} GB")
     # the 2.45 GB slab lives on the card only inside this call
-    variants.append(time_ell("stencil_fringe(2048)", fringe, fringe.to("cuda"),
-                             ell_f.to("cuda")))
+    rec, rec16 = time_ell("stencil_fringe(2048)", fringe, fringe.to("cuda"), ell_f.to("cuda"))
+    variants.append(rec)
+    bf16_variants.append(rec16)
     del ell_f
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1418,7 +1815,37 @@ def ell_phases(mem_rate: float, f32_rate: float, bmw: dict, fringe, others: dict
         "spmv_ell", "src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:29",
         launches, variants,
         {"matrix": "bmwcra_1", "m": A.m, "n": A.n, "nnz": A.nnz, "kmax": ell.kmax,
-         "slots": slots, "value_dtype": "f32", "B": 1})
+         "slots": slots, "value_dtype": "f32", "B": 1},
+        bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants))
+
+
+#: the share of bf16 requests in phase 19's streams: the reference's stream
+#: test's (tests/test_serve_engine.py)
+SERVE_BF16_SHARE = 0.2
+
+
+def served_close(y, x, op, A, what: str) -> float:
+    """One served result against a plain CSR product of the matrix in the
+    operator's own order (CSR-k results live in the Band-k order): an f32 x
+    within the f32 row bound; a bf16 x within the float64 bound of a float64
+    product (``bf16_bounds``)."""
+    import torch
+
+    from repro_torch.sparse import CSRMatrix
+
+    mat = op.csr if op.backend == "csrk" else A.to("cuda")
+    mat_abs = CSRMatrix(mat.row_ptr, mat.col_idx, mat.vals.abs(), mat.shape)
+    if x.dtype != torch.bfloat16:
+        return check_close(y, csr_product(mat, x),
+                           row_bound(csr_product(mat_abs, x.abs()), mat.row_lengths()), what)
+    folded = None
+    if op.backend == "csrk" and op.tiles is not None and op.tiles.remainder_nnz:
+        folded = torch.zeros(mat.shape[0], dtype=torch.bool, device="cuda")
+        folded[op.tiles.rem_row.long()] = True
+    x64 = x.double()
+    b64, _ = bf16_bounds(csr_product(mat_abs, x64.abs()), mat.row_lengths(), folded)
+    mat64 = CSRMatrix(mat.row_ptr, mat.col_idx, mat.vals.double(), mat.shape)
+    return check_close(y, csr_product(mat64, x64), b64, what + " (bf16 x, float64 product)")
 
 
 def serve_phase(fleet: dict) -> dict:
@@ -1426,9 +1853,11 @@ def serve_phase(fleet: dict) -> dict:
 
     ``fleet`` maps a matrix id to (host CSR, the route ``prepare`` must
     give it).  One ``ServeEngine(max_batch=8)`` prepares each on its first
-    miss, serves a seeded stream and one burst per matrix, and every result
-    is held bit for bit against a direct call of the cached operator (a
-    sample also within the row bound of the plain CSR product); then a
+    miss, serves a seeded stream (a fifth of its requests in bf16 x, no batch
+    mixing dtypes) and one burst per matrix, and every result is held bit
+    for bit against a direct call of the cached operator (a sample also
+    within the row bound of the plain CSR product); a float16 x is refused
+    before queuing; then a
     second engine with a byte budget one under two operators evicts and
     re-prepares.  Returns, per kernel name, its serving launches and the
     device ms of one W=8 dispatch, for the ``kernels`` line."""
@@ -1456,6 +1885,16 @@ def serve_phase(fleet: dict) -> dict:
     for f in counted.values():
         f.launches = 0
     eng = ServeEngine(max_batch=W, device="cuda", format="auto")
+    batch_dtypes = []      # the x dtypes of each batch the scheduler hands out
+    next_batch = eng.scheduler.next_batch
+
+    def recording_next_batch(now, flush=False):
+        batch = next_batch(now, flush=flush)
+        if batch is not None:
+            batch_dtypes.append({r.x.dtype for r in batch.requests})
+        return batch
+
+    eng.scheduler.next_batch = recording_next_batch
     fp_of = {mid: eng.add_matrix(mid, A) for mid, (A, _) in fleet.items()}
     mid_of = {fp: mid for mid, fp in fp_of.items()}
     mids = list(fleet)
@@ -1473,14 +1912,17 @@ def serve_phase(fleet: dict) -> dict:
 
     def stream(n_req, stepper):
         """The reference CLI's stream: matrix uniform over the fleet, width
-        uniform over {1, 2, 3}, a step after a submit with probability 0.5,
-        then drain.  Returns [(id, x, future)] and the wall seconds."""
+        uniform over {1, 2, 3}, x in bf16 with probability ``SERVE_BF16_SHARE``
+        (else f32), a step after a submit with probability 0.5, then drain.
+        Returns [(id, x, future)] and the wall seconds."""
         sent = []
         t0 = time.perf_counter()
         for _ in range(n_req):
             mid = mids[rng.integers(len(mids))]
             n, w = fleet[mid][0].n, int(rng.integers(1, 4))
             x = torch.randn((n,) if w == 1 else (n, w), generator=gen, device="cuda")
+            if rng.random() < SERVE_BF16_SHARE:
+                x = x.to(torch.bfloat16)
             sent.append((mid, x, eng.submit(mid, x)))
             if rng.random() < 0.5:
                 stepper()
@@ -1539,25 +1981,39 @@ def serve_phase(fleet: dict) -> dict:
     if [op.backend for op in ops.values()] != [route for _, route in fleet.values()]:
         raise AssertionError(f"routes {[op.backend for op in ops.values()]}, expected "
                              f"the four routes")
-    bad = [(mid, tuple(x.shape)) for mid, x, fut in cold + bursts
-           if not torch.equal(fut.result(), ops[mid](x))]
+    bad = [(mid, tuple(x.shape), x.dtype) for mid, x, fut in cold + bursts
+           if fut.result().dtype != x.dtype or not torch.equal(fut.result(), ops[mid](x))]
     if bad:
         raise AssertionError(f"{len(bad)} served results differ from a direct call: {bad[:4]}")
+    mixed = [d for d in batch_dtypes if len(d) != 1]
+    if mixed:
+        raise AssertionError(f"{len(mixed)} batches mixed x dtypes: {mixed[:4]}")
+    n16 = sum(x.dtype == torch.bfloat16 for _, x, _ in cold)
+    b16 = sum(d == {torch.bfloat16} for d in batch_dtypes)
+    if not n16:
+        raise AssertionError("the stream sent no bf16 request")
     worst = {}
     for mid in mids:
         op, A = ops[mid], fleet[mid][0]
-        # CSR-k results live in the Band-k order: hold them against that matrix
-        mat = op.csr if op.backend == "csrk" else A.to("cuda")
-        mat_abs = CSRMatrix(mat.row_ptr, mat.col_idx, mat.vals.abs(), mat.shape)
         mine = [(x, fut) for m, x, fut in cold + bursts if m == mid]
-        sample = mine[:8] + mine[-2:]
-        worst[mid] = max(check_close(fut.result(), csr_product(mat, x),
-                                     row_bound(csr_product(mat_abs, x.abs()), mat.row_lengths()),
-                                     f"served {mid} vs plain CSR") for x, fut in sample)
-        del mat, mat_abs
+        mine16 = [(x, fut) for x, fut in mine if x.dtype == torch.bfloat16]
+        sample = mine[:8] + mine[-2:] + mine16[:2]
+        worst[mid] = max(served_close(fut.result(), x, op, A, f"served {mid} vs plain CSR")
+                         for x, fut in sample)
+    try:
+        eng.submit(mids[0], torch.ones(fleet[mids[0]][0].n, dtype=torch.float16, device="cuda"))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("a float16 x was queued")
+    if eng.queue_depth:
+        raise AssertionError("the refused float16 request was queued")
     log(f"[serve] checks: all {len(cold) + len(bursts)} results bit-equal to direct calls of "
-        f"the cached operators; 10 per matrix within the row bound of the plain CSR product "
-        f"(max |err| " + ", ".join(f"{m} {e:.3e}" for m, e in worst.items()) + f"); cache "
+        f"the cached operators, each in its x's dtype; {n16} of the stream's 512 requests in "
+        f"bf16 x ({SERVE_BF16_SHARE:.0%} share asked), {b16} of {len(batch_dtypes)} batches "
+        f"bf16, none mixing dtypes; a float16 x refused unqueued; 12 per matrix (2 of them "
+        f"bf16) within the row bound of the plain CSR product (float64 for bf16 x; max |err| "
+        + ", ".join(f"{m} {e:.3e}" for m, e in worst.items()) + f"); cache "
         f"hits {hits}, misses {c.misses}, prepares {c.prepares}, evictions {c.evictions}; "
         f"prepare_amortization {amort}; serve.prepare {prepare_s:.2f} s in all")
     del cold, bursts
@@ -1565,17 +2021,20 @@ def serve_phase(fleet: dict) -> dict:
     # the warm stream, on fresh statistics: requests/s and latency with no prepare
     eng.stats = ServeStats()
     warm, warm_s = stream(512, eng.step)
-    bad = [mid for mid, x, fut in warm if not torch.equal(fut.result(), ops[mid](x))]
+    bad = [mid for mid, x, fut in warm if fut.result().dtype != x.dtype
+           or not torch.equal(fut.result(), ops[mid](x))]
     if bad or eng.stats.requests_completed != 512:
         raise AssertionError(f"warm stream: {len(bad)} results differ, "
                              f"{eng.stats.requests_completed} of 512 completed")
     snap = eng.stats.snapshot()
+    warm16 = sum(x.dtype == torch.bfloat16 for _, x, _ in warm)
     del warm
     log(f"[serve] warm stream: 512 requests in {warm_s:.3f} s ({512 / warm_s:.1f} req/s); "
         f"latency p50 {snap['latency_p50_ms']:.3f} ms, p95 {snap['latency_p95_ms']:.3f} ms, "
         f"p99 {snap['latency_p99_ms']:.3f} ms (registry on); mean batch columns "
-        f"{snap['mean_batch_cols']:.3f} over {int(snap['batches_dispatched'])} batches; "
-        f"all bit-equal to direct calls")
+        f"{snap['mean_batch_cols']:.3f} over {int(snap['batches_dispatched'])} batches "
+        f"({warm16} requests in bf16 x); all "
+        f"bit-equal to direct calls")
 
     # (e) per route: one W=8 dispatch on the device, and the host time of a step
     out = {}
@@ -1663,8 +2122,8 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
 
     ``A_small`` is phase 3's ecology1/64, ``eco`` phase 4's operator with its
     right-hand side, permutation and CG result, ``bmw`` phase 7's bmwcra_1
-    and operator.  Every sharded result is held bit for bit against the
-    single-device operator; CG through the D = 4 ecology1 operator must
+    and operator.  Every sharded result, at f32 and at bf16 x, is held bit
+    for bit against the single-device operator; CG through the D = 4 ecology1 operator must
     repeat phase 4's iterations and bits.  Returns, per kernel name, the
     launches of the sharded runs and the per-call records, for the
     ``kernels`` line."""
@@ -1691,13 +2150,20 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
     def launches_per_call(op) -> int:
         return sum(len(run) for _, _, run in op._launches)
 
+    def with_bf16(X):
+        """B = 1 and 8 at f32 x, then the same columns rounded to bf16."""
+        X16 = X.to(torch.bfloat16)
+        return X[:, 0].contiguous(), X, X16[:, 0].contiguous(), X16
+
     def check_bits(op, base, xs, what) -> int:
         """op(x) == base(x) for each x; returns the kernel launches it made."""
         for f in kernels:
             f.launches = 0
         for x in xs:
-            if not torch.equal(op(x), base(x)):
-                raise AssertionError(f"{what} B={x.shape[1:] or 1}: sharded != single-device")
+            y = op(x)
+            if y.dtype != x.dtype or not torch.equal(y, base(x)):
+                raise AssertionError(f"{what} {x.dtype} B={x.shape[1:] or 1}: sharded != "
+                                     f"single-device")
         made = sum(f.launches for f in kernels) - len(xs) * base_launches(base)
         if made != len(xs) * launches_per_call(op):
             raise AssertionError(f"{what}: {made} kernel launches, expected "
@@ -1709,8 +2175,7 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
 
     # (a) ecology1/64, built fresh at each value dtype
     t0 = time.perf_counter()
-    X = torch.randn((A_small.n, 8), generator=gen, device="cuda")
-    xs = (X[:, 0].contiguous(), X)
+    xs = with_bf16(torch.randn((A_small.n, 8), generator=gen, device="cuda"))
     n_ops = made = 0
     for dt in ("f32", "bf16", "int8"):
         base = prepare(A_small, device="cuda", format="auto", value_dtype=dt)
@@ -1723,7 +2188,8 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
     torch.cuda.synchronize()
     log(f"[dist/small] ecology1/64 ({A_small.m} rows): {n_ops} sharded operators (f32, bf16, "
         f"int8 x D in {{2, 4}} x auto, replicated, allgather, halo overlapped and blocking), "
-        f"B = 1 and 8 bit-equal to the single-device operator; {made} CSR-k kernel launches, "
+        f"B = 1 and 8 at f32 and bf16 x bit-equal to the single-device operator; {made} CSR-k "
+        f"kernel launches, "
         f"as many as the plans schedule ({time.perf_counter() - t0:.1f} s)")
 
     # (b) and (c): the full-size operators of phases 4 and 7
@@ -1731,8 +2197,7 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
              ("bmwcra_1", bmw["op"], bmw["A"], "spmv_sellcs"))
     inputs = {}
     for name, base, src, _ in cases:
-        X = torch.randn((src.n, 8), generator=gen, device="cuda")
-        xs = (X[:, 0].contiguous(), X)
+        xs = with_bf16(torch.randn((src.n, 8), generator=gen, device="cuda"))
         inputs[name] = (xs, [base(x) for x in xs])     # before the counts start
     ops = {}
     for f in kernels:
@@ -1751,8 +2216,8 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
                                         halo_overlap=overlap)
                 t_shard = time.perf_counter() - t1
                 for x, y in zip(xs, want):
-                    if not torch.equal(op(x), y):
-                        raise AssertionError(f"{name} D={D} {strategy}/{overlap} "
+                    if not torch.equal(op(x), y) or y.dtype != x.dtype:
+                        raise AssertionError(f"{name} D={D} {strategy}/{overlap} {x.dtype} "
                                              f"B={x.shape[1:] or 1}: sharded != single-device")
                 spmvs[name] += len(xs)
                 demoted = bool(reg.get("distributed", "halo_demoted_to_allgather"))
@@ -1762,7 +2227,7 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
                     f"{op.rows_per_shard}, H {op.halo}, interior {op.interior_fraction:.4f}, "
                     f"edges {len(op.plan.left_edges)}+{len(op.plan.right_edges)}, "
                     f"{launches_per_call(op)} launches a call; shard_prepared {t_shard:.2f} s; "
-                    f"B = 1 and 8 bit-equal")
+                    f"B = 1 and 8 at f32 and bf16 x bit-equal")
         log(f"[dist/{name}] done in {time.perf_counter() - t0:.1f} s")
 
     # CG through the D = 4 auto ecology1 operator: phase 4's iterations and bits
@@ -3561,6 +4026,16 @@ def main() -> int:
     log(f"[kernel] {len(errs)} cases within bound, repeat launches and B=8 columns "
         f"bit-equal, every launch bit-equal to ref.csrk_tile_rows_in_order; max |err| "
         f"{max(errs.values()):.3e} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    errs16 = csrk_bf16x_small(op_small, A_small)
+    torch.cuda.synchronize()
+    log(f"[kernel] bf16 x: {len(errs16)} cases (B=1 and 8) y bf16, every row within the "
+        f"float64 bound (r 2^-8 + (2k+2) eps32)|A||x| (r = {FOLD_ROUNDINGS} on the rows a "
+        f"remainder is folded into) and the plain bound (k+2) 2^-7 |A||x|, repeat launches and "
+        f"B=8 columns bit-equal, tile rows bit-equal to ref.csrk_tile_rows_in_order's bf16 "
+        f"form; worst |err| {max(e['f64'] for e in errs16.values()):.3e} vs float64, "
+        f"{max(e['plain'] for e in errs16.values()):.3e} vs plain; spmm_width=8 padding gives "
+        f"each bf16 column its lone launch's bits ({time.perf_counter() - t0:.1f} s)")
 
     # 4. main path at the paper's ecology1 size
     t0 = time.perf_counter()
@@ -3642,6 +4117,14 @@ def main() -> int:
                                  f"ref.csrk_tile_rows_in_order bits")
     log("[main] at full size the kernel equals ref.csrk_tile_rows_in_order bit for bit "
         "(B = 1 and 8, both buckets)")
+    spmv_csrk_tiles.launches = 0
+    folded = torch.zeros(A.m, dtype=torch.bool, device="cuda")
+    folded[perm[op.tiles.rem_row.long()]] = True
+    err16 = bf16x_full("main", op.apply_original, A_dev, 7, folded)
+    bf16_launches = spmv_csrk_tiles.launches
+    log(f"[main] bf16 x path: spmv_csrk_tiles launches {bf16_launches}")
+    if bf16_launches == 0:
+        raise AssertionError("the bf16-x path never launched the CUDA kernel")
 
     # 5. timing at the ecology1 shapes
     t0 = time.perf_counter()
@@ -3671,6 +4154,18 @@ def main() -> int:
                 lambda: ref.spmv_csrk_buckets(view, xb),
                 (lambda: sp @ xb) if dt == "f32" else None, nbytes, nnz, (mem_rate, f32_rate),
                 yardstick=yardstick))
+    sp16 = library_bf16(csr)
+    view = op.tile_buckets
+    abs_view = abs_tiles(view)
+    bf16_variants = []
+    for B in (1, 8):
+        xb = torch.randn((n, B), generator=gen, device="cuda").to(torch.bfloat16)
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        bf16_variants.append(bf16x_time(
+            "time", xb, lambda x: ops.spmv_csrk_bucketed(view, x),
+            lambda x: ref.spmv_csrk_buckets(view, x),
+            lambda x: ref.spmv_csrk_buckets(abs_view, x), csr.row_lengths(), sp16,
+            nnz * (4 + 8) + 2 * n * B + 2 * m * B, nnz, (mem_rate, f32_rate)))
     log(f"[time] done in {time.perf_counter() - t0:.1f} s")
 
     # 6.-8. the SELL-C-σ kernel and its path
@@ -3718,6 +4213,7 @@ def main() -> int:
         "spmv_csrk_tiles", "src/repro_torch/csrc/spmv_csrk.cu",
         "src/repro/kernels/spmv_csrk.py:131", launches, variants,
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
+        bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants),
     ), sell_entry, segsum_entry, dia_entry, ell_entry]}
     for entry in kernels["kernels"]:
         entry.update(serving[entry["name"]])

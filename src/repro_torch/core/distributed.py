@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import _fold_remainder, _pad_rows
-from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+from repro_torch.kernels.spmv_csrk import X_KIND, spmv_csrk_tiles
 from repro_torch.kernels.spmv_sellcs import spmv_sellcs_chunks
 from repro_torch.obs import get_registry
 from repro_torch.sparse._tree import host
@@ -466,7 +466,8 @@ class ShardedPreparedSpMV:
     Shapes: ``__call__`` accepts ``x`` of shape [n] or [n, B] (reordered index
     space) and returns [m] resp. [m, B]; ``apply_original`` works in the
     matrix's original index space, exactly like :class:`PreparedSpMV`.  On
-    CUDA, x must be float32 (as for the single-device operator).
+    CUDA, x is float32 or bfloat16 and y comes out in x's dtype, as for the
+    single-device operator.
 
     Attributes:
       base: the single-device :class:`~repro_torch.core.spmv.PreparedSpMV`.
@@ -591,8 +592,8 @@ class ShardedPreparedSpMV:
         """Sharded SpMV / SpMM in the reordered index space ([n] or [n, B])."""
         if x.device.type != self.base.device.type:
             raise ValueError(f"x is on {x.device}, the operator on {self.base.device}")
-        if x.device.type == "cuda" and x.dtype != torch.float32:
-            raise TypeError(f"x must be float32 on CUDA, got {x.dtype}")
+        if x.device.type == "cuda" and x.dtype not in X_KIND:
+            raise TypeError(f"x must be float32 or bfloat16 on CUDA, got {x.dtype}")
         if x.ndim not in (1, 2):
             raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
         if self.c_csr is not None:

@@ -7,7 +7,9 @@
 //   y[t*R + r, j] = sum_s [lr[t,s] == r] * dq(vals[t,s]) * x[win_block[t]*W + lc[t,s], j]
 //
 // with dq the f32 upcast of bf16 or int8 code * val_scale[t, s / group], and
-// every product and sum in f32.
+// every product and sum in f32.  x and y are float32 or bfloat16 (one type
+// for both, as the Pallas kernel stores y in x's dtype): a bf16 x is widened
+// to f32 as it is read, and each row is rounded to bf16 once, when stored.
 //
 // Bound: bytes.  SpMV does 2 flops per nonzero and column and reads 8-12
 // bytes per nonzero, far below the card's ~20 flops per byte of float32
@@ -64,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
 
 constexpr int kSmemBudget = 48 * 1024;   // no opt-in attribute needed below this
@@ -73,25 +77,21 @@ constexpr int kSmemBudget = 48 * 1024;   // no opt-in attribute needed below thi
 __host__ __device__ constexpr int threads_for(bool one_col) { return one_col ? 128 : 256; }
 __host__ __device__ constexpr int unroll_for(bool one_col) { return one_col ? 5 : 3; }
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i) { return __ldg(v + i); }
-
-__device__ __forceinline__ float load_value(const __nv_bfloat16* v, int64_t i) {
-  const unsigned bits = __ldg(reinterpret_cast<const unsigned short*>(v) + i);
-  return __uint_as_float(bits << 16);
-}
+template <typename V>
+__device__ __forceinline__ float load_value(const V* v, int64_t i) { return load_f32(v + i); }
 
 __device__ __forceinline__ float load_value(const int8_t* v, int64_t i) {
   return static_cast<float>(__ldg(reinterpret_cast<const signed char*>(v) + i));
 }
 
-template <typename V, bool kScaled, bool kOneCol>
+template <typename V, typename X, bool kScaled, bool kOneCol>
 __global__ void __launch_bounds__(threads_for(kOneCol), kOneCol ? 16 : 6)
 csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
                   const int* __restrict__ lr, const int* __restrict__ win_block,
                   const float* __restrict__ val_scale, int groups, int group,
                   const int* __restrict__ tile_nnz, const int* __restrict__ tile_ids,
-                  int out_tiles, const float* __restrict__ x, long long x_rows, int B,
-                  float* __restrict__ y, int T, int S, int R, int W, int chunk) {
+                  int out_tiles, const X* __restrict__ x, long long x_rows, int B,
+                  X* __restrict__ y, int T, int S, int R, int W, int chunk) {
   constexpr int kThreads = threads_for(kOneCol);
   constexpr int kU = unroll_for(kOneCol);
   extern __shared__ __align__(16) float smem[];
@@ -102,8 +102,10 @@ csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
 
   const int tid = threadIdx.x;
   const int RB = R * B;
-  // x rows can be read as float4 when 16-byte aligned (prod rows then are)
-  const bool x4 = !kOneCol && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // x rows can be read four values at a time when aligned to four values
+  // (prod rows then are 16-byte aligned)
+  const bool x4 = !kOneCol && B % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(X) - 1)) == 0;
 
   for (int w = tid; w < RB; w += kThreads) acc[w] = 0.f;
   int t = blockIdx.x;
@@ -159,7 +161,7 @@ csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
         for (int u = 0; u < kU; ++u) {
           const int64_t c = x0 + col[u];
           const bool in = c >= 0 && c < x_rows;
-          if (tid + u * kThreads < cn) v[u] = __fmul_rn(v[u], in ? __ldg(x + c) : 0.f);
+          if (tid + u * kThreads < cn) v[u] = __fmul_rn(v[u], in ? load_f32(x + c) : 0.f);
         }
       }
       __syncthreads();                   // the previous pass's sums are done
@@ -174,18 +176,17 @@ csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
         }
         const int64_t c = x0 + col[u];
         const bool in = c >= 0 && c < x_rows;
-        const float* xr = x + (in ? c : 0) * B;
+        const X* xr = x + (in ? c : 0) * B;
         float* pr = prod + j * B;
         if (x4) {
           for (int k = 0; k < B; k += 4) {
-            const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4 xv = in ? load_f32x4(xr + k) : make_float4(0.f, 0.f, 0.f, 0.f);
             *reinterpret_cast<float4*>(pr + k) =
                 make_float4(__fmul_rn(v[u], xv.x), __fmul_rn(v[u], xv.y),
                             __fmul_rn(v[u], xv.z), __fmul_rn(v[u], xv.w));
           }
         } else {
-          for (int k = 0; k < B; ++k) pr[k] = __fmul_rn(v[u], in ? __ldg(xr + k) : 0.f);
+          for (int k = 0; k < B; ++k) pr[k] = __fmul_rn(v[u], in ? load_f32(xr + k) : 0.f);
         }
       }
       __syncthreads();
@@ -228,7 +229,7 @@ csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
     const bool home_ok = home >= 0 && home < out_tiles;   // never write outside y
     const int64_t out0 = static_cast<int64_t>(home) * R * B;
     for (int w = tid; w < RB; w += kThreads) {
-      if (home_ok) y[out0 + w] = acc[w];
+      if (home_ok) store_rounded(y + out0 + w, acc[w]);
       acc[w] = 0.f;
     }
   }
@@ -236,45 +237,67 @@ csrk_tiles_kernel(const V* __restrict__ vals, const int* __restrict__ lc,
 
 // Blocks of one kernel instance that fit on the current card at once with
 // smem bytes of shared memory each: the grid of a launch that walks the tiles.
-template <typename V, bool kScaled, bool kOneCol>
+template <typename V, typename X, bool kScaled, bool kOneCol>
 int resident_blocks(int threads, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, csrk_tiles_kernel<V, kScaled, kOneCol>, threads, smem);
+      &per_sm, csrk_tiles_kernel<V, X, kScaled, kOneCol>, threads, smem);
   return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-template <typename V, bool kScaled, bool kOneCol>
+template <typename V, typename X, bool kScaled, bool kOneCol>
 cudaError_t launch_cols(const void* vals, const int* lc, const int* lr, const int* win_block,
                         const float* val_scale, int groups, const int* tile_nnz,
-                        const int* tile_ids, int out_tiles, const float* x, long long x_rows,
-                        int B, float* y, int T, int S, int R, int W, int chunk,
+                        const int* tile_ids, int out_tiles, const void* x, long long x_rows,
+                        int B, void* y, int T, int S, int R, int W, int chunk,
                         cudaStream_t stream) {
   const int threads = threads_for(kOneCol);
   const size_t smem = 4 * ((static_cast<size_t>(chunk) + R) * (B + 1) + 1);
   const int group = groups > 0 ? S / groups : 1;
-  const int cap = resident_blocks<V, kScaled, kOneCol>(threads, smem);
-  csrk_tiles_kernel<V, kScaled, kOneCol><<<T < cap ? T : cap, threads, smem, stream>>>(
+  const int cap = resident_blocks<V, X, kScaled, kOneCol>(threads, smem);
+  csrk_tiles_kernel<V, X, kScaled, kOneCol><<<T < cap ? T : cap, threads, smem, stream>>>(
       static_cast<const V*>(vals), lc, lr, win_block, val_scale, groups, group, tile_nnz,
-      tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W, chunk);
+      tile_ids, out_tiles, static_cast<const X*>(x), x_rows, B, static_cast<X*>(y), T, S, R, W,
+      chunk);
   return cudaGetLastError();
 }
 
-template <typename V, bool kScaled>
-cudaError_t launch(const void* vals, const int* lc, const int* lr, const int* win_block,
-                   const float* val_scale, int groups, const int* tile_nnz,
-                   const int* tile_ids, int out_tiles, const float* x, long long x_rows,
-                   int B, float* y, int T, int S, int R, int W, int chunk,
-                   cudaStream_t stream) {
+template <typename V, typename X, bool kScaled>
+cudaError_t launch_x(const void* vals, const int* lc, const int* lr, const int* win_block,
+                     const float* val_scale, int groups, const int* tile_nnz,
+                     const int* tile_ids, int out_tiles, const void* x, long long x_rows,
+                     int B, void* y, int T, int S, int R, int W, int chunk,
+                     cudaStream_t stream) {
   if (B == 1)
-    return launch_cols<V, kScaled, true>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
+    return launch_cols<V, X, kScaled, true>(vals, lc, lr, win_block, val_scale, groups,
+                                            tile_nnz, tile_ids, out_tiles, x, x_rows, B, y, T,
+                                            S, R, W, chunk, stream);
+  return launch_cols<V, X, kScaled, false>(vals, lc, lr, win_block, val_scale, groups,
+                                           tile_nnz, tile_ids, out_tiles, x, x_rows, B, y, T,
+                                           S, R, W, chunk, stream);
+}
+
+// x_kind: 0 = float32, 1 = bfloat16 (x and y alike).
+template <typename V, bool kScaled>
+cudaError_t launch(int x_kind, const void* vals, const int* lc, const int* lr,
+                   const int* win_block, const float* val_scale, int groups,
+                   const int* tile_nnz, const int* tile_ids, int out_tiles, const void* x,
+                   long long x_rows, int B, void* y, int T, int S, int R, int W, int chunk,
+                   cudaStream_t stream) {
+  switch (x_kind) {
+    case 0:
+      return launch_x<V, float, kScaled>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
                                          tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
                                          chunk, stream);
-  return launch_cols<V, kScaled, false>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
-                                        tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
-                                        chunk, stream);
+    case 1:
+      return launch_x<V, __nv_bfloat16, kScaled>(vals, lc, lr, win_block, val_scale, groups,
+                                                 tile_nnz, tile_ids, out_tiles, x, x_rows, B, y,
+                                                 T, S, R, W, chunk, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -293,32 +316,31 @@ int repro_csrk_chunk(int S, int R, int B) {
   return chunk < 1 ? 0 : static_cast<int>(chunk);
 }
 
-// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required).
-int repro_spmv_csrk_tiles(int value_kind, const void* vals, const int* lc, const int* lr,
-                          const int* win_block, const float* val_scale, int groups,
-                          const int* tile_nnz, const int* tile_ids, int out_tiles,
-                          const float* x, long long x_rows, int B, float* y, int T, int S,
-                          int R, int W, void* stream) {
+// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required);
+// x_kind: 0 = float32, 1 = bfloat16, the type of x and of y.
+int repro_spmv_csrk_tiles(int value_kind, int x_kind, const void* vals, const int* lc,
+                          const int* lr, const int* win_block, const float* val_scale,
+                          int groups, const int* tile_nnz, const int* tile_ids, int out_tiles,
+                          const void* x, long long x_rows, int B, void* y, int T, int S, int R,
+                          int W, void* stream) {
   const int chunk = repro_csrk_chunk(S, R, B);
   if (T <= 0 || chunk == 0 || B < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (value_kind) {
     case 0:
-      err = launch<float, false>(vals, lc, lr, win_block, nullptr, 0, tile_nnz,
-                                         tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
-                                         chunk, st);
+      err = launch<float, false>(x_kind, vals, lc, lr, win_block, nullptr, 0, tile_nnz,
+                                 tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W, chunk, st);
       break;
     case 1:
-      err = launch<__nv_bfloat16, false>(vals, lc, lr, win_block, nullptr, 0,
-                                                 tile_nnz, tile_ids, out_tiles, x, x_rows, B,
-                                                 y, T, S, R, W, chunk, st);
+      err = launch<__nv_bfloat16, false>(x_kind, vals, lc, lr, win_block, nullptr, 0,
+                                         tile_nnz, tile_ids, out_tiles, x, x_rows, B, y, T, S,
+                                         R, W, chunk, st);
       break;
     case 2:
       if (val_scale == nullptr || groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
-      err = launch<int8_t, true>(vals, lc, lr, win_block, val_scale, groups, tile_nnz,
-                                         tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W,
-                                         chunk, st);
+      err = launch<int8_t, true>(x_kind, vals, lc, lr, win_block, val_scale, groups, tile_nnz,
+                                 tile_ids, out_tiles, x, x_rows, B, y, T, S, R, W, chunk, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

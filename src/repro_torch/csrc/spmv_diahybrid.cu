@@ -9,7 +9,11 @@
 //           + sum_{e in rem row i} rem_val[e] * x[rem_col[e], j]
 //
 // with plane[k, i] the f32 upcast of an f32 or bf16 value, x[c, j] read as 0
-// for c outside [0, n), and every product and sum in f32.
+// for c outside [0, n), and every product and sum in f32.  x and y are
+// float32 or bfloat16 (one type for both, as the Pallas kernel stores y in
+// x's dtype): a bf16 x is widened to f32 as it is read, a row's plane part
+// and remainder are added in f32, and the row is rounded to bf16 once, when
+// stored.
 //
 // Bound: bytes.  The plane costs 4 (f32) or 2 (bf16) bytes per slot and the
 // remainder 8 bytes per entry, for 2 flops per slot and column: far below
@@ -36,10 +40,11 @@
 //     (bf16), one 16-byte load per diagonal when the plane rows are 16-byte
 //     aligned (m a multiple of 4 or 8 and an aligned base), otherwise the
 //     same rows with scalar loads.  The loads of kDiagBatch diagonals are
-//     issued before their products are summed.  x comes in aligned float4
-//     loads shifted by the diagonal's offset mod 4, the same for the whole
-//     warp (scalar loads at the matrix's edges), and y goes out in float4
-//     stores.  At B > 1 a thread takes one row and 8 columns per pass.
+//     issued before their products are summed.  x comes in aligned loads
+//     of four values (float4, or 8 bytes of bf16) shifted by the diagonal's
+//     offset mod 4, the same for the whole warp (scalar loads at the
+//     matrix's edges), and y goes out in stores of four values.  At B > 1 a
+//     thread takes one row and 8 columns per pass.
 //   * Fringe blocks are spread over the grid, one block in 2^s from block
 //     0 (s as large as lets them all in), so the fringe's gathers run beside
 //     the plane stream from the start.
@@ -71,6 +76,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -124,16 +131,16 @@ __device__ __forceinline__ void ld_plane_vec(float (&v)[RPT], const V* p) {
 }
 
 // xs[k] = x[c, j0 + k] for the nb columns of this pass, 0 off the matrix
-// (c outside [0, n)); float4 loads when the row of x is 16-byte aligned.
-template <int NB>
-__device__ __forceinline__ void load_x(float (&xs)[NB], const float* __restrict__ x, int64_t c,
+// (c outside [0, n)); loads of four values when the row of x is aligned to
+// four values.
+template <int NB, typename X>
+__device__ __forceinline__ void load_x(float (&xs)[NB], const X* __restrict__ x, int64_t c,
                                        bool in, int B, int j0, int nb, bool vec4) {
-  const float* xr = x + (in ? c : 0) * B + j0;
+  const X* xr = x + (in ? c : 0) * B + j0;
   if (NB > 1 && vec4 && nb == NB) {
 #pragma unroll
     for (int k = 0; k < NB; k += 4) {
-      const float4 f = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 f = in ? load_f32x4(xr + k) : make_float4(0.f, 0.f, 0.f, 0.f);
       xs[k] = f.x;
       xs[k + 1] = f.y;
       xs[k + 2] = f.z;
@@ -141,13 +148,13 @@ __device__ __forceinline__ void load_x(float (&xs)[NB], const float* __restrict_
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < NB; ++k) xs[k] = in && k < nb ? __ldg(xr + k) : 0.f;
+    for (int k = 0; k < NB; ++k) xs[k] = in && k < nb ? load_f32(xr + k) : 0.f;
   }
 }
 
 // acc[k] += v * x[c, j0 + k] for the nb columns of this pass.
-template <int NB>
-__device__ __forceinline__ void fma_row(float (&acc)[NB], float v, const float* __restrict__ x,
+template <int NB, typename X>
+__device__ __forceinline__ void fma_row(float (&acc)[NB], float v, const X* __restrict__ x,
                                         int64_t c, bool in, int B, int j0, int nb, bool vec4) {
   float xs[NB];
   load_x<NB>(xs, x, c, in, B, j0, nb, vec4);
@@ -156,17 +163,16 @@ __device__ __forceinline__ void fma_row(float (&acc)[NB], float v, const float* 
 }
 
 // y[row, j0 + k] = val[k] for the nb columns of this pass.
-template <int NB>
-__device__ __forceinline__ void store_row(float* yr, const float (&val)[NB], int nb, bool vec4) {
+template <int NB, typename Y>
+__device__ __forceinline__ void store_row(Y* yr, const float (&val)[NB], int nb, bool vec4) {
   if (NB > 1 && vec4 && nb == NB) {
 #pragma unroll
-    for (int k = 0; k < NB; k += 4) {
-      *reinterpret_cast<float4*>(yr + k) = make_float4(val[k], val[k + 1], val[k + 2], val[k + 3]);
-    }
+    for (int k = 0; k < NB; k += 4)
+      store_rounded4(yr + k, val[k], val[k + 1], val[k + 2], val[k + 3]);
   } else {
 #pragma unroll
     for (int k = 0; k < NB; ++k) {
-      if (k < nb) yr[k] = val[k];
+      if (k < nb) store_rounded(yr + k, val[k]);
     }
   }
 }
@@ -184,22 +190,22 @@ struct Args {
   int lanes_log2;           // G = 1 << lanes_log2 lanes per listed row
   int fringe_blocks;        // blocks that run the fringe groups
   int fringe_shift;         // one block in 2^fringe_shift is a fringe block
-  const float* x;           // [n, B]
+  const void* x;            // [n, B] f32 | bf16
   int B;
-  float* y;                 // [m, B]
+  void* y;                  // [m, B], x's type
   int m;
   int n;
   bool vec_plane;           // vector plane loads (aligned plane rows)
-  bool vec_x;               // B % 4 == 0 and x 16-byte aligned
-  bool x_aligned;           // x 16-byte aligned
-  bool vec_y;               // B % 4 == 0 (or B = 1) and y 16-byte aligned
+  bool vec_x;               // B % 4 == 0 and x aligned to four values
+  bool x_aligned;           // x aligned to four values
+  bool vec_y;               // B % 4 == 0 (or B = 1) and y aligned to four values
 };
 
 // One listed row per group of G lanes.  Lane l sums remainder entries l,
 // l + G, ... in entry order and loads diagonals l, l + G, ...; every lane of
 // the group then sums the plane products over k in increasing order from
 // the group's shuffles, a butterfly joins the remainder, lane 0 writes.
-template <typename V, int NB>
+template <typename V, typename X, int NB>
 __device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
   const int G = 1 << a.lanes_log2;
   const int64_t t = block * kThreads + threadIdx.x;
@@ -210,6 +216,7 @@ __device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
   const int e0 = valid ? __ldg(a.rem_start + j) : 0;
   const int e1 = valid ? __ldg(a.rem_start + j + 1) : 0;
   const V* plane = static_cast<const V*>(a.plane);
+  const X* x = static_cast<const X*>(a.x);
 
   for (int j0 = 0; j0 < a.B; j0 += NB) {
     const int nb = min(NB, a.B - j0);
@@ -220,7 +227,7 @@ __device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
 #pragma unroll (NB == 1 ? kRemUnroll : 2)
     for (int e = e0 + lane; e < e1; e += G) {
       const int64_t c = ld_stream(a.rem_col + e);
-      fma_row<NB>(rem, ld_stream(a.rem_val + e), a.x, c, c >= 0 && c < a.n, a.B, j0, nb,
+      fma_row<NB>(rem, ld_stream(a.rem_val + e), x, c, c >= 0 && c < a.n, a.B, j0, nb,
                   a.vec_x);
     }
     for (int k0 = 0; k0 < a.n_diag; k0 += G) {  // the same trip count in every lane
@@ -229,7 +236,7 @@ __device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
       const int64_t c = i + (have ? __ldg(a.offsets + k) : 0);
       const float v = have ? ld_stream(plane + static_cast<int64_t>(k) * a.m + i) : 0.f;
       float xs[NB];
-      load_x<NB>(xs, a.x, c, have && c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
+      load_x<NB>(xs, x, c, have && c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
       const int count = min(G, a.n_diag - k0);
       for (int u = 0; u < count; ++u) {
         const float vu = __shfl_sync(0xffffffffu, v, u, G);
@@ -247,16 +254,16 @@ __device__ __forceinline__ void fringe_group(const Args& a, int64_t block) {
       float out[NB];
 #pragma unroll
       for (int q = 0; q < NB; ++q) out[q] = __fadd_rn(dia[q], rem[q]);
-      store_row<NB>(a.y + i * a.B + j0, out, nb, a.vec_y);
+      store_row<NB>(static_cast<X*>(a.y) + i * a.B + j0, out, nb, a.vec_y);
     }
   }
 }
 
 // xv[r] = x[c0 + r] for r < RPT (0 off [0, n)), c0 = i0 + off with i0 a
-// multiple of 4: aligned float4 loads and a shift by c0 mod 4, which is the
-// same for the whole warp.
-template <int RPT>
-__device__ __forceinline__ void x_window(float (&xv)[RPT], const float* __restrict__ x,
+// multiple of 4: aligned loads of four values (16 bytes of f32, 8 of bf16)
+// and a shift by c0 mod 4, which is the same for the whole warp.
+template <int RPT, typename X>
+__device__ __forceinline__ void x_window(float (&xv)[RPT], const X* __restrict__ x,
                                          int64_t c0, int n) {
   const int s = static_cast<int>(c0 & 3);
   const int64_t a0 = c0 - s;
@@ -266,7 +273,7 @@ __device__ __forceinline__ void x_window(float (&xv)[RPT], const float* __restri
 #pragma unroll
     for (int q = 0; q < W / 4; ++q) {
       if (q * 4 < s + RPT) {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(x + a0) + q);
+        const float4 f = load_f32x4(x + a0 + 4 * q);
         w[4 * q] = f.x;
         w[4 * q + 1] = f.y;
         w[4 * q + 2] = f.z;
@@ -283,13 +290,13 @@ __device__ __forceinline__ void x_window(float (&xv)[RPT], const float* __restri
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int64_t c = c0 + r;
-      xv[r] = c >= 0 && c < n ? __ldg(x + c) : 0.f;
+      xv[r] = c >= 0 && c < n ? load_f32(x + c) : 0.f;
     }
   }
 }
 
 // RPT consecutive rows per thread (NB columns each) whose mask bit is clear.
-template <typename V, int RPT, int NB>
+template <typename V, typename X, int RPT, int NB>
 __device__ __forceinline__ void plane_rows(const Args& a, int64_t block) {
   const int64_t i0 = (block * kThreads + threadIdx.x) * RPT;
   if (i0 >= a.m) return;
@@ -300,6 +307,8 @@ __device__ __forceinline__ void plane_rows(const Args& a, int64_t block) {
   const int64_t left = a.m - i0;
   const int rows = left < RPT ? static_cast<int>(left) : RPT;
   const V* plane = static_cast<const V*>(a.plane);
+  const X* x = static_cast<const X*>(a.x);
+  X* y = static_cast<X*>(a.y);
   const bool vec = RPT > 1 && a.vec_plane;  // then rows == RPT
 
   for (int j0 = 0; j0 < a.B; j0 += NB) {
@@ -335,7 +344,7 @@ __device__ __forceinline__ void plane_rows(const Args& a, int64_t block) {
         if constexpr (NB == 1 && RPT % 4 == 0) {
           if (a.x_aligned) {
             float xv[RPT];
-            x_window<RPT>(xv, a.x, i0 + off, a.n);
+            x_window<RPT>(xv, x, i0 + off, a.n);
 #pragma unroll
             for (int r = 0; r < RPT; ++r) acc[r][0] = __fmaf_rn(v[u][r], xv[r], acc[r][0]);
             continue;
@@ -344,41 +353,39 @@ __device__ __forceinline__ void plane_rows(const Args& a, int64_t block) {
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
           const int64_t c = i0 + r + off;
-          fma_row<NB>(acc[r], v[u][r], a.x, c, c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
+          fma_row<NB>(acc[r], v[u][r], x, c, c >= 0 && c < a.n, a.B, j0, nb, a.vec_x);
         }
       }
     }
     if (NB == 1 && RPT % 4 == 0 && vec && a.vec_y && skip == 0) {
 #pragma unroll
-      for (int r = 0; r < RPT; r += 4) {
-        *reinterpret_cast<float4*>(a.y + i0 + r) =
-            make_float4(acc[r][0], acc[r + 1][0], acc[r + 2][0], acc[r + 3][0]);
-      }
+      for (int r = 0; r < RPT; r += 4)
+        store_rounded4(y + i0 + r, acc[r][0], acc[r + 1][0], acc[r + 2][0], acc[r + 3][0]);
     } else {
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
-        if (r < rows && !((skip >> r) & 1u)) store_row<NB>(a.y + (i0 + r) * a.B + j0, acc[r], nb,
-                                                           a.vec_y);
+        if (r < rows && !((skip >> r) & 1u))
+          store_row<NB>(y + (i0 + r) * a.B + j0, acc[r], nb, a.vec_y);
       }
     }
   }
 }
 
-template <typename V, int NB>
+template <typename V, typename X, int NB>
 __global__ void __launch_bounds__(kThreads, 4) diahybrid_kernel(const __grid_constant__ Args a) {
   // the fringe blocks are blocks 0, 2^s, 2 * 2^s, ... until all are placed
   const unsigned b = blockIdx.x;
   const unsigned F = a.fringe_blocks;
   const unsigned s = a.fringe_shift;
   if ((b & ((1u << s) - 1)) == 0 && (b >> s) < F) {
-    fringe_group<V, NB>(a, b >> s);
+    fringe_group<V, X, NB>(a, b >> s);
   } else {
     const unsigned before = (b + (1u << s) - 1) >> s;
-    plane_rows<V, NB == 1 ? rows_per_thread<V>() : 1, NB>(a, b - (before < F ? before : F));
+    plane_rows<V, X, NB == 1 ? rows_per_thread<V>() : 1, NB>(a, b - (before < F ? before : F));
   }
 }
 
-template <typename V>
+template <typename V, typename X>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const int64_t rpt = a.B == 1 ? rows_per_thread<V>() : 1;  // rows per plane thread
   const int64_t group_threads = static_cast<int64_t>(a.R) << a.lanes_log2;
@@ -394,9 +401,9 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   }
   a.vec_plane = a.vec_plane && a.m % rpt == 0;
   if (a.B == 1) {
-    diahybrid_kernel<V, 1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+    diahybrid_kernel<V, X, 1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   } else {
-    diahybrid_kernel<V, kMaxCols><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+    diahybrid_kernel<V, X, kMaxCols><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -405,16 +412,18 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 extern "C" {
 
-// value_kind: 0 = float32, 1 = bfloat16.  plane: [n_diag, m]; offsets:
+// value_kind: 0 = float32, 1 = bfloat16; x_kind: 0 = float32, 1 = bfloat16,
+// the type of x and of y.  plane: [n_diag, m]; offsets:
 // [n_diag] on the device; rem_rows: [R]; rem_start: [R + 1]; rem_mask:
 // [ceil(m / 32)]; rem_col / rem_val: [rem_start[R]]; lanes_log2 in [0, 5];
 // x: [n, B]; y: [m, B].  m = 0 launches nothing.
-int repro_spmv_diahybrid(int value_kind, const void* plane, const int* offsets, int n_diag,
-                         const int* rem_rows, const int* rem_start, const int* rem_mask,
-                         const int* rem_col, const float* rem_val, int R, int lanes_log2,
-                         const float* x, int B, float* y, int m, int n, void* stream) {
+int repro_spmv_diahybrid(int value_kind, int x_kind, const void* plane, const int* offsets,
+                         int n_diag, const int* rem_rows, const int* rem_start,
+                         const int* rem_mask, const int* rem_col, const float* rem_val, int R,
+                         int lanes_log2, const void* x, int B, void* y, int m, int n,
+                         void* stream) {
   if (m < 0 || n < 0 || n_diag < 0 || R < 0 || R > m || B < 1 || lanes_log2 < 0 ||
-      lanes_log2 > 5) {
+      lanes_log2 > 5 || x_kind < 0 || x_kind > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m == 0) return static_cast<int>(cudaSuccess);
@@ -434,16 +443,21 @@ int repro_spmv_diahybrid(int value_kind, const void* plane, const int* offsets, 
   a.y = y;
   a.m = m;
   a.n = n;
+  // four values of x or y: 16 bytes of f32, 8 of bf16
+  const uintptr_t four = x_kind == 0 ? 15 : 7;
   a.vec_plane = (reinterpret_cast<uintptr_t>(plane) & 15) == 0;
-  a.vec_x = B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  a.x_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  a.vec_y = (B == 1 || B % 4 == 0) && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  a.vec_x = B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & four) == 0;
+  a.x_aligned = (reinterpret_cast<uintptr_t>(x) & four) == 0;
+  a.vec_y = (B == 1 || B % 4 == 0) && (reinterpret_cast<uintptr_t>(y) & four) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf16_x = x_kind == 1;
   switch (value_kind) {
     case 0:
-      return static_cast<int>(launch<float>(a, st));
+      return static_cast<int>(bf16_x ? launch<float, __nv_bfloat16>(a, st)
+                                     : launch<float, float>(a, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(a, st));
+      return static_cast<int>(bf16_x ? launch<__nv_bfloat16, __nv_bfloat16>(a, st)
+                                     : launch<__nv_bfloat16, float>(a, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,10 +6,13 @@
 //
 //   y[i] = sum_k vals[i, k] * x[col[i, k]]
 //
-// with f32 values, f32 x, every product and sum in f32, and x[c] read as 0
-// for a column outside [0, n) (a well-formed slab has none).
+// with f32 or bf16 values widened to f32, every product and sum in f32, and
+// x[c] read as 0 for a column outside [0, n) (a well-formed slab has none).
+// x and y are float32 or bfloat16 (one type for both, as the Pallas kernel
+// stores y in x's dtype): a bf16 x is widened to f32 as it is read, and each
+// row is rounded to bf16 once, when stored.
 //
-// Bound: bytes.  Every slot costs 8 bytes (value and column) for 2 flops,
+// Bound: bytes.  Every slot costs 6-8 bytes (value and column) for 2 flops,
 // far below the card's ~20 flops per byte of float32 balance, so the least
 // time is the slab, x and y over the memory rate.  Padding slots are part
 // of the slab the function reads, so they count: ELL's cost is m * kmax,
@@ -32,15 +35,16 @@
 //     a kmax that is not a multiple of 4 (kmax 73 on stencil_fringe(2048):
 //     rows 292 bytes apart) start at every phase and take their vectors all
 //     the same.
-//   * A vector is one 16-byte load of columns and one of values, not
+//   * A vector is one 16-byte load of columns and one of values (16 bytes
+//     of f32, 8 of bf16), not
 //     allocated in L1, which is left to the x rows the gathers reuse.  A
 //     thread issues the loads of a whole batch of its row (three vectors:
 //     96 slots of a row in all, every row of bmwcra_1 and stencil_fringe)
 //     before its first x gather.  x is read through the read-only path and
 //     L2 (the Pallas row tile and the whole-x VMEM block are TPU idioms and
-//     are not carried over).  Where the value array's 16-byte phase differs
-//     from the column array's (a view that starts off a boundary), the
-//     vectors are read slot by slot, in the same order.
+//     are not carried over).  Where the value array's phase (in slots, mod
+//     4) differs from the column array's (a view that starts off a
+//     boundary), the vectors are read slot by slot, in the same order.
 //   * The grid holds as many blocks as fit on the card at once and each row
 //     group walks rows i, i + stride, ...; the kernel is held to 64
 //     registers, four blocks of 256 threads per SM.  Loading the next row's
@@ -58,7 +62,10 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -84,8 +91,25 @@ __device__ __forceinline__ float4 ld_stream(const float4* p) {
   return r;
 }
 
-__device__ __forceinline__ float x_at(const float* x, int c, int n) {
-  return (c >= 0 && c < n) ? __ldg(x + c) : 0.f;
+__device__ __forceinline__ uint2 ld_stream(const uint2* p) {
+  uint2 r;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(r.x), "=r"(r.y) : "l"(p));
+  return r;
+}
+
+// Four consecutive values from an aligned vector of the slab, widened to f32.
+__device__ __forceinline__ float4 ld_vec(const float* p) {
+  return ld_stream(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld_vec(const __nv_bfloat16* p) {
+  const uint2 w = ld_stream(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+template <typename X>
+__device__ __forceinline__ float x_at(const X* x, int c, int n) {
+  return (c >= 0 && c < n) ? load_f32(x + c) : 0.f;
 }
 
 __device__ __forceinline__ float get(const float4& v, int e) {
@@ -96,9 +120,10 @@ __device__ __forceinline__ int get(const int4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
+template <typename V, typename X>
 __global__ void __launch_bounds__(kThreads, 4)
-ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
-           const float* __restrict__ x, float* __restrict__ y, int m, int n, int kmax,
+ell_kernel(const int* __restrict__ col, const V* __restrict__ vals,
+           const X* __restrict__ x, X* __restrict__ y, int m, int n, int kmax,
            int phase, bool vec) {
   const int lane = threadIdx.x % kLanes;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
@@ -114,18 +139,18 @@ ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
     const int nv = active ? (kmax - h) / 4 : 0;
     const int tail = active ? (kmax - h) % 4 : 0;
     const int* crow = col + base;
-    const float* vrow = vals + base;
+    const V* vrow = vals + base;
 
     // the head and tail slots are loaded with the first batch
     float hv = 0.f, tv = 0.f;
     int hc = 0, tc = 0;
     if (lane < h) {
-      hv = __ldg(vrow + lane);
+      hv = load_f32(vrow + lane);
       hc = __ldg(crow + lane);
     }
     const bool has_tail = lane >= 4 && lane - 4 < tail;
     if (has_tail) {
-      tv = __ldg(vrow + h + 4 * nv + lane - 4);
+      tv = load_f32(vrow + h + 4 * nv + lane - 4);
       tc = __ldg(crow + h + 4 * nv + lane - 4);
     }
     float acc = 0.f;
@@ -140,11 +165,11 @@ ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
         c[u] = make_int4(0, 0, 0, 0);
         if (v0 + lane + kLanes * u >= nv) continue;
         if (vec) {
-          v[u] = ld_stream(reinterpret_cast<const float4*>(vrow + w));
+          v[u] = ld_vec(vrow + w);
           c[u] = ld_stream(reinterpret_cast<const int4*>(crow + w));
         } else {
-          v[u] = make_float4(__ldg(vrow + w), __ldg(vrow + w + 1), __ldg(vrow + w + 2),
-                             __ldg(vrow + w + 3));
+          v[u] = make_float4(load_f32(vrow + w), load_f32(vrow + w + 1), load_f32(vrow + w + 2),
+                             load_f32(vrow + w + 3));
           c[u] = make_int4(__ldg(crow + w), __ldg(crow + w + 1), __ldg(crow + w + 2),
                            __ldg(crow + w + 3));
         }
@@ -161,40 +186,60 @@ ell_kernel(const int* __restrict__ col, const float* __restrict__ vals,
 #pragma unroll
     for (int off = kLanes / 2; off > 0; off >>= 1)
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off, kLanes));
-    if (active && lane == 0) y[i] = acc;
+    if (active && lane == 0) store_rounded(y + i, acc);
   }
 }
 
-// Blocks of the kernel that fit on the current card at once: the grid of a
-// launch that walks the rows.
+// Blocks of one kernel instance that fit on the current card at once: the
+// grid of a launch that walks the rows.
+template <typename V, typename X>
 int resident_blocks() {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_kernel, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_kernel<V, X>, kThreads, 0);
   return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+template <typename V, typename X>
+cudaError_t launch(const int* col, const void* vals, const void* x, void* y, int m, int n,
+                   int kmax, cudaStream_t stream) {
+  const long long cap = resident_blocks<V, X>();
+  const long long need = (static_cast<long long>(m) + kRowsPerBlock - 1) / kRowsPerBlock;
+  const uintptr_t c = reinterpret_cast<uintptr_t>(col), v = reinterpret_cast<uintptr_t>(vals);
+  // the head is cut at the column array's 16-byte boundaries; vectors of
+  // values need the value array at the same phase, in slots mod 4
+  const int phase = static_cast<int>((c >> 2) & 3);
+  const bool vec = (c & 3) == 0 && v % sizeof(V) == 0 && ((c / 4 - v / sizeof(V)) & 3) == 0;
+  ell_kernel<V, X><<<static_cast<unsigned>(need < cap ? need : cap), kThreads, 0, stream>>>(
+      col, static_cast<const V*>(vals), static_cast<const X*>(x), static_cast<X*>(y), m, n,
+      kmax, phase, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// col: [m, kmax] int32; vals: [m, kmax] float32; x: [n]; y: [m].
-// m = 0 launches nothing.
-int repro_spmv_ell(const int* col, const float* vals, const float* x, float* y, int m, int n,
-                   int kmax, void* stream) {
-  if (m < 0 || n < 0 || kmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+// value_kind: 0 = float32, 1 = bfloat16; x_kind: 0 = float32, 1 = bfloat16,
+// the type of x and of y.  col: [m, kmax] int32; vals: [m, kmax]; x: [n];
+// y: [m].  m = 0 launches nothing.
+int repro_spmv_ell(int value_kind, int x_kind, const int* col, const void* vals, const void* x,
+                   void* y, int m, int n, int kmax, void* stream) {
+  if (m < 0 || n < 0 || kmax < 0 || value_kind < 0 || value_kind > 1 || x_kind < 0 ||
+      x_kind > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaSuccess);
-  const long long cap = resident_blocks();
-  const long long need = (static_cast<long long>(m) + kRowsPerBlock - 1) / kRowsPerBlock;
-  const uintptr_t c = reinterpret_cast<uintptr_t>(col), v = reinterpret_cast<uintptr_t>(vals);
-  // the head is cut at the column array's 16-byte boundaries; vectors of
-  // values need the value array at the same phase
-  const int phase = static_cast<int>((c >> 2) & 3);
-  const bool vec = (c & 3) == 0 && (v & 3) == 0 && ((c - v) & 15) == 0;
-  ell_kernel<<<static_cast<unsigned>(need < cap ? need : cap), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(col, vals, x, y, m, n, kmax, phase, vec);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (value_kind == 0) {
+    err = x_kind == 0 ? launch<float, float>(col, vals, x, y, m, n, kmax, st)
+                      : launch<float, __nv_bfloat16>(col, vals, x, y, m, n, kmax, st);
+  } else {
+    err = x_kind == 0 ? launch<__nv_bfloat16, float>(col, vals, x, y, m, n, kmax, st)
+                      : launch<__nv_bfloat16, __nv_bfloat16>(col, vals, x, y, m, n, kmax, st);
+  }
+  return static_cast<int>(err);
 }
 
 const char* repro_ell_error_string(int code) {

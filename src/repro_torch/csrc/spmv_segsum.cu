@@ -10,7 +10,10 @@
 // where the slots are the nnz stream cut into T chunks of S slots with no
 // regard for row boundaries, dq is the f32 upcast of bf16 or int8 code *
 // val_scale[t, s / group], and every product and sum is in f32.  Rows no
-// slot belongs to (empty rows) come out 0.
+// slot belongs to (empty rows) come out 0.  x and y are float32 or bfloat16
+// (one type for both, as the Pallas kernel stores y in x's dtype): a bf16 x
+// is widened to f32 as it is read, the fragments of rows that span chunks
+// stay f32, and each row is rounded to bf16 once, when stored.
 //
 // Bound: bytes.  SpMV does 2 flops per slot and column and reads 5-8 bytes
 // per slot, far below the card's ~20 flops per byte of float32 balance, so
@@ -84,6 +87,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -191,10 +196,11 @@ __device__ __forceinline__ int real_slots(int t, int S, long long nnz) {
 }
 
 // Zero rows [lo, hi) of y, columns [j0, j0 + nb), one warp.
-__device__ __forceinline__ void zero_rows(float* y, int lo, int hi, int B, int j0, int nb,
+template <typename Y>
+__device__ __forceinline__ void zero_rows(Y* y, int lo, int hi, int B, int j0, int nb,
                                           int lane) {
   for (int r = lo + lane; r < hi; r += 32) {
-    for (int k = 0; k < nb; ++k) y[static_cast<int64_t>(r) * B + j0 + k] = 0.f;
+    for (int k = 0; k < nb; ++k) store_rounded(y + static_cast<int64_t>(r) * B + j0 + k, 0.f);
   }
 }
 
@@ -227,19 +233,47 @@ __device__ __forceinline__ ChunkMeta load_meta(const int* table, const int* seg_
   return c;
 }
 
+// Where one segment's sums go: a row of y, rounded to y's type on store, or
+// an f32 fragment slot of part; neither when default-built.
+template <typename Y>
+struct Dst {
+  Y* y;
+  float* p;
+  static __device__ Dst row(Y* r) { return {r, nullptr}; }
+  static __device__ Dst fragment(float* f) { return {nullptr, f}; }
+  __device__ bool ok() const { return y != nullptr || p != nullptr; }
+  __device__ void put(int j, float v) const {
+    if (y != nullptr) {
+      store_rounded(y + j, v);
+    } else {
+      p[j] = v;
+    }
+  }
+};
+
+template <>
+struct Dst<float> {   // an f32 y and part: one pointer
+  float* d;
+  static __device__ Dst row(float* r) { return {r}; }
+  static __device__ Dst fragment(float* f) { return {f}; }
+  __device__ bool ok() const { return d != nullptr; }
+  __device__ void put(int j, float v) const { d[j] = v; }
+};
+
 // Where chunk t's segment sums go: y for a row that lies wholly in the chunk,
 // part[t, 0] or part[t, 1] for a fragment, nowhere for the dump row.
+template <typename Y>
 struct ChunkOut {
   const int* rows;   // [L] the chunk's real segments' rows (shared memory)
   int L, prev_row, next_row, m, B, t;
-  float* y;
+  Y* y;
   float* part;
-  __device__ float* dst(int k) const {
+  __device__ Dst<Y> dst(int k) const {
     const int row = rows[k];
-    if (row < 0 || row >= m) return nullptr;   // dump row (a malformed container only)
+    if (row < 0 || row >= m) return {};   // dump row (a malformed container only)
     if ((k == 0 && row == prev_row) || (k == L - 1 && row == next_row))
-      return part + (static_cast<int64_t>(t) * 2 + (k == 0 ? 0 : 1)) * B;
-    return y + static_cast<int64_t>(row) * B;
+      return Dst<Y>::fragment(part + (static_cast<int64_t>(t) * 2 + (k == 0 ? 0 : 1)) * B);
+    return Dst<Y>::row(y + static_cast<int64_t>(row) * B);
   }
 };
 
@@ -270,13 +304,13 @@ __device__ __forceinline__ void load_slots(Values4<V>& v, int4& c, const V* vals
   }
 }
 
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 __global__ void __launch_bounds__(kThreads, NB == 1 ? 4 : 2)
 segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
                     const int* __restrict__ table, const int* __restrict__ seg_row,
                     const float* __restrict__ val_scale, int groups, int group,
-                    const float* __restrict__ x, long long x_rows, int B,
-                    float* __restrict__ y, float* __restrict__ part, int m, int T, int S,
+                    const X* __restrict__ x, long long x_rows, int B,
+                    X* __restrict__ y, float* __restrict__ part, int m, int T, int S,
                     int R, long long nnz, bool vec) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
@@ -287,8 +321,9 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
   int* rows = cnt + words;
   const int rounds = S / kRound;
   const int stride = gridDim.x * kWarps;
-  // x rows can be read as float4 when 16-byte aligned
-  const bool x4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // x rows can be read four values at a time when aligned to four values
+  const bool x4 = NB == 8 && B % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(X) - 1)) == 0;
   // int8: a scale group of whole rounds gives each round one scale
   const bool round_scale = kScaled && group % kRound == 0;
   const int group_rounds = round_scale ? group / kRound : 1;
@@ -350,7 +385,7 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
       run += __shfl_sync(kAll, inc, 31);
     }
     __syncwarp();
-    const ChunkOut out{rows, L, cur.prev_row, cur.next_row, m, B, t, y, part};
+    const ChunkOut<X> out{rows, L, cur.prev_row, cur.next_row, m, B, t, y, part};
 
     for (int j0 = 0; j0 < B; j0 += NB) {
       const int nb = min(NB, B - j0);
@@ -385,15 +420,14 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
           const int cc = pick(c, e);
           const bool in = real && cc >= 0 && cc < x_rows;
           if (NB == 1) {
-            p[e][0] = __fmul_rn(val, in ? __ldg(x + cc) : 0.f);
+            p[e][0] = __fmul_rn(val, in ? load_f32(x + cc) : 0.f);
             continue;
           }
-          const float* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
+          const X* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
           if (x4 && nb == NB) {
 #pragma unroll
             for (int k = 0; k < NB; k += 4) {
-              const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+              const float4 xv = in ? load_f32x4(xr + k) : make_float4(0.f, 0.f, 0.f, 0.f);
               p[e][k] = __fmul_rn(val, xv.x);
               p[e][k + 1] = __fmul_rn(val, xv.y);
               p[e][k + 2] = __fmul_rn(val, xv.z);
@@ -402,7 +436,7 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
           } else {
 #pragma unroll
             for (int k = 0; k < NB; ++k)
-              p[e][k] = __fmul_rn(val, in && k < nb ? __ldg(xr + k) : 0.f);
+              p[e][k] = __fmul_rn(val, in && k < nb ? load_f32(xr + k) : 0.f);
           }
         }
 
@@ -421,11 +455,11 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
           const bool st = (nib >> e) & 1;
           if (st && e > 0) {
             if (nib & ((1 << e) - 1)) {
-              float* d = out.dst(kb + __popc(nib & ((1 << e) - 1)) - 1);
-              if (d != nullptr) {
+              const Dst<X> d = out.dst(kb + __popc(nib & ((1 << e) - 1)) - 1);
+              if (d.ok()) {
 #pragma unroll
                 for (int k = 0; k < NB; ++k)
-                  if (k < nb) d[j0 + k] = acc[k];
+                  if (k < nb) d.put(j0 + k, acc[k]);
               }
             } else {
 #pragma unroll
@@ -441,7 +475,7 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
         // before's, then each lane with a start closes the segment open
         // before it
         const unsigned flags = __ballot_sync(kAll, nib != 0);
-        float* close = (nib != 0 && kb > 0) ? out.dst(kb - 1) : nullptr;
+        const Dst<X> close = (nib != 0 && kb > 0) ? out.dst(kb - 1) : Dst<X>{};
         const bool has_head = (nib & 1) == 0;
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
@@ -455,19 +489,19 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
           }
           float before = __shfl_up_sync(kAll, a, 1);
           if (lane == 0) before = carry[k];
-          if (close != nullptr && k < nb)
-            close[j0 + k] = has_head ? __fadd_rn(before, head[k]) : before;
+          if (close.ok() && k < nb)
+            close.put(j0 + k, has_head ? __fadd_rn(before, head[k]) : before);
           carry[k] = __shfl_sync(kAll, a, 31);
         }
       }
       // the segment open at the chunk's end: the last real one when the
       // chunk is full, else the padding's
       if (lane == 0 && n_t == S && L > 0) {
-        float* d = out.dst(L - 1);
-        if (d != nullptr) {
+        const Dst<X> d = out.dst(L - 1);
+        if (d.ok()) {
 #pragma unroll
           for (int k = 0; k < NB; ++k)
-            if (k < nb) d[j0 + k] = carry[k];
+            if (k < nb) d.put(j0 + k, carry[k]);
         }
       }
 
@@ -489,10 +523,11 @@ segsum_chunk_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
 // and f = 1 .. c1 - c0 (segment 0 of chunk c0 + f).  Lane l adds fragments
 // l, l+32, ... in increasing order, then the fixed shuffle tree sums the
 // lanes: the hub row's hundred fragments cost four loads per lane, not a
-// hundred dependent ones.
+// hundred dependent ones.  The f32 sum is rounded to y's type once.
+template <typename Y>
 __global__ void __launch_bounds__(kCarryThreads)
 segsum_carry_kernel(const int* __restrict__ carry, int P, const float* __restrict__ part,
-                    float* __restrict__ y, int B, int T, int m) {
+                    Y* __restrict__ y, int B, int T, int m) {
   const int i = blockIdx.x * (kCarryThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= P) return;   // the whole warp leaves together
@@ -516,30 +551,31 @@ segsum_carry_kernel(const int* __restrict__ carry, int P, const float* __restric
 #pragma unroll
     for (int k = 0; k < kMaxCols; ++k) {
       acc[k] = warp_sum(acc[k]);
-      if (lane == 0 && k < nb) y[static_cast<int64_t>(row) * B + j0 + k] = acc[k];
+      if (lane == 0 && k < nb) store_rounded(y + static_cast<int64_t>(row) * B + j0 + k, acc[k]);
     }
   }
 }
 
 // Blocks of one chunk-pass instance that fit on the current card at once:
 // the grid of a launch whose warps walk the chunks.
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 int resident_blocks(size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segsum_chunk_kernel<V, kScaled, NB>,
-                                                kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                segsum_chunk_kernel<V, X, kScaled, NB>, kThreads,
+                                                smem);
   return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 cudaError_t launch_chunks(const void* vals, const int* cols, const int* table,
                           const int* seg_row, const float* val_scale, int groups,
-                          const float* x, long long x_rows, int B, float* y, float* part, int m,
+                          const X* x, long long x_rows, int B, X* y, float* part, int m,
                           int T, int S, int R, long long nnz, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kWarps) * (2 * (S / 32) + R) * 4;
-  auto kernel = segsum_chunk_kernel<V, kScaled, NB>;
+  auto kernel = segsum_chunk_kernel<V, X, kScaled, NB>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -551,7 +587,7 @@ cudaError_t launch_chunks(const void* vals, const int* cols, const int* table,
   const int percent = static_cast<int>(
       resident >= kSmemPerSm ? 100 : (resident * 100 + kSmemPerSm - 1) / kSmemPerSm);
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, percent);
-  const long long cap = resident_blocks<V, kScaled, NB>(smem);
+  const long long cap = resident_blocks<V, X, kScaled, NB>(smem);
   const long long need = (static_cast<long long>(T) + kWarps - 1) / kWarps;
   const int group = groups > 0 ? S / groups : 1;
   const V* v = static_cast<const V*>(vals);
@@ -564,57 +600,81 @@ cudaError_t launch_chunks(const void* vals, const int* cols, const int* table,
   return cudaGetLastError();
 }
 
-template <typename V, bool kScaled>
-cudaError_t launch(const void* vals, const int* cols, const int* table, const int* seg_row,
-                   const int* carry, int P, const float* val_scale, int groups, const float* x,
-                   long long x_rows, int B, float* y, float* part, int m, int T, int S, int R,
-                   long long nnz, cudaStream_t stream) {
+template <typename V, typename X, bool kScaled>
+cudaError_t launch_x(const void* vals, const int* cols, const int* table, const int* seg_row,
+                     const int* carry, int P, const float* val_scale, int groups,
+                     const void* x_ptr, long long x_rows, int B, void* y_ptr, float* part,
+                     int m, int T, int S, int R, long long nnz, cudaStream_t stream) {
+  const X* x = static_cast<const X*>(x_ptr);
+  X* y = static_cast<X*>(y_ptr);
   const cudaError_t err =
-      B == 1 ? launch_chunks<V, kScaled, 1>(vals, cols, table, seg_row, val_scale, groups, x,
-                                            x_rows, B, y, part, m, T, S, R, nnz, stream)
-             : launch_chunks<V, kScaled, kMaxCols>(vals, cols, table, seg_row, val_scale,
-                                                   groups, x, x_rows, B, y, part, m, T, S,
-                                                   R, nnz, stream);
+      B == 1 ? launch_chunks<V, X, kScaled, 1>(vals, cols, table, seg_row, val_scale, groups,
+                                               x, x_rows, B, y, part, m, T, S, R, nnz, stream)
+             : launch_chunks<V, X, kScaled, kMaxCols>(vals, cols, table, seg_row, val_scale,
+                                                      groups, x, x_rows, B, y, part, m, T, S,
+                                                      R, nnz, stream);
   if (err != cudaSuccess || P == 0) return err;
   const int warps = kCarryThreads / 32;
   const int blocks = (P + warps - 1) / warps;
-  segsum_carry_kernel<<<blocks, kCarryThreads, 0, stream>>>(carry, P, part, y, B, T, m);
+  segsum_carry_kernel<X><<<blocks, kCarryThreads, 0, stream>>>(carry, P, part, y, B, T, m);
   return cudaGetLastError();
+}
+
+// x_kind: 0 = float32, 1 = bfloat16 (x and y alike).
+template <typename V, bool kScaled>
+cudaError_t launch(int x_kind, const void* vals, const int* cols, const int* table,
+                   const int* seg_row, const int* carry, int P, const float* val_scale,
+                   int groups, const void* x, long long x_rows, int B, void* y, float* part,
+                   int m, int T, int S, int R, long long nnz, cudaStream_t stream) {
+  switch (x_kind) {
+    case 0:
+      return launch_x<V, float, kScaled>(vals, cols, table, seg_row, carry, P, val_scale,
+                                         groups, x, x_rows, B, y, part, m, T, S, R, nnz, stream);
+    case 1:
+      return launch_x<V, __nv_bfloat16, kScaled>(vals, cols, table, seg_row, carry, P,
+                                                 val_scale, groups, x, x_rows, B, y, part, m, T,
+                                                 S, R, nnz, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required).
+// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required);
+// x_kind: 0 = float32, 1 = bfloat16, the type of x and of y.
 // vals / cols: [T, S] with S a multiple of 128; seg_start: the segment-start
 // table, [T + 1] offsets into itself, then each chunk's L_t starts;
 // seg_row: [T, R]; val_scale: [T, groups]; carry: [P, 3] (row, first
 // fragment slot, last chunk) of the rows that span chunks; x: [x_rows, B];
 // y: [m, B]; part: [T, 2, B] scratch; nnz: real slots.
-int repro_spmv_segsum(int value_kind, const void* vals, const int* cols, const int* seg_start,
-                      const int* seg_row, const int* carry, int P, const float* val_scale,
-                      int groups, const float* x, long long x_rows, int B, float* y,
-                      float* part, int m, int T, int S, int R, long long nnz, void* stream) {
+int repro_spmv_segsum(int value_kind, int x_kind, const void* vals, const int* cols,
+                      const int* seg_start, const int* seg_row, const int* carry, int P,
+                      const float* val_scale, int groups, const void* x, long long x_rows,
+                      int B, void* y, float* part, int m, int T, int S, int R, long long nnz,
+                      void* stream) {
   if (T <= 0 || S < kRound || S % kRound || R < 1 || B < 1 || m < 0 || P < 0 || nnz < 0 ||
       nnz > static_cast<long long>(T) * S)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (value_kind) {
     case 0:
-      return static_cast<int>(launch<float, false>(vals, cols, seg_start, seg_row, carry, P,
-                                                   nullptr, 0, x, x_rows, B, y, part, m, T, S,
-                                                   R, nnz, st));
+      return static_cast<int>(launch<float, false>(x_kind, vals, cols, seg_start, seg_row,
+                                                   carry, P, nullptr, 0, x, x_rows, B, y, part,
+                                                   m, T, S, R, nnz, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16, false>(vals, cols, seg_start, seg_row,
-                                                           carry, P, nullptr, 0, x, x_rows, B,
-                                                           y, part, m, T, S, R, nnz, st));
+      return static_cast<int>(launch<__nv_bfloat16, false>(x_kind, vals, cols, seg_start,
+                                                           seg_row, carry, P, nullptr, 0, x,
+                                                           x_rows, B, y, part, m, T, S, R, nnz,
+                                                           st));
     case 2:
       if (val_scale == nullptr || groups <= 0 || S % groups)
         return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch<int8_t, true>(vals, cols, seg_start, seg_row, carry, P,
-                                                   val_scale, groups, x, x_rows, B, y, part, m,
-                                                   T, S, R, nnz, st));
+      return static_cast<int>(launch<int8_t, true>(x_kind, vals, cols, seg_start, seg_row,
+                                                   carry, P, val_scale, groups, x, x_rows, B, y,
+                                                   part, m, T, S, R, nnz, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,7 +8,10 @@
 //   y[row_perm[i], j] = sum_{w < w_t} dq(vals[t, c, w]) * x[col[t, c, w], j]
 //
 // with w_t = chunk_width[t], dq the f32 upcast of bf16 or int8 code *
-// val_scale[t, c, w / group], and every product and sum in f32.
+// val_scale[t, c, w / group], and every product and sum in f32.  x and y
+// are float32 or bfloat16 (one type for both, as the Pallas kernel stores y
+// in x's dtype): a bf16 x is widened to f32 as it is read, and each row is
+// rounded to bf16 once, when stored.
 //
 // Bound: bytes.  SpMV does 2 flops per stored slot and column and reads
 // 5-8 bytes per slot, far below the card's ~20 flops per byte of float32
@@ -60,6 +63,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -122,12 +127,12 @@ __device__ __forceinline__ int pick(const int4& c, int e) {
   return e == 0 ? c.x : e == 1 ? c.y : e == 2 ? c.z : c.w;
 }
 
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 __global__ void __launch_bounds__(kThreads, NB == 1 ? 4 : 2)
 sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
               const int* __restrict__ row_perm, const int* __restrict__ chunk_width,
               const float* __restrict__ val_scale, int groups, int group,
-              const float* __restrict__ x, long long x_rows, int B, float* __restrict__ y,
+              const X* __restrict__ x, long long x_rows, int B, X* __restrict__ y,
               int m, long long m_pad, int C, int W, bool vec) {
   constexpr int kG = lanes_for(NB);             // threads per row
   constexpr int kH = kSum / kG;                 // strands per thread
@@ -139,8 +144,9 @@ sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
   // a warp's rows are consecutive: it runs while its first row is in range,
   // so all 32 lanes take part in every shuffle
   int64_t warp_first = i - (threadIdx.x % 32) / kG;
-  // x rows can be read as float4 when 16-byte aligned
-  const bool x4 = NB == 8 && B % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // x rows can be read four values at a time when aligned to four values
+  const bool x4 = NB == 8 && B % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(X) - 1)) == 0;
   // int8 groups of at least a batch (128 lanes in every container): a batch
   // spans at most two of them, so it loads at most two scales
   const bool few_scales = kScaled && group >= kBatch;
@@ -218,15 +224,14 @@ sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
             const int cc = pick(c[u], e);
             const bool in = cc >= 0 && cc < x_rows;
             if (NB == 1) {
-              acc[h][0] = __fmaf_rn(val, in ? __ldg(x + cc) : 0.f, acc[h][0]);
+              acc[h][0] = __fmaf_rn(val, in ? load_f32(x + cc) : 0.f, acc[h][0]);
               continue;
             }
-            const float* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
+            const X* xr = x + static_cast<int64_t>(in ? cc : 0) * B + j0;
             if (x4 && nb == NB) {
 #pragma unroll
               for (int k = 0; k < NB; k += 4) {
-                const float4 xv = in ? __ldg(reinterpret_cast<const float4*>(xr + k))
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+                const float4 xv = in ? load_f32x4(xr + k) : make_float4(0.f, 0.f, 0.f, 0.f);
                 acc[h][k] = __fmaf_rn(val, xv.x, acc[h][k]);
                 acc[h][k + 1] = __fmaf_rn(val, xv.y, acc[h][k + 1]);
                 acc[h][k + 2] = __fmaf_rn(val, xv.z, acc[h][k + 2]);
@@ -236,7 +241,7 @@ sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
 #pragma unroll
               for (int k = 0; k < NB; ++k) {
                 if (k < nb)
-                  acc[h][k] = __fmaf_rn(val, in ? __ldg(xr + k) : 0.f, acc[h][k]);
+                  acc[h][k] = __fmaf_rn(val, in ? load_f32(xr + k) : 0.f, acc[h][k]);
               }
             }
           }
@@ -251,7 +256,7 @@ sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
         for (int off = kG / 2; off > 0; off >>= 1)
           s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off, kG));
         if (lane == 0 && k < nb && active && orig >= 0 && orig < m)
-          y[static_cast<int64_t>(orig) * B + j0 + k] = s;
+          store_rounded(y + static_cast<int64_t>(orig) * B + j0 + k, s);
       }
     }
   }
@@ -259,75 +264,97 @@ sellcs_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
 
 // Blocks of one kernel instance that fit on the current card at once: the
 // grid of a launch that walks the rows.
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 int resident_blocks() {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sellcs_kernel<V, kScaled, NB>,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sellcs_kernel<V, X, kScaled, NB>,
                                                 kThreads, 0);
   return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-template <typename V, bool kScaled, int NB>
+template <typename V, typename X, bool kScaled, int NB>
 cudaError_t launch_cols(const V* v, const int* cols, const int* row_perm,
                         const int* chunk_width, const float* val_scale, int groups,
-                        const float* x, long long x_rows, int B, float* y, int m,
+                        const X* x, long long x_rows, int B, X* y, int m,
                         long long m_pad, int C, int W, cudaStream_t stream) {
   constexpr int kRowsPerBlock = kThreads / lanes_for(NB);
   const long long need = (m_pad + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long long cap = resident_blocks<V, kScaled, NB>();
+  const long long cap = resident_blocks<V, X, kScaled, NB>();
   const int group = groups > 0 ? W / groups : 1;
   // 16-byte column vectors and 4-slot value vectors need aligned bases
   const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(v) & (4 * sizeof(V) - 1)) == 0;
-  sellcs_kernel<V, kScaled, NB><<<static_cast<unsigned>(need < cap ? need : cap), kThreads, 0,
-                                  stream>>>(v, cols, row_perm, chunk_width, val_scale, groups,
-                                            group, x, x_rows, B, y, m, m_pad, C, W, vec);
+  sellcs_kernel<V, X, kScaled, NB><<<static_cast<unsigned>(need < cap ? need : cap), kThreads,
+                                     0, stream>>>(v, cols, row_perm, chunk_width, val_scale,
+                                                  groups, group, x, x_rows, B, y, m, m_pad, C,
+                                                  W, vec);
   return cudaGetLastError();
 }
 
-template <typename V, bool kScaled>
-cudaError_t launch(const void* vals, const int* cols, const int* row_perm,
-                   const int* chunk_width, const float* val_scale, int groups,
-                   const float* x, long long x_rows, int B, float* y, int m, int T, int C,
-                   int W, cudaStream_t stream) {
+template <typename V, typename X, bool kScaled>
+cudaError_t launch_x(const void* vals, const int* cols, const int* row_perm,
+                     const int* chunk_width, const float* val_scale, int groups,
+                     const void* x_ptr, long long x_rows, int B, void* y_ptr, int m, int T,
+                     int C, int W, cudaStream_t stream) {
   const long long m_pad = static_cast<long long>(T) * C;
   const V* v = static_cast<const V*>(vals);
+  const X* x = static_cast<const X*>(x_ptr);
+  X* y = static_cast<X*>(y_ptr);
   if (B == 1)
-    return launch_cols<V, kScaled, 1>(v, cols, row_perm, chunk_width, val_scale, groups, x,
-                                      x_rows, B, y, m, m_pad, C, W, stream);
-  return launch_cols<V, kScaled, kMaxCols>(v, cols, row_perm, chunk_width, val_scale, groups,
-                                           x, x_rows, B, y, m, m_pad, C, W, stream);
+    return launch_cols<V, X, kScaled, 1>(v, cols, row_perm, chunk_width, val_scale, groups, x,
+                                         x_rows, B, y, m, m_pad, C, W, stream);
+  return launch_cols<V, X, kScaled, kMaxCols>(v, cols, row_perm, chunk_width, val_scale,
+                                              groups, x, x_rows, B, y, m, m_pad, C, W, stream);
+}
+
+// x_kind: 0 = float32, 1 = bfloat16 (x and y alike).
+template <typename V, bool kScaled>
+cudaError_t launch(int x_kind, const void* vals, const int* cols, const int* row_perm,
+                   const int* chunk_width, const float* val_scale, int groups, const void* x,
+                   long long x_rows, int B, void* y, int m, int T, int C, int W,
+                   cudaStream_t stream) {
+  switch (x_kind) {
+    case 0:
+      return launch_x<V, float, kScaled>(vals, cols, row_perm, chunk_width, val_scale, groups,
+                                         x, x_rows, B, y, m, T, C, W, stream);
+    case 1:
+      return launch_x<V, __nv_bfloat16, kScaled>(vals, cols, row_perm, chunk_width, val_scale,
+                                                 groups, x, x_rows, B, y, m, T, C, W, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required).
+// value_kind: 0 = float32, 1 = bfloat16, 2 = int8 (val_scale required);
+// x_kind: 0 = float32, 1 = bfloat16, the type of x and of y.
 // vals / cols: [T, C, W]; val_scale: [T, C, groups]; row_perm: [T*C];
 // chunk_width: [T]; x: [x_rows, B]; y: [m, B].
-int repro_spmv_sellcs(int value_kind, const void* vals, const int* cols, const int* row_perm,
-                      const int* chunk_width, const float* val_scale, int groups,
-                      const float* x, long long x_rows, int B, float* y, int m, int T, int C,
-                      int W, void* stream) {
+int repro_spmv_sellcs(int value_kind, int x_kind, const void* vals, const int* cols,
+                      const int* row_perm, const int* chunk_width, const float* val_scale,
+                      int groups, const void* x, long long x_rows, int B, void* y, int m, int T,
+                      int C, int W, void* stream) {
   if (T <= 0 || C < 1 || W < 1 || B < 1 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (value_kind) {
     case 0:
-      return static_cast<int>(launch<float, false>(vals, cols, row_perm, chunk_width, nullptr,
-                                                   0, x, x_rows, B, y, m, T, C, W, st));
+      return static_cast<int>(launch<float, false>(x_kind, vals, cols, row_perm, chunk_width,
+                                                   nullptr, 0, x, x_rows, B, y, m, T, C, W, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16, false>(vals, cols, row_perm, chunk_width,
-                                                           nullptr, 0, x, x_rows, B, y, m, T,
-                                                           C, W, st));
+      return static_cast<int>(launch<__nv_bfloat16, false>(x_kind, vals, cols, row_perm,
+                                                           chunk_width, nullptr, 0, x, x_rows, B,
+                                                           y, m, T, C, W, st));
     case 2:
       if (val_scale == nullptr || groups <= 0 || W % groups)
         return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch<int8_t, true>(vals, cols, row_perm, chunk_width,
-                                                   val_scale, groups, x, x_rows, B, y, m, T,
-                                                   C, W, st));
+      return static_cast<int>(launch<int8_t, true>(x_kind, vals, cols, row_perm, chunk_width,
+                                                   val_scale, groups, x, x_rows, B, y, m, T, C,
+                                                   W, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

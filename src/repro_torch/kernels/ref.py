@@ -7,7 +7,10 @@ tensors, and the "plain CSR" baseline.  They repeat the kernel's arithmetic
 (f32 dequantize, f32 products, f32 sums) but not its summation order:
 ``index_add_`` sums in an order of its own (on CUDA with atomics), so they
 agree with the kernel within rounding, not bit for bit.  The one exception,
-:func:`csrk_tile_rows_in_order`, keeps the CSR-k kernel's order too.
+:func:`csrk_tile_rows_in_order`, keeps the CSR-k kernel's order too.  They
+compute in x's dtype: for a bf16 x most multiply and sum in bf16 (the
+kernels sum in f32 and round once), and for a float64 x they give the
+float64 product of the same dequantised values.
 """
 from __future__ import annotations
 
@@ -111,10 +114,18 @@ def ell_rows(col_idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torc
     Every slot is multiplied, padding included (column 0, value 0), with f32
     products summed in f32 and y in x's dtype, as the reference's Pallas
     kernel: an inf or NaN at ``x[0]`` reaches every row that holds padding.
+    A float64 x is multiplied and summed in float64 (the exact-as-can-be
+    product the card's checks hold the kernel to).
     """
-    xf = x.to(torch.float32)
-    y = (vals.to(torch.float32) * xf[col_idx.long()]).sum(dim=1)
+    work = _work_dtype(x)
+    xf = x.to(work)
+    y = (vals.to(work) * xf[col_idx.long()]).sum(dim=1)
     return y.to(x.dtype)
+
+
+def _work_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32, the kernels' accumulation type, or f64 for a float64 x."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def spmv_bcsr(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +201,7 @@ def csrk_tile_rows_in_order(
     window: int,
     tile_nnz=None,
 ) -> torch.Tensor:
-    """The CSR-k kernel's own summation order: ``[T·R]`` (``[T·R, B]``) f32 rows.
+    """The CSR-k kernel's own summation order: ``[T·R]`` (``[T·R, B]``) rows.
 
     The same function as :func:`csrk_tile_rows`, computed as the CUDA kernel
     computes it: per tile and row, the f32 products ``dq(vals[t,s]) ·
@@ -199,6 +210,8 @@ def csrk_tile_rows_in_order(
     Every product and every sum is its own rounded f32 operation, so nothing
     fuses and the kernel's output is matched bit for bit.  As in the kernel,
     x reads outside ``[0, n)`` see 0 and rows outside ``[0, R)`` are dropped.
+    The rows are f32 for an f32 x; for a bf16 x (read as f32) each row's f32
+    sum is rounded to bf16 once, as the kernel stores it.
     """
     T, S = vals.shape
     R = rows_per_tile
@@ -225,7 +238,8 @@ def csrk_tile_rows_in_order(
         at = pos == k
         rows = key[at]
         out[rows] = out[rows] + prod[at]
-    return out.reshape((T * R,) + tail)
+    out = out.reshape((T * R,) + tail)
+    return out if x.dtype == torch.float32 else out.to(x.dtype)
 
 
 def _add_remainder(y, rem_row, rem_col, rem_val, x):
@@ -436,17 +450,19 @@ def dia_plane_rows(
     is the reference's zero ``lead`` margin; every in-range slot is
     multiplied, a 0 value included, so an inf or NaN in x reaches the rows
     it reaches there.  ``offsets`` is an int tensor on x's device (no host
-    round trip, so the function can be captured in a CUDA graph).
+    round trip, so the function can be captured in a CUDA graph).  A float64
+    x is multiplied and summed in float64.
     """
     tail = tuple(x.shape[1:])
     if diag_vals.shape[0] == 0:
         return torch.zeros((m,) + tail, dtype=x.dtype, device=x.device)
     col = torch.arange(m, device=x.device)[None, :] + offsets.long()[:, None]  # [n_diag, m]
     inside = (col >= 0) & (col < n)
-    xf = x.to(torch.float32)
+    work = _work_dtype(x)
+    xf = x.to(work)
     xs = xf[col.clamp(0, max(n - 1, 0))]
     xs = torch.where(inside[..., None] if x.ndim == 2 else inside, xs, xs.new_zeros(()))
-    vals = diag_vals.to(torch.float32)
+    vals = diag_vals.to(work)
     contrib = (vals[..., None] if x.ndim == 2 else vals) * xs
     return contrib.sum(dim=0).to(x.dtype)
 

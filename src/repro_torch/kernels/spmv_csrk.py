@@ -18,6 +18,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: the dtypes a CUDA kernel takes for x, and writes y in: the kind passed to it
+X_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -27,7 +29,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared (once)."""
     lib = build.load("spmv_csrk")
     lib.repro_spmv_csrk_tiles.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, ctypes.c_longlong, _I,
+        _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, ctypes.c_longlong, _I,
         _P, _I, _I, _I, _I, _P,
     ]
     lib.repro_spmv_csrk_tiles.restype = _I
@@ -56,7 +58,7 @@ def spmv_csrk_tiles(
     local_col: torch.Tensor,   # [T, S] int32
     local_row: torch.Tensor,   # [T, S] int32
     win_block: torch.Tensor,   # [T] int32
-    x: torch.Tensor,           # [n] or [n, B] f32
+    x: torch.Tensor,           # [n] or [n, B] f32 | bf16
     val_scale: Optional[torch.Tensor] = None,   # [T, S/group] f32, int8 only
     *,
     rows_per_tile: int,
@@ -68,12 +70,14 @@ def spmv_csrk_tiles(
     """Run the CSR-k tile kernel over all T tiles.
 
     Returns ``[T·R]`` (``[T·R, B]``) rows, tile t at rows ``t·R``; with
-    ``tile_ids`` and ``out`` (``[num_tiles·R(, B)]`` f32) tile t is written at
+    ``tile_ids`` and ``out`` (``[num_tiles·R(, B)]`` in x's dtype) tile t is written at
     rows ``tile_ids[t]·R`` of ``out`` instead, and ``out`` is returned — the
     bucketed layout's row scatter (``ops.combine_tile_rows``) done in place.
     ``tile_nnz`` lets the kernel skip each tile's trailing padding slots.
     Unlike the Pallas kernel, ``x`` need not be padded to the window grid:
-    reads past its rows see zeros.
+    reads past its rows see zeros.  On CUDA ``x`` is float32 or bfloat16 and
+    y comes out in x's dtype, summed in f32 and rounded once, as the Pallas
+    kernel stores it.
 
     CUDA launches add one to ``spmv_csrk_tiles.launches``.
     """
@@ -97,7 +101,7 @@ def spmv_csrk_tiles(
     if x.ndim not in (1, 2):
         raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
     B = 1 if x.ndim == 1 else int(x.shape[1])
-    check_operand("x", x, dev, (torch.float32,))
+    check_operand("x", x, dev, tuple(X_KIND))
     check_operand("vals", vals, dev, tuple(_VALUE_KIND))
     check_operand("local_col", local_col, dev, (torch.int32,), (T, S))
     check_operand("local_row", local_row, dev, (torch.int32,), (T, S))
@@ -115,9 +119,9 @@ def spmv_csrk_tiles(
     elif val_scale is not None:
         raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
     if out is None:
-        out = torch.empty((T * R,) + tail, dtype=torch.float32, device=dev)
+        out = torch.empty((T * R,) + tail, dtype=x.dtype, device=dev)
     else:
-        check_operand("out", out, dev, (torch.float32,))
+        check_operand("out", out, dev, (x.dtype,))
         if out.shape[1:] != x.shape[1:] or out.shape[0] % R:
             raise ValueError(f"out of shape {tuple(out.shape)} does not take {R}-row tiles")
     if T == 0:
@@ -128,7 +132,7 @@ def spmv_csrk_tiles(
         raise ValueError(f"tile of {R} rows x {B} columns does not fit shared memory")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.repro_spmv_csrk_tiles(
-        _VALUE_KIND[vals.dtype], ptr(vals), ptr(local_col), ptr(local_row),
+        _VALUE_KIND[vals.dtype], X_KIND[x.dtype], ptr(vals), ptr(local_col), ptr(local_row),
         ptr(win_block), ptr(val_scale), groups, ptr(tile_nnz), ptr(tile_ids),
         out.shape[0] // R, ptr(x), int(x.shape[0]), B, ptr(out), T, S, R, int(window),
         torch.cuda.current_stream(dev).cuda_stream,

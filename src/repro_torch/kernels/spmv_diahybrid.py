@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.spmv_csrk import check_operand
+from repro_torch.kernels.spmv_csrk import X_KIND, check_operand
 
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -31,7 +31,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared (once)."""
     lib = build.load("spmv_diahybrid")
     lib.repro_spmv_diahybrid.argtypes = [
-        _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P]
+        _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P]
     lib.repro_spmv_diahybrid.restype = _I
     lib.repro_diahybrid_error_string.argtypes = [_I]
     lib.repro_diahybrid_error_string.restype = ctypes.c_char_p
@@ -58,7 +58,7 @@ def spmv_diahybrid_rows(
     rem_mask: torch.Tensor,         # [ceil(m / 32)] int32
     rem_col_idx: torch.Tensor,      # [rem_nnz] int32
     rem_vals: torch.Tensor,         # [rem_nnz] f32
-    x: torch.Tensor,                # [n] or [n, B] f32
+    x: torch.Tensor,                # [n] or [n, B] f32 | bf16
     *,
     m: int,
     n: int,
@@ -72,7 +72,9 @@ def spmv_diahybrid_rows(
     (``DIAHybridMatrix.offset_vec`` is built once with the container): the
     wrapper uploads nothing, so a call can be captured in a CUDA graph.  The
     kernel writes every row of y, so ``out`` (if given, ``[m]``/``[m, B]``
-    f32 on x's device) need not be cleared.  CUDA calls add one to
+    in x's dtype on x's device) need not be cleared.  On CUDA ``x`` is
+    float32 or bfloat16 and y comes out in x's dtype: a row's plane part and
+    remainder are added in f32 and rounded once.  CUDA calls add one to
     ``spmv_diahybrid_rows.launches``; each is one CUDA launch.
     """
     if x.device.type == "cpu":
@@ -87,7 +89,7 @@ def spmv_diahybrid_rows(
     if x.ndim not in (1, 2) or x.shape[0] != n:
         raise ValueError(f"x must be [{n}] or [{n}, B], got shape {tuple(x.shape)}")
     B = 1 if x.ndim == 1 else int(x.shape[1])
-    check_operand("x", x, dev, (torch.float32,))
+    check_operand("x", x, dev, tuple(X_KIND))
     check_operand("diag_vals", diag_vals, dev, tuple(_VALUE_KIND))
     check_operand("offsets", offsets, dev, (torch.int32,), (n_diag,))
     if max(m, n) >= 2**31:
@@ -104,15 +106,16 @@ def spmv_diahybrid_rows(
     check_operand("rem_vals", rem_vals, dev, (torch.float32,))
     check_operand("rem_col_idx", rem_col_idx, dev, (torch.int32,), (rem_nnz,))
     if out is None:
-        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
     else:
-        check_operand("out", out, dev, (torch.float32,), (m,) + tuple(x.shape[1:]))
+        check_operand("out", out, dev, (x.dtype,), (m,) + tuple(x.shape[1:]))
     if out.numel() == 0:
         return out
 
     lib = _library()
     err = lib.repro_spmv_diahybrid(
-        _VALUE_KIND[diag_vals.dtype], diag_vals.data_ptr(), offsets.data_ptr(), n_diag,
+        _VALUE_KIND[diag_vals.dtype], X_KIND[x.dtype], diag_vals.data_ptr(), offsets.data_ptr(),
+        n_diag,
         rem_rows.data_ptr(), rem_start.data_ptr(), rem_mask.data_ptr(), rem_col_idx.data_ptr(),
         rem_vals.data_ptr(), R, fringe_lanes(rem_nnz, R).bit_length() - 1, x.data_ptr(), B,
         out.data_ptr(), m, n, torch.cuda.current_stream(dev).cuda_stream,

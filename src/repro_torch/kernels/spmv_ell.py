@@ -18,8 +18,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.spmv_csrk import check_operand
+from repro_torch.kernels.spmv_csrk import X_KIND, check_operand
 
+_VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -28,7 +29,7 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared (once)."""
     lib = build.load("spmv_ell")
-    lib.repro_spmv_ell.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.repro_spmv_ell.argtypes = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.repro_spmv_ell.restype = _I
     lib.repro_ell_error_string.argtypes = [_I]
     lib.repro_ell_error_string.restype = ctypes.c_char_p
@@ -37,8 +38,8 @@ def _library() -> ctypes.CDLL:
 
 def spmv_ell_rows(
     col_idx: torch.Tensor,   # [m, kmax] int32
-    vals: torch.Tensor,      # [m, kmax] f32
-    x: torch.Tensor,         # [n] f32
+    vals: torch.Tensor,      # [m, kmax] f32 | bf16
+    x: torch.Tensor,         # [n] f32 | bf16
     *,
     m: int,
     n: int,
@@ -48,7 +49,9 @@ def spmv_ell_rows(
 
     ``x`` must be a vector: the reference has no batched ELL body, so an
     ``[n, B]`` x raises on every device.  The kernel writes every row of y,
-    so ``out`` (if given, ``[m]`` f32 on x's device) need not be cleared.
+    so ``out`` (if given, ``[m]`` in x's dtype on x's device) need not be
+    cleared.  On CUDA ``x`` is float32 or bfloat16 and y comes out in x's
+    dtype, summed in f32 and rounded once.
     CUDA calls add one to ``spmv_ell_rows.launches``; each is one CUDA
     launch.
     """
@@ -66,19 +69,20 @@ def spmv_ell_rows(
     # slot offsets are 64-bit in the kernel; m, n and kmax travel as C ints
     if max(m, n, kmax) >= 2**31:
         raise ValueError(f"m, n and kmax must be below 2^31, got {m}, {n} and {kmax}")
-    check_operand("x", x, dev, (torch.float32,))
-    check_operand("vals", vals, dev, (torch.float32,))
+    check_operand("x", x, dev, tuple(X_KIND))
+    check_operand("vals", vals, dev, tuple(_VALUE_KIND))
     check_operand("col_idx", col_idx, dev, (torch.int32,), (m, kmax))
     if out is None:
-        out = torch.empty(m, dtype=torch.float32, device=dev)
+        out = torch.empty(m, dtype=x.dtype, device=dev)
     else:
-        check_operand("out", out, dev, (torch.float32,), (m,))
+        check_operand("out", out, dev, (x.dtype,), (m,))
     if m == 0:
         return out
 
     lib = _library()
     err = lib.repro_spmv_ell(
-        col_idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), m, n, kmax,
+        _VALUE_KIND[vals.dtype], X_KIND[x.dtype], col_idx.data_ptr(), vals.data_ptr(),
+        x.data_ptr(), out.data_ptr(), m, n, kmax,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.spmv_csrk import check_operand
+from repro_torch.kernels.spmv_csrk import X_KIND, check_operand
 
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
@@ -32,7 +32,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared (once)."""
     lib = build.load("spmv_segsum")
     lib.repro_spmv_segsum.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _LL, _P,
+        _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _LL, _P,
     ]
     lib.repro_spmv_segsum.restype = _I
     lib.repro_segsum_error_string.argtypes = [_I]
@@ -46,7 +46,7 @@ def spmv_segsum_chunks(
     seg_row: torch.Tensor,       # [T, R] int32, unused segments → m
     seg_start: torch.Tensor,     # [T + 1 + Σ_t L_t] int32 (SegSumCSR.seg_start)
     carry: torch.Tensor,         # [P, 3] int32 rows spanning chunks (SegSumCSR.carry)
-    x: torch.Tensor,             # [n] or [n, B] f32
+    x: torch.Tensor,             # [n] or [n, B] f32 | bf16
     val_scale: Optional[torch.Tensor] = None,   # [T, S/group] f32, int8 only
     *,
     m: int,
@@ -62,7 +62,9 @@ def spmv_segsum_chunks(
     each chunk's segment starts); ``carry`` lists the rows that
     span chunks, whose fragments the carry pass sums.  The kernel writes
     every row of y, empty rows as 0, so ``out`` (if given, ``[m]``/``[m, B]``
-    f32 on x's device) need not be cleared.
+    in x's dtype on x's device) need not be cleared.  On CUDA ``x`` is
+    float32 or bfloat16 and y comes out in x's dtype: each row is summed in
+    f32 (the fragments of rows that span chunks too) and rounded once.
     CUDA calls add one to ``spmv_segsum_chunks.launches``; each is two CUDA
     launches, the chunk pass and the carry pass.
     """
@@ -84,7 +86,7 @@ def spmv_segsum_chunks(
     if not 0 <= nnz <= T * S:
         raise ValueError(f"nnz {nnz} does not fit {T} chunks of {S} slots")
     B = 1 if x.ndim == 1 else int(x.shape[1])
-    check_operand("x", x, dev, (torch.float32,))
+    check_operand("x", x, dev, tuple(X_KIND))
     check_operand("vals", vals, dev, tuple(_VALUE_KIND))
     check_operand("col_idx", col_idx, dev, (torch.int32,), (T, S))
     check_operand("seg_row", seg_row, dev, (torch.int32,), (T, R))
@@ -107,9 +109,9 @@ def spmv_segsum_chunks(
     elif val_scale is not None:
         raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
     if out is None:
-        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
     else:
-        check_operand("out", out, dev, (torch.float32,), (m,) + tuple(x.shape[1:]))
+        check_operand("out", out, dev, (x.dtype,), (m,) + tuple(x.shape[1:]))
     if out.numel() == 0:
         return out
     part = torch.empty((T, 2, B), dtype=torch.float32, device=dev)   # fragment sums
@@ -117,9 +119,10 @@ def spmv_segsum_chunks(
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.repro_spmv_segsum(
-        _VALUE_KIND[vals.dtype], ptr(vals), ptr(col_idx), ptr(seg_start), ptr(seg_row),
-        ptr(carry), int(carry.shape[0]), ptr(val_scale), groups, ptr(x), int(x.shape[0]), B,
-        ptr(out), ptr(part), m, T, S, R, int(nnz), torch.cuda.current_stream(dev).cuda_stream,
+        _VALUE_KIND[vals.dtype], X_KIND[x.dtype], ptr(vals), ptr(col_idx), ptr(seg_start),
+        ptr(seg_row), ptr(carry), int(carry.shape[0]), ptr(val_scale), groups, ptr(x),
+        int(x.shape[0]), B, ptr(out), ptr(part), m, T, S, R, int(nnz),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(

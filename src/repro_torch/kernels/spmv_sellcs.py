@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.spmv_csrk import check_operand
+from repro_torch.kernels.spmv_csrk import X_KIND, check_operand
 
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
@@ -29,7 +29,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared (once)."""
     lib = build.load("spmv_sellcs")
     lib.repro_spmv_sellcs.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _P,
+        _I, _I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _P,
     ]
     lib.repro_spmv_sellcs.restype = _I
     lib.repro_sellcs_error_string.argtypes = [_I]
@@ -42,7 +42,7 @@ def spmv_sellcs_chunks(
     col_idx: torch.Tensor,       # [T, C, W] int32
     row_perm: torch.Tensor,      # [T·C] int32, sorted position → original row (pad → m)
     chunk_width: torch.Tensor,   # [T] int32 real lanes of each chunk
-    x: torch.Tensor,             # [n] or [n, B] f32
+    x: torch.Tensor,             # [n] or [n, B] f32 | bf16
     val_scale: Optional[torch.Tensor] = None,   # [T, C, W/group] f32, int8 only
     *,
     m: int,
@@ -55,8 +55,9 @@ def spmv_sellcs_chunks(
     With ``out`` given, the rows are written there (and ``out`` returned)
     and every other row of ``out`` keeps its value, so launches over
     disjoint chunk subsets (``row_perm.view(T, C)[ids].reshape(-1)`` and
-    ``chunk_width[ids]``) fill one y.  CUDA launches add one to
-    ``spmv_sellcs_chunks.launches``.
+    ``chunk_width[ids]``) fill one y.  On CUDA ``x`` is float32 or bfloat16
+    and y comes out in x's dtype (``out`` must have it), summed in f32 and
+    rounded once.  CUDA launches add one to ``spmv_sellcs_chunks.launches``.
     """
     if x.device.type == "cpu":
         return ref.sellcs_chunk_rows(vals, col_idx, row_perm, x, val_scale, m=m, out=out)
@@ -68,7 +69,7 @@ def spmv_sellcs_chunks(
     if x.ndim not in (1, 2):
         raise ValueError(f"x must be [n] or [n, B], got shape {tuple(x.shape)}")
     B = 1 if x.ndim == 1 else int(x.shape[1])
-    check_operand("x", x, dev, (torch.float32,))
+    check_operand("x", x, dev, tuple(X_KIND))
     check_operand("vals", vals, dev, tuple(_VALUE_KIND))
     check_operand("col_idx", col_idx, dev, (torch.int32,), (T, C, W))
     check_operand("row_perm", row_perm, dev, (torch.int32,), (T * C,))
@@ -84,17 +85,17 @@ def spmv_sellcs_chunks(
     elif val_scale is not None:
         raise ValueError(f"val_scale is only for int8 values, got {vals.dtype}")
     if out is None:
-        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+        out = torch.empty((m,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
     else:
-        check_operand("out", out, dev, (torch.float32,), (m,) + tuple(x.shape[1:]))
+        check_operand("out", out, dev, (x.dtype,), (m,) + tuple(x.shape[1:]))
     if out.numel() == 0 or T == 0:
         return out
 
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.repro_spmv_sellcs(
-        _VALUE_KIND[vals.dtype], ptr(vals), ptr(col_idx), ptr(row_perm), ptr(chunk_width),
-        ptr(val_scale), groups, ptr(x), int(x.shape[0]), B, ptr(out), m, T, C, W,
+        _VALUE_KIND[vals.dtype], X_KIND[x.dtype], ptr(vals), ptr(col_idx), ptr(row_perm),
+        ptr(chunk_width), ptr(val_scale), groups, ptr(x), int(x.shape[0]), B, ptr(out), m, T, C, W,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

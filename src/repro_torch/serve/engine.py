@@ -23,10 +23,11 @@ prepared one.  Pinned under randomized interleavings by
 tests/test_torch_serve_engine.py.
 
 **x dtypes.**  ``submit`` turns float64 x into float32, as the reference's
-``jnp.asarray`` does with 64-bit types off.  The CUDA kernels take float32 x
-only, so on a CUDA engine ``submit`` raises for any other dtype before the
-request is queued; the CPU engine serves what the plain versions take (bf16
-x among them).
+``jnp.asarray`` does with 64-bit types off.  The CUDA kernels take float32
+and bfloat16 x (y comes out in x's dtype, summed in f32 and rounded once),
+so on a CUDA engine ``submit`` raises for any other dtype (float16, integer
+x) before the request is queued; the CPU engine serves what the plain
+versions take.
 
 **Determinism by construction.**  The engine owns no threads and reads no
 wall clock of its own: ``clock`` is injected (default
@@ -49,6 +50,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core.spmv import _resolve_device
+from repro_torch.kernels.spmv_csrk import X_KIND
 from repro_torch.obs import get_registry
 from repro_torch.serve.cache import OperatorCache
 from repro_torch.serve.scheduler import CoalescingScheduler, Request, SpMVFuture
@@ -148,7 +150,7 @@ class ServeEngine:
         coalesce only with same-matrix, same-dtype requests (mixing dtypes
         would upcast and break bit-identity), in arrival order.  Raises
         before queuing for a shape the matrix does not take, and on a CUDA
-        engine for any x dtype but float32.
+        engine for any x dtype but float32 and bfloat16.
         """
         if matrix_id not in self._matrices:
             raise KeyError(f"unregistered matrix_id {matrix_id!r}")
@@ -161,9 +163,9 @@ class ServeEngine:
                 f"x shape {tuple(x.shape)} does not match matrix n={A.shape[1]} "
                 "(expected [n] or [n, B])"
             )
-        if self.device.type == "cuda" and x.dtype != torch.float32:
+        if self.device.type == "cuda" and x.dtype not in X_KIND:
             raise TypeError(
-                f"x has dtype {x.dtype}; the CUDA kernels take float32 x only"
+                f"x has dtype {x.dtype}; the CUDA kernels take float32 or bfloat16 x"
             )
         x = x.to(self.device)
         now = self._clock()

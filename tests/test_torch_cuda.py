@@ -101,9 +101,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, ecology):
     x = torch.randn(ecology.n, device=cuda)
     call = lambda **kw: spmv_csrk_tiles(  # noqa: E731
         kw.get("vals", t.vals), kw.get("lc", t.local_col), t.local_row, t.win_block,
-        kw.get("x", x), kw.get("scale"), rows_per_tile=t.rows_per_tile, window=t.window)
+        kw.get("x", x), kw.get("scale"), rows_per_tile=t.rows_per_tile, window=t.window,
+        tile_ids=None if kw.get("out") is None else torch.arange(
+            t.num_tiles, dtype=torch.int32, device=cuda), out=kw.get("out"))
     with pytest.raises(TypeError):
         call(x=x.double())
+    with pytest.raises(TypeError):
+        call(x=x.half())
+    with pytest.raises(TypeError):
+        call(x=x.to(torch.bfloat16), out=torch.empty(t.num_tiles * t.rows_per_tile,
+                                                      device=cuda))   # out not in x's dtype
+    assert call(x=x.to(torch.bfloat16)).dtype == torch.bfloat16
     with pytest.raises(TypeError):
         call(lc=t.local_col.long())
     with pytest.raises(ValueError):
@@ -200,6 +208,10 @@ def test_sellcs_wrapper_rejects_what_the_kernel_does_not_take(cuda, irregular):
         call(x=x.double())
     with pytest.raises(TypeError):
         call(x=x.half())
+    assert call(x=x.to(torch.bfloat16)).dtype == torch.bfloat16
+    with pytest.raises(TypeError):
+        spmv_sellcs_chunks(t.vals, t.col_idx, t.row_perm, t.chunk_width, x.to(torch.bfloat16),
+                           m=A.m, out=torch.empty(A.m, device=cuda))   # out not in x's dtype
     with pytest.raises(ValueError):
         call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])      # not contiguous
     with pytest.raises(ValueError):
@@ -331,7 +343,16 @@ def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda, powerlaw):
     with pytest.raises(TypeError):
         call(x=x.double())
     with pytest.raises(TypeError):
-        call(x=x.to(torch.bfloat16))
+        call(x=x.half())
+    x16 = x.to(torch.bfloat16)
+    y16 = call(x=x16)
+    assert y16.dtype == torch.bfloat16
+    assert bool((((y16.double() - ref.spmv_segsum(s, x16.double())).abs()) <= (
+        2.0 ** -8 + (2 * A.row_lengths().to(cuda) + 2) * EPS32)
+        * ref.spmv_segsum(dataclasses.replace(s, vals=s.vals.abs()), x16.double().abs())).all())
+    with pytest.raises(TypeError):
+        spmv_segsum_chunks(s.vals, s.col_idx, s.seg_row, s.seg_start, s.carry, x16, m=A.m,
+                           nnz=s.nnz, out=torch.empty(A.m, device=cuda))   # not x's dtype
     with pytest.raises(ValueError):
         call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])      # not contiguous
     with pytest.raises(ValueError):
@@ -547,7 +568,15 @@ def test_dia_wrapper_rejects_what_the_kernel_does_not_take(cuda, diagonal):
     with pytest.raises(TypeError):
         call(x=x.double())
     with pytest.raises(TypeError):
-        call(x=x.to(torch.bfloat16))
+        call(x=x.half())
+    x16 = x.to(torch.bfloat16)
+    y16 = call(x=x16)
+    assert y16.dtype == torch.bfloat16
+    assert bool((((y16.double() - ref.spmv_diahybrid(d, x16.double())).abs()) <= (
+        2.0 ** -8 + (2 * A.row_lengths().to(cuda) + 2) * EPS32)
+        * ref.spmv_diahybrid(_abs_dia(d), x16.double().abs())).all())
+    with pytest.raises(TypeError):
+        call(x=x16, out=torch.empty(A.m, device=cuda))           # out not in x's dtype
     with pytest.raises(ValueError):
         call(x=torch.randn((A.n, 4), device=cuda)[:, ::2])       # not contiguous
     with pytest.raises(ValueError):
@@ -696,9 +725,18 @@ def test_ell_wrapper_rejects_what_the_kernel_does_not_take(cuda, ell_cases):
         kw.get("cols", e.col_idx), kw.get("vals", e.vals), kw.get("x", x), m=A.m,
         n=kw.get("n", A.n), out=kw.get("out"))
     with pytest.raises(TypeError):
-        call(x=x.to(torch.bfloat16))
+        call(x=x.half())
     with pytest.raises(TypeError):
         call(x=x.double())
+    x16 = x.to(torch.bfloat16)
+    for vals in (e.vals, e.vals.to(torch.bfloat16)):
+        y16 = call(x=x16, vals=vals)
+        assert y16.dtype == torch.bfloat16
+        assert bool(((y16.double() - ref.ell_rows(e.col_idx, vals, x16.double())).abs() <= (
+            2.0 ** -8 + (2 * A.row_lengths().to(cuda) + 2) * EPS32)
+            * ref.ell_rows(e.col_idx, vals.abs(), x16.double().abs())).all())
+    with pytest.raises(TypeError):
+        call(x=x16, out=torch.empty(A.m, device=cuda))           # out not in x's dtype
     with pytest.raises(ValueError):
         call(x=torch.randn((A.n, 2), device=cuda))                # no batched body
     with pytest.raises(ValueError):
@@ -706,7 +744,7 @@ def test_ell_wrapper_rejects_what_the_kernel_does_not_take(cuda, ell_cases):
     with pytest.raises(ValueError):
         call(n=A.n + 1)
     with pytest.raises(TypeError):
-        call(vals=e.vals.to(torch.bfloat16))
+        call(vals=e.vals.half())
     with pytest.raises(ValueError):
         call(vals=e.vals.cpu())                                   # CPU mixed with CUDA
     with pytest.raises(ValueError):
@@ -942,7 +980,8 @@ def test_serve_engine_burst_and_interleave_bit_equal_to_direct_calls(cuda, route
     """The serving engine on the card: a burst of 12 ``[n]`` requests and an
     interleaved stream of widths 1-3 on one matrix of the route; every
     result bit-equal to a direct call of the cached operator and of a freshly
-    prepared one, the route's kernel launched, a bf16 x refused unqueued."""
+    prepared one, the route's kernel launched; a bf16 x served in bf16 with
+    the bits of a direct call, a float16 x refused unqueued."""
     from repro_torch.serve import ServeEngine
 
     make, kernel = ENGINE_ROUTES[route]
@@ -981,9 +1020,100 @@ def test_serve_engine_burst_and_interleave_bit_equal_to_direct_calls(cuda, route
     again = eng.submit("A", y)
     eng.drain()
     assert torch.equal(again.result(), op(y.contiguous())) and torch.equal(op(y), again.result())
+    x16 = torch.randn((A.n, 2), generator=gen, device=cuda).to(torch.bfloat16)
+    futs = [eng.submit("A", x16), eng.submit("A", x16[:, 0].contiguous()),
+            eng.submit("A", x16.float())]
+    eng.drain()
+    assert [f.result().dtype for f in futs] == [torch.bfloat16] * 2 + [torch.float32]
+    assert torch.equal(futs[0].result(), op(x16)) and torch.equal(futs[0].result(), fresh(x16))
+    assert torch.equal(futs[1].result(), op(x16[:, 0].contiguous()))
     with pytest.raises(TypeError, match="float32"):
-        eng.submit("A", torch.ones(A.n, dtype=torch.bfloat16, device=cuda))
+        eng.submit("A", torch.ones(A.n, dtype=torch.float16, device=cuda))
     assert eng.queue_depth == 0
+
+
+# --- bf16 x on the card: each route's kernel (chip_smoke.py phase (a)) -------
+
+BF16_CASES = [(route, dt) for route in ("csrk", "csrk remainder", "sellcs", "segsum")
+              for dt in ("f32", "bf16", "int8")]
+BF16_CASES += [(route, dt) for route in ("diahybrid", "ell") for dt in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("route,value_dtype", BF16_CASES)
+def test_bf16_x_kernel_matches_float64_and_plain(cuda, route, value_dtype):
+    """bf16 x at B = 1 and 8 (ELL: 1): y bf16, each row within (r 2^-8 +
+    (2k+2) eps32)(|A||x|)_i of a float64 product and (k+2) 2^-7 (|A||x|)_i
+    of the plain version, repeat launches and B=8 columns bit-equal; CSR-k's
+    tile rows bit-equal to ``ref.csrk_tile_rows_in_order``'s bf16 form."""
+    cs = _chip_smoke()
+    if route.startswith("csrk"):
+        kw = {}
+        if route == "csrk":
+            csrk = prepare(load_suite(scale=256, ids=[8])["ecology1"], device=cuda).csrk
+        else:
+            csrk, kw = cs.far_entries_csrk(), {"window": 128}
+        tiles = tiles_from_csrk(csrk, value_dtype=value_dtype, **kw)
+        assert route == "csrk" or tiles.remainder_nnz == 64
+        folded = torch.zeros(csrk.csr.shape[0], dtype=torch.bool, device=cuda)
+        folded[tiles.rem_row.long().to(cuda)] = True
+        row_nnz = csrk.csr.row_lengths().to(cuda)
+        for run, plain, view in ((ops.spmv_csrk, ref.spmv_csrk_tiles, tiles.to(cuda)),
+                                 (ops.spmv_csrk_bucketed, ref.spmv_csrk_buckets,
+                                  bucket_tiles(tiles).to(cuda))):
+            abs_view = cs.abs_tiles(view)
+            cs.bf16x_checks(route, lambda x: run(view, x), lambda x: plain(view, x),
+                            lambda x: plain(abs_view, x), csrk.csr.shape[1], row_nnz, 3,
+                            folded=folded, in_order=lambda x: cs.csrk_in_order(view, x))
+        return
+    A = {"sellcs": lambda: load_suite(scale=64, ids=[16])["bmwcra_1"],
+         "segsum": lambda: powerlaw_zipf(2048), "diahybrid": lambda: stencil_fringe(64),
+         "ell": lambda: load_suite(scale=64, ids=[16])["bmwcra_1"]}[route]()
+    row_nnz = A.row_lengths().to(cuda)
+    if route == "ell":
+        e = ell_from_csr(A).to(cuda)
+        vals = e.vals.to(torch.bfloat16) if value_dtype == "bf16" else e.vals
+        cs.ell_bf16x(dataclasses.replace(e, vals=vals), A.n, f"ell {value_dtype}")
+        return
+    if route == "sellcs":
+        c = tiles_from_sellcs(sellcs_from_csr(A), value_dtype=value_dtype).to(cuda)
+        abs_c = dataclasses.replace(c, vals=c.vals.abs())
+        run, plain, abs_plain = (lambda x: ops.spmv_sellcs(c, x),
+                                 lambda x: ref.spmv_sellcs_tiles(c, x),
+                                 lambda x: ref.spmv_sellcs_tiles(abs_c, x))
+    elif route == "segsum":
+        c = segsum_from_csr(A, value_dtype=value_dtype).to(cuda)
+        abs_c = dataclasses.replace(c, vals=c.vals.abs())
+        run, plain, abs_plain = (lambda x: cs.segsum_into_nan(c, x),
+                                 lambda x: ref.spmv_segsum(c, x),
+                                 lambda x: ref.spmv_segsum(abs_c, x))
+    else:
+        c = diahybrid_from_csr(A, value_dtype=value_dtype).to(cuda)
+        abs_c = _abs_dia(c)
+        run, plain, abs_plain = (lambda x: cs.dia_into_nan(c, x),
+                                 lambda x: ref.spmv_diahybrid(c, x),
+                                 lambda x: ref.spmv_diahybrid(abs_c, x))
+    cs.bf16x_checks(f"{route} {value_dtype}", run, plain, abs_plain, A.n, row_nnz, 3)
+
+
+@pytest.mark.parametrize("route", ["csrk", "sellcs", "segsum", "diahybrid"])
+def test_prepared_bf16_x_padding_gives_lone_launch_bits(cuda, route):
+    """``spmm_width=8``: a bf16 [n] x and each column of a zero-padded bf16
+    block give the bits of their lone launch, through ``__call__`` and
+    ``apply_original``."""
+    make, _ = ENGINE_ROUTES[route]
+    A = make()
+    padded = prepare(A, device=cuda, format="auto", spmm_width=8)
+    lone = prepare(A, device=cuda, format="auto")
+    assert padded.backend == lone.backend == route
+    X = torch.randn((A.n, 3), generator=torch.Generator(cuda).manual_seed(6),
+                    device=cuda).to(torch.bfloat16)
+    for call in ("__call__", "apply_original"):
+        Y = getattr(padded, call)(X)
+        assert Y.dtype == torch.bfloat16
+        for j in range(3):
+            xj = X[:, j].contiguous()
+            want = getattr(lone, call)(xj)
+            assert torch.equal(Y[:, j], want) and torch.equal(getattr(padded, call)(xj), want)
 
 
 # --- the distributed layer: D row-block shards on the card ------------------
@@ -1024,6 +1154,30 @@ def test_sharded_bit_equal_to_single_device_on_card(cuda, route, D):
                 assert kernel.launches >= 1
             seen.add((op.x_strategy, op.overlap))
     assert ("halo", True) in seen and ("halo", False) in seen
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("route", ["csrk", "sellcs"])
+def test_sharded_bf16_x_bit_equal_to_single_device_on_card(cuda, route, D):
+    """bf16 x through every strategy, overlap on and off, B in {1, 8}: a bf16
+    y with the single-device operator's bits; a float16 x refused."""
+    from repro_torch.core.distributed import shard_prepared
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base, src = _sharded_cases(cuda, route)
+    X = torch.randn((src.n, 8), generator=torch.Generator(cuda).manual_seed(12),
+                    device=cuda).to(torch.bfloat16)
+    xs = (X[:, 0].contiguous(), X)
+    want = [base(x) for x in xs]
+    for strategy in ("auto", "replicated", "allgather", "halo"):
+        for overlap in (None, True, False):
+            op = shard_prepared(base, make_host_mesh(D), x_strategy=strategy, A=src,
+                                halo_overlap=overlap)
+            for x, y in zip(xs, want):
+                got = op(x)
+                assert got.dtype == torch.bfloat16 and torch.equal(got, y), (strategy, overlap)
+            with pytest.raises(TypeError):
+                op(X.half())
 
 
 def test_sellcs_out_with_a_chunk_subset_on_card(cuda, irregular):

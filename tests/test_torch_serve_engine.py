@@ -375,7 +375,7 @@ def test_cuda_engine_and_cache_raise_without_a_card(monkeypatch):
         OperatorCache()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int32])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32])
 def test_cuda_engine_refuses_non_float32_x_before_queuing(monkeypatch, dtype):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     eng = ServeEngine(device="cuda", log_interval=None)
@@ -384,3 +384,25 @@ def test_cuda_engine_refuses_non_float32_x_before_queuing(monkeypatch, dtype):
     with pytest.raises(TypeError, match="float32"):
         eng.submit("a", torch.ones(A.n, dtype=dtype))
     assert eng.queue_depth == 0 and eng.stats.requests_submitted == 0
+
+
+def test_cuda_engine_queues_bf16_x(monkeypatch):
+    """A CUDA engine takes bfloat16 x as the CUDA kernels do (and float64 as
+    float32): each is queued under its own dtype's key.  The copy to the card
+    is stubbed out here, so the requests stay queued on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    to = torch.Tensor.to
+
+    def stay_on_host(self, *args, **kwargs):
+        if args and isinstance(args[0], torch.device) and args[0].type == "cuda":
+            return self
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", stay_on_host)
+    eng = ServeEngine(device="cuda", log_interval=None)
+    A = _matrices()["reg1"]
+    eng.add_matrix("a", A)
+    eng.submit("a", torch.ones(A.n, dtype=torch.bfloat16))
+    eng.submit("a", torch.ones((A.n, 2), dtype=torch.float64))
+    assert eng.queue_depth == 2 and eng.stats.requests_submitted == 2
+    assert {key[1] for key in eng.scheduler._queues} == {"torch.bfloat16", "torch.float32"}
