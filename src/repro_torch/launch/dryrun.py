@@ -129,6 +129,41 @@ def _fake_run(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh) -> Dict[str
     return {"counter": counter, "state": state, "lower_s": t_lower, "compile_s": t_run}
 
 
+def _two_point(a, b, units: int):
+    """A count of the full depth from its counts at one and two repeat units:
+    c(L) = c(1) + (units − 1)·(c(2) − c(1)), the per-unit delta clamped at 0
+    as the reference's.  Exact on a stack uniform by repeat unit."""
+    return a + (units - 1) * max(b - a, 0)
+
+
+def _run(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh) -> Dict[str, Any]:
+    """:func:`_fake_run` of the full depth.  Where the stack is uniform by
+    repeat unit (:func:`_depth_cut`) and deeper than two units, from fake
+    runs at one and two units instead, each device's counts extrapolated
+    (:func:`_two_point`; an encoder's depth is its own, so not there); the
+    state bytes are then the full model's (its inputs built, no step run)."""
+    cfg1, units = _depth_cut(cfg, 1)
+    if units <= 2 or cfg.is_encdec or cfg1.layers * units != cfg.layers:
+        return _fake_run(cfg, shape, mesh)
+    r1, r2 = _fake_run(cfg1, shape, mesh), _fake_run(_depth_cut(cfg, 2)[0], shape, mesh)
+    c1, c2 = r1["counter"], r2["counter"]
+    counter = CostCounter()
+    for d in set(c1.flops) | set(c2.flops):
+        counter.flops[d] = _two_point(c1.flops.get(d, 0), c2.flops.get(d, 0), units)
+    for d in set(c1.bytes) | set(c2.bytes):
+        counter.bytes[d] = _two_point(c1.bytes.get(d, 0), c2.bytes.get(d, 0), units)
+    for d in set(c1.coll) | set(c2.coll):
+        a, b = c1.collective_bytes(d), c2.collective_bytes(d)
+        for k in counter.coll[d]:
+            counter.coll[d][k] = _two_point(a[k], b[k], units)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        state = state_bytes_per_device(STEPS.input_specs(cfg, shape, mesh)[0], shape.kind, mesh)
+    return {"counter": counter, "state": state,
+            "lower_s": r1["lower_s"] + r2["lower_s"] + time.perf_counter() - t0,
+            "compile_s": r1["compile_s"] + r2["compile_s"]}
+
+
 def _per_device(counter: CostCounter, mesh: ShardMesh) -> Dict[str, Any]:
     """The largest FLOPs, bytes and collective bytes over the mesh's devices
     (the collectives of the device that receives the most)."""
@@ -157,11 +192,12 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def dryrun_config(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh) -> Dict[str, Any]:
-    """:func:`dryrun_cell` of any config and shape on ``mesh``.
-    ``peak_hbm_per_device`` is the largest of :func:`state_bytes_per_device`
-    (the reference's rule on the port's placement); ``fits_hbm`` compares it
-    with ``HBM_BYTES``."""
-    run = _fake_run(cfg, shape, mesh)
+    """:func:`dryrun_cell` of any config and shape on ``mesh``, its counts
+    from :func:`_run` (on a uniform stack, fake runs at one and two repeat
+    units of depth).  ``peak_hbm_per_device`` is the largest of
+    :func:`state_bytes_per_device` (the reference's rule on the port's
+    placement); ``fits_hbm`` compares it with ``HBM_BYTES``."""
+    run = _run(cfg, shape, mesh)
     dev = _per_device(run["counter"], mesh)
     peak = max(run["state"])
     terms = _terms(dev["flops"], dev["bytes"], dev["coll"]["total"])
@@ -188,18 +224,24 @@ def dryrun_config(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh) -> Dict
     }
 
 
-def _analysis_cfg(cfg: ModelConfig, units: int, shape: ShapeConfig):
-    """Analysis variant at a depth of ``units`` repeat-units (hybrid period /
-    dense-MoE pair / single layer), with the reference's unrolled layers and
-    its moderate attention and linear-attention chunks: (config, units of
-    the full depth)."""
+def _depth_cut(cfg: ModelConfig, units: int):
+    """``cfg`` at a depth of ``units`` repeat-units (hybrid period / dense-MoE
+    pair / single layer): (config, units of the full depth)."""
     unit = cfg.attn_period if cfg.attn_period > 0 else (
         cfg.moe_every if (cfg.is_moe and cfg.moe_every > 1) else 1)
-    kw = dict(scan_layers=False, layers=unit * units, analysis_unroll=True,
-              attention_chunk=4096, la_chunk=128)
+    kw = dict(layers=unit * units)
     if cfg.encoder_layers:
         kw["encoder_layers"] = units
     return dataclasses.replace(cfg, **kw), cfg.layers // unit
+
+
+def _analysis_cfg(cfg: ModelConfig, units: int, shape: ShapeConfig):
+    """Analysis variant at a depth of ``units`` repeat-units (:func:`_depth_cut`),
+    with the reference's unrolled layers and its moderate attention and
+    linear-attention chunks: (config, units of the full depth)."""
+    cut, full = _depth_cut(cfg, units)
+    return dataclasses.replace(cut, scan_layers=False, analysis_unroll=True,
+                               attention_chunk=4096, la_chunk=128), full
 
 
 def _cell_costs(cfg: ModelConfig, shape: ShapeConfig, mesh: ShardMesh) -> Dict[str, float]:
@@ -224,8 +266,7 @@ def roofline_cell(arch: str, shape_name: str, mesh: Optional[ShardMesh] = None, 
     cfg2, _ = _analysis_cfg(cfg, 2, shape)
     c1 = _cell_costs(cfg1, shape, mesh)
     c2 = _cell_costs(cfg2, shape, mesh)
-    # the per-unit delta clamped at 0, as the reference's
-    total = {k: c1[k] + (units - 1) * max(c2[k] - c1[k], 0.0) for k in ("flops", "bytes", "coll")}
+    total = {k: _two_point(c1[k], c2[k], units) for k in ("flops", "bytes", "coll")}
     terms = _terms(total["flops"], total["bytes"], total["coll"])
     tokens = shape.global_batch * (shape.seq_len if shape.kind in ("train", "prefill") else 1)
     mult = 6 if shape.kind == "train" else 2

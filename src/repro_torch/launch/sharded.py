@@ -12,17 +12,19 @@ placed here explicitly:
     ``util.sharded.Sharded``: one piece per block its ``param_spec`` (or
     ``cache_spec``) cuts, each on its owner shard's device.
     :func:`shard_tree` cuts a tree of whole tensors so.
-  * **Compute.**  Each data shard runs the forward of its own rows on its
-    device with the one-data-shard sub-mesh (a unit, :func:`_units`).
-    ``transformer.forward`` makes the weights whole one layer at a time
-    (one checkpointed group under remat) through the unit's
-    :func:`unit_gather`: each leaf whole on the unit's device
-    (``Sharded.full``, differentiable with respect to the pieces), except
-    the MoE expert tensors under expert parallelism, which stay split over
-    ``model`` (``Sharded.model_pieces``) and go through
-    ``moe.moe_apply_ep`` as given.  Where the batch does not divide over
-    the data shards, the reference does not split it, and neither does
-    this: one unit runs the whole batch on the first shard.
+  * **Compute.**  Each data shard runs the forward of its own rows with
+    the one-data-shard sub-mesh (a unit, :func:`_units`): its residual
+    stream, norms and loss on its first model shard's device, the unit's
+    device.  ``transformer.forward`` gathers the weights one layer at a
+    time (one checkpointed group under remat) through the unit's
+    :func:`unit_gather`: a tensor-parallel leaf as its model blocks and a
+    MoE expert tensor under expert parallelism as its model pieces, each
+    gathered over the data shards only onto its model shard
+    (``Sharded.model_pieces``), every other leaf whole on the unit's
+    device (``Sharded.full``); all differentiable with respect to the
+    pieces.  Where the batch does not divide over the data shards, the
+    reference does not split it, and neither does this: one unit runs the
+    whole batch on the first shard, its model shards those at data 0.
   * **Gradients.**  Autograd gives each piece the slice of its leaf's
     gradient (the cut back into pieces); the pieces' gradients are summed
     over the data shards in shard order in float32, divided by their
@@ -33,11 +35,23 @@ placed here explicitly:
     (:class:`_UnitCache`), runs the layer, and writes back into the owner
     pieces only what the step wrote: of attention K/V the positions
     [cache_index, cache_index + T) along S, and the recurrent states (split
-    by batch only, so the unit's own block) replaced.  The logits come back
-    whole on the first shard's device.
-  * **Tensor parallelism.**  Dense weights split over ``model`` are gathered
-    before use; the math is the reference's, the per-shard TP matmuls are
-    not done.
+    by batch only, so the unit's own block) replaced.  A tensor-parallel
+    attention layer's K/V (kv heads split over ``model``) are not moved:
+    model shard m reads and writes its own piece in place.  The logits
+    come back whole on the first shard's device.
+  * **Tensor parallelism** (the reference's "TP over ``model``": heads,
+    ffn, vocabulary; ``sharding.tp_dim`` says which leaves).  Model shard
+    m of a unit multiplies its own column and row blocks on its device:
+    attention over its whole heads and GQA groups, the MLP (and a MoE
+    shared expert) over its slice of the ffn, the embedding lookup and the
+    logits over its vocabulary block.  The row blocks' partial outputs
+    leave their matmuls as float32, unrounded, and are summed in float32 in
+    shard order on the unit's device and cast once, and the
+    next norm's output goes back to the model shards (an all-reduce, in two
+    halves); the logits are concatenated on the unit's device (an
+    all-gather).  Where the heads do not divide, and in a decode step
+    whose cache is cut along S, attention is gathered whole as any other
+    leaf.
 
 The microbatch loop, the compression and the AdamW update per piece are
 ``launch/steps.py``'s, the same as on one device.  On one card every
@@ -51,7 +65,7 @@ from typing import Any
 import torch
 
 from repro_torch.launch.mesh import ShardMesh, batch_axes, dp_size
-from repro_torch.launch.sharding import batch_sharding, params_pspecs
+from repro_torch.launch.sharding import batch_sharding, params_pspecs, tp_dim
 from repro_torch.models.layers import cache_write_start
 from repro_torch.util.costs import move
 from repro_torch.util.sharded import Sharded, spec_axes
@@ -131,17 +145,23 @@ def _rows(t, rows: slice, device):
     return None if t is None else t[rows].to(device)
 
 
-def unit_gather(sub: ShardMesh, device, ep: bool):
+def unit_gather(cfg, sub: ShardMesh, device, ep: bool, attn_tp: bool = True):
     """The ``gather`` that ``transformer.forward`` takes for one unit: a
-    subtree of ``Sharded`` leaves → each leaf whole on ``device``; under EP
-    the expert leaves as their model pieces on the model shards of
-    ``sub``."""
-    model_devs = [sub.device_at(model=m) for m in range(sub.shape["model"])] if ep else None
+    subtree of ``Sharded`` leaves → each leaf whole on ``device``, except
+    that a tensor-parallel leaf (``sharding.tp_dim``; attention's only where
+    ``attn_tp``) comes as its model blocks, and under EP an expert leaf as
+    its model pieces, each gathered over the data shards only onto model
+    shard m of ``sub`` (``Sharded.model_pieces``)."""
+    model_devs = ([sub.device_at(model=m) for m in range(sub.shape["model"])]
+                  if "model" in sub.axis_names else None)
 
     def one(path, s):
         if (ep and "moe" in path and path[-1] in _EXPERT_LEAVES
                 and "model" in spec_axes(s.spec[0])):
             return s.model_pieces(model_devs)
+        dim = tp_dim(cfg, path, s.spec, s.mesh)
+        if dim is not None and (attn_tp or "attn" not in path):
+            return s.model_pieces(model_devs, dim)
         return s.full(device)
 
     def gather(tree):
@@ -186,7 +206,7 @@ def make_grad_fn(cfg, mesh: ShardMesh, loss_fn):
         for rows, sub, dev in units:
             tb, lb, eb = (_rows(t, rows, dev) for t in (tokens, labels, extra))
             with torch.enable_grad():
-                total, loss, aux = loss_fn(tree, tb, lb, eb, sub, unit_gather(sub, dev, ep))
+                total, loss, aux = loss_fn(tree, tb, lb, eb, sub, unit_gather(cfg, sub, dev, ep))
                 grads = torch.autograd.grad(total, live, allow_unused=True)
             with torch.no_grad():
                 for a, g in zip(acc, grads):     # the sum over units, in order
@@ -220,7 +240,10 @@ class _UnitCache:
     ``view[i] = entry`` writes what the layer wrote back into the owner
     pieces: of attention K/V the T positions the step wrote along S (from
     ``cache_index``, clamped as the layer clamps it), of a recurrent state
-    the whole block, replaced."""
+    the whole block, replaced.  Attention K/V whose kv heads are split over
+    ``model`` (a tensor-parallel layer's) are handed as the unit's pieces
+    themselves, one per model shard in shard order, each on its owner's
+    device: the layer writes them in place and nothing is written back."""
 
     def __init__(self, cache, unit: int, device, cache_index: int, T: int):
         self.cache, self.unit, self.device = cache, unit, device
@@ -229,11 +252,19 @@ class _UnitCache:
     def _box(self, s: Sharded):
         return {b for b in s.blocks() if b[0] == self.unit}
 
+    @staticmethod
+    def _per_shard(k: str, s: Sharded) -> bool:
+        return k in ("k", "v") and "model" in spec_axes(s.spec[2])
+
     def __getitem__(self, i):
-        return {k: s.box(self._box(s), self.device) for k, s in self.cache[i].items()}
+        return {k: (tuple(p for b, p in zip(s.blocks(), s.pieces) if b[0] == self.unit)
+                    if self._per_shard(k, s) else s.box(self._box(s), self.device))
+                for k, s in self.cache[i].items()}
 
     def __setitem__(self, i, entry):
         for k, s in self.cache[i].items():
+            if self._per_shard(k, s):
+                continue
             if k in ("k", "v"):
                 start = cache_write_start(self.index, self.T, s.shape[1])
                 s.write_(entry[k], self._box(s), 1, start, start + self.T)
@@ -264,12 +295,15 @@ def serve(cfg, mesh: ShardMesh, forward_fn, params, tokens, extra=None, cache=No
         raise ValueError(f"the cache is not cut for a batch of {B} over {len(units)} units "
                          f"(sharding.cache_spec)")
     ep = _ep(cfg, mesh, B)
+    # a cache cut along S (B does not divide over the data shards) keeps
+    # attention out of tensor parallelism for the step
+    attn_tp = cache is None or B % dp_size(mesh) == 0
     dev0 = mesh.devices[0]
     outs = []
     for u, (rows, sub, dev) in enumerate(units):
         view = None if cache is None else _UnitCache(cache, u, dev, int(cache_index), T)
         logits, _, _ = forward_fn(params, _rows(tokens, rows, dev), _rows(extra, rows, dev),
                                   cache=view, cache_index=cache_index, mesh=sub,
-                                  gather=unit_gather(sub, dev, ep))
+                                  gather=unit_gather(cfg, sub, dev, ep, attn_tp))
         outs.append(move(logits, dev0, "all-gather"))
     return (torch.cat(outs) if len(outs) > 1 else outs[0]), cache

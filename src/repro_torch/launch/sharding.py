@@ -22,13 +22,15 @@ spec of a per-layer leaf is the reference's spec of its stacked leaf with
 the stack dimension dropped (the stack dimension is never split), and
 :func:`cache_spec` reads per-layer cache leaves the same way.  The tensors
 stored as pieces by these specs are ``util/sharded.py``'s, and the train
-step that gathers them is ``launch/sharded.py``'s.
+step that gathers them is ``launch/sharded.py``'s.  :func:`tp_dim` reads a
+leaf's spec to say which leaves that executor multiplies block by block on
+the model shards (tensor parallelism) rather than gathering them whole.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 from repro_torch.launch.mesh import ShardMesh
 from repro_torch.util.sharded import PartitionSpec
@@ -131,6 +133,57 @@ def param_spec(path: Tuple, leaf: Any, mesh, fsdp_over_pod: bool = False) -> Par
         pad = 0
     full = (None,) * pad + tuple(rule)
     return sanitize_spec(shape, full, mesh)
+
+
+#: the leaves that run tensor-parallel over ``model``, by their parent's
+#: name: (column blocks, row blocks).  Column blocks cut the output features
+#: (whole heads, a slice of the ffn), row blocks the input features of the
+#: projection back to d_model.
+_TP_GROUPS = {
+    "attn": (("wq", "wk", "wv", "bq", "bk", "bv"), ("wo",)),
+    "mlp": (("w_in", "w_gate"), ("w_out",)),
+}
+
+
+def tp_dim(cfg, path: Tuple, spec, mesh) -> Optional[int]:
+    """The dimension along which the parameter leaf at ``path`` runs
+    tensor-parallel over ``model`` (one block per model shard, each
+    multiplied on its shard), or None where the leaf is used whole.
+
+    ``path`` is the leaf's key path in the parameters or in one layer's
+    subtree (its last two keys name the leaf and its parent); ``spec`` is
+    the leaf's own :func:`param_spec`.  Three groups run so, as the
+    reference's rules lay out (heads / ffn / vocab over ``model``):
+
+      * attention's ``wq``, ``wk``, ``wv`` (and ``bq``, ``bk``, ``bv``) by
+        columns and ``wo`` by rows, where ``num_heads`` and ``kv_heads``
+        both divide over ``model`` (each shard whole heads and whole GQA
+        groups);
+      * the MLP's ``w_in`` and ``w_gate`` by columns and ``w_out`` by rows
+        (the dense MLP and the MoE ``shared_expert``);
+      * ``embedding`` and ``unembedding`` by vocabulary rows.
+
+    Each only where its spec splits that dimension over ``model``
+    (``sanitize_spec`` keeps the split where the dimension divides).  Every
+    other leaf (norms, the router, the mamba, rwkv and linear-attention
+    leaves, the MoE experts, which run expert-parallel) and every leaf of
+    the encoder–decoder, which runs on one device, is used whole.  The
+    answer depends only on the config and the mesh's shape."""
+    if cfg.is_encdec or not path:
+        return None
+    name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    if name in ("embedding", "unembedding") and parent is None:
+        dim = 0
+    elif parent in _TP_GROUPS and name in _TP_GROUPS[parent][0] + _TP_GROUPS[parent][1]:
+        dim = len(spec) - 1 if name in _TP_GROUPS[parent][0] else 0
+    else:
+        return None
+    if not spec or spec[dim] != "model":
+        return None
+    if parent == "attn" and (cfg.num_heads % mesh.shape["model"]
+                             or cfg.kv_heads % mesh.shape["model"]):
+        return None
+    return dim
 
 
 def _map_with_path(fn, tree):

@@ -66,7 +66,7 @@ def _decoder_forward(cfg: ModelConfig):
         inp = tokens
         if cfg.frontend == "vit" and extra is not None:
             gather = kw.get("gather")
-            emb = params if gather is None else {"embedding": gather(params["embedding"])}
+            emb = params if gather is None else gather({"embedding": params["embedding"]})
             inp = vlm_prepend(emb, extra, tokens, cfg)
         return TF.forward(params, inp, cfg, **kw)
 

@@ -5,6 +5,8 @@ Port of ``repro.models.frontends``.
 ``vlm``  (internvl2-76b): patch embeddings [B, n_patches, D] are prepended to
 the text embeddings.
 ``audio`` (seamless-m4t): frame embeddings [B, n_frames, D] feed the encoder.
+The embedding may come as vocabulary blocks on the model shards
+(``layers.embed``).
 """
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import embed
 
 
 def vlm_prepend(params, patch_embeds: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig):
     """Concatenate projected patch embeddings before token embeddings."""
-    text = params["embedding"][tokens.long()]
+    text = embed(params["embedding"], tokens)
     patches = patch_embeds.to(text.dtype)
     return torch.cat([patches, text], dim=1)
 

@@ -10,6 +10,10 @@ blocks in plain PyTorch ops, with the running max and denominator in float32
 — no [T, T] score tensor and no library attention, so the port keeps the
 reference's numerics.  The decode fast path is a separate masked softmax over
 the whole cache (``_decode_attention``), as in the reference.
+
+Port-only: the ``*_tp`` functions and :func:`embed`/:func:`unembed` on
+vocabulary blocks run a layer tensor-parallel over model shards, where the
+reference leaves the split to XLA's partitioner (``launch/sharded.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.util.costs import move
 
 Params = Dict[str, Any]
 
@@ -239,10 +245,21 @@ def attention_apply(
     reference donates the cache to its decode step) and the same tensors are
     returned.  ``cache_index`` is a Python int; a tensor is read to the host.
     """
-    B, T, D = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    return _attend(params, x @ params["wq"], x @ params["wk"], x @ params["wv"],
+                   num_heads=num_heads, kv_heads=kv_heads, head_dim=head_dim,
+                   positions=positions, rope_theta=rope_theta, causal=causal, cache=cache,
+                   cache_index=cache_index, kv_chunk=kv_chunk, decode_fastpath=decode_fastpath)
+
+
+def _attend(params: Params, q, k, v, *, num_heads: int, kv_heads: int, head_dim: int,
+            positions: torch.Tensor, rope_theta: float = 10000.0, causal: bool = True,
+            cache=None, cache_index=None, kv_chunk: int = DEFAULT_KV_CHUNK,
+            decode_fastpath: bool = True, partial: bool = False):
+    """:func:`attention_apply` after the q/k/v projections ([B, T, heads ×
+    head_dim] each).  With ``partial`` the output projection's result is
+    float32, unrounded (:func:`row_partial`: ``wo`` is one row block of
+    tensor parallelism)."""
+    B, T = q.shape[:2]
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -276,7 +293,7 @@ def attention_apply(
             q, _repeat_kv(k, groups), _repeat_kv(v, groups),
             causal=causal, kv_chunk=kv_chunk,
         )
-    out = out.reshape(B, T, num_heads * head_dim) @ params["wo"]
+    out = _project(out.reshape(B, T, num_heads * head_dim), params["wo"], partial)
     return out, new_cache
 
 
@@ -296,11 +313,180 @@ def mlp_init(gen, d_model: int, d_ff: int, gated: bool = True, dtype=torch.float
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["w_in"]
-    if "w_gate" in params:
-        h = F.silu(x @ params["w_gate"]) * h
+    return _mlp_out(params, h, x @ params["w_gate"] if "w_gate" in params else None)
+
+
+def _mlp_out(params: Params, h: torch.Tensor, gate: Optional[torch.Tensor],
+             partial: bool = False) -> torch.Tensor:
+    """:func:`mlp_apply` after the input projections ``h`` (and ``gate``);
+    with ``partial`` the output float32, unrounded (:func:`row_partial`:
+    ``w_out`` is one row block of tensor parallelism)."""
+    if gate is not None:
+        h = F.silu(gate) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default form
-    return h @ params["w_out"]
+    return _project(h, params["w_out"], partial)
+
+
+def _project(h: torch.Tensor, w: torch.Tensor, partial: bool) -> torch.Tensor:
+    return row_partial(h, w) if partial else h @ w
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: one block of a weight on each model shard
+# ---------------------------------------------------------------------------
+
+
+def is_tp(w) -> bool:
+    """Whether a weight (or a cache leaf) comes as one block per model shard,
+    each on its shard's device (a tuple, from the sharded executor's gather,
+    ``launch/sharded.py::unit_gather``), rather than whole."""
+    return isinstance(w, tuple)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D tensors with a float32 result: of narrower inputs the
+    products accumulate in float32 and the result is not rounded."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cpu":          # no mm with a wider output there
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _RowPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        out = _mm_f32(h.reshape(-1, h.shape[-1]), w)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)       # exact: tp_reduce's backward widened a narrow gradient
+        gh = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = (h.reshape(-1, h.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gh, gw
+
+
+def row_partial(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a row block ``w`` of tensor parallelism, as a float32
+    partial sum: of narrower inputs the products accumulate in float32 and
+    the result is not rounded, so that :func:`tp_reduce` rounds the sum over
+    the shards once, as one device's ``h @ w`` rounds once.  The backward is
+    one device's (its gradients at the inputs' dtype).  Of float32 inputs,
+    ``h @ w`` itself."""
+    if h.dtype == torch.float32 and w.dtype == torch.float32:
+        return h @ w
+    return _RowPartial.apply(h, w)
+
+
+class _Columns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, *ws):
+        ctx.set_materialize_grads(False)
+        flat = x.reshape(-1, x.shape[-1])
+        xs = [move(flat, ws[i].device, "all-reduce") for i in range(0, len(ws), n)]
+        ctx.n, ctx.shape, ctx.src = n, x.shape, x.device
+        ctx.save_for_backward(*xs, *ws)
+        return tuple((xm @ w).reshape(*x.shape[:-1], w.shape[-1])
+                     for i, xm in enumerate(xs) for w in ws[i * n:(i + 1) * n])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n, saved = ctx.n, ctx.saved_tensors
+        xs, ws = saved[:len(saved) // (n + 1)], saved[len(saved) // (n + 1):]
+        sums, gws = [None] * n, []        # per weight of a shard, over the shards
+        for i, xm in enumerate(xs):
+            for j in range(n):
+                g = gs[i * n + j]
+                g = None if g is None else g.reshape(-1, g.shape[-1])
+                gws.append(xm.T @ g if g is not None and ctx.needs_input_grad[2 + i * n + j]
+                           else None)
+                if g is not None:
+                    p = move(_mm_f32(g, ws[i * n + j].T), ctx.src, "all-reduce")
+                    sums[j] = p if sums[j] is None else sums[j] + p
+        # each weight's sum rounded once, then added as one device's autograd
+        # adds the gradients of one input's uses: the last use's first
+        gx = None
+        for p in reversed([p for p in sums if p is not None]):
+            p = p.to(xs[0].dtype)
+            gx = p if gx is None else gx + p
+        gx = None if gx is None else gx.reshape(ctx.shape)
+        return (gx, None, *gws)
+
+
+def tp_columns(x: torch.Tensor, blocks) -> list:
+    """``x`` (on the reducing device) multiplied on each model shard by that
+    shard's column blocks (``blocks[m]``, a tuple of weights on its device):
+    a list, per shard, of the tuple of products.  ``x`` goes to each shard
+    once: the broadcast half of the all-reduce that :func:`tp_reduce` begins
+    (the residual add and the norm run once, on the reducing device, between
+    the two halves).  In the backward, the input gradient of each block
+    ``blocks[m][j]`` comes to ``x``'s device float32 and unrounded; those of
+    block j are summed over the shards in float32 in shard order and cast
+    once, as the forward's partial sums are, and the n sums are added at
+    ``x``'s dtype as one device's autograd adds the input gradients of its
+    n matmuls on ``x``: the layer rounds where one device's layer rounds.
+    The weights get their own gradients."""
+    n = len(blocks[0])
+    out = _Columns.apply(x, n, *(w for ws in blocks for w in ws))
+    return [out[m * n:(m + 1) * n] for m in range(len(blocks))]
+
+
+def tp_reduce(parts, device, dtype) -> torch.Tensor:
+    """The model shards' partial outputs moved to ``device`` and summed there
+    in shard order in float32, then cast once to ``dtype``: the reduce half
+    of an all-reduce.  The row blocks' partials come as float32
+    (:func:`row_partial`) and move so; the embedding's, at their own dtype
+    (each is a block's rows or zeros, so its sum is exact)."""
+    acc = None
+    for p in parts:
+        p = move(p, device, "all-reduce")
+        # a float32 sum and a narrower part add in float32 (the part widened exactly)
+        acc = p.float() if acc is None else acc + p
+    return acc if acc.dtype == dtype else acc.to(dtype)
+
+
+def _blocks(params: Params, m: int) -> Params:
+    return {k: v[m] for k, v in params.items()}
+
+
+def attention_apply_tp(params: Params, x: torch.Tensor, *, num_heads: int, kv_heads: int,
+                       positions: torch.Tensor, cache=None, **kw):
+    """:func:`attention_apply` with ``params`` as column blocks (``wq``,
+    ``wk``, ``wv``, the biases: whole heads and GQA groups) and row blocks
+    (``wo``), one per model shard: each shard attends over its
+    ``num_heads/M`` heads and ``kv_heads/M`` kv heads on its device, against
+    its piece of the cache (``cache["k"][m]``, written in place), and the
+    partial outputs are summed on ``x``'s device (:func:`tp_reduce`).
+    Returns (output, cache as per-shard tuples)."""
+    M = len(params["wq"])
+    outs, caches = [], []
+    qkv = tp_columns(x, list(zip(params["wq"], params["wk"], params["wv"])))
+    for m, (q, k, v) in enumerate(qkv):
+        out, c = _attend(
+            _blocks(params, m), q, k, v, num_heads=num_heads // M, kv_heads=kv_heads // M,
+            positions=move(positions, q.device, "all-gather"),
+            cache=None if cache is None else _blocks(cache, m), partial=True, **kw)
+        outs.append(out)
+        caches.append(c)
+    new = None if cache is None else {k: tuple(c[k] for c in caches) for k in ("k", "v")}
+    return tp_reduce(outs, x.device, x.dtype), new
+
+
+def mlp_apply_tp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_apply` with ``w_in``/``w_gate`` as column blocks and
+    ``w_out`` as row blocks, one per model shard, each shard's slice of the
+    ffn on its device; the partial outputs summed on ``x``'s device."""
+    gated = "w_gate" in params
+    cols = tp_columns(x, list(zip(params["w_in"], params["w_gate"])) if gated
+                      else [(w,) for w in params["w_in"]])
+    parts = [_mlp_out(_blocks(params, m), c[0], c[1] if gated else None, partial=True)
+             for m, c in enumerate(cols)]
+    return tp_reduce(parts, x.device, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +494,28 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def unembed(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: [B, T, D] × [V, D]^T → logits."""
-    return x @ embedding.T
+def embed(embedding, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding [V, D].  Of vocabulary blocks (one per
+    model shard), each shard looks up the tokens in its block, masked to
+    zero outside it, and the partials are summed on the tokens' device (one
+    block holds each token, so the sum is exact)."""
+    if not is_tp(embedding):
+        return embedding[tokens.long()]
+    parts, start = [], 0
+    for e in embedding:
+        n = e.shape[0]
+        local = move(tokens, e.device, "all-gather") - start
+        row = local.clamp(0, n - 1)
+        parts.append(e[row] * (row == local)[..., None])
+        start += n
+    return tp_reduce(parts, tokens.device, embedding[0].dtype)
+
+
+def unembed(x: torch.Tensor, embedding) -> torch.Tensor:
+    """Tied unembedding: [B, T, D] × [V, D]^T → logits.  Of vocabulary blocks
+    (one per model shard), each shard's logits for its block, concatenated
+    on ``x``'s device (an all-gather)."""
+    if not is_tp(embedding):
+        return x @ embedding.T
+    parts = tp_columns(x, [(e.t(),) for e in embedding])
+    return torch.cat([move(p, x.device, "all-gather", "reduce-scatter") for (p,) in parts], dim=-1)

@@ -30,7 +30,16 @@ With ``gather`` (the sharded executor's, for one data shard) the params are
 uses them: each layer's subtree (each checkpointed group's, under remat,
 inside the group, so the backward's recompute gathers it again) just before
 the layer runs, the embedding, final norm and unembedding at their use, so
-at most one group's weights (and the embeddings) are whole at once.
+at most one group's weights (and the embeddings) are whole at once.  Where
+the gather hands a leaf as one block per model shard (tensor parallelism,
+``launch/sharding.py::tp_dim``), the layer multiplies each block on its
+shard: attention over each shard's heads (``layers.attention_apply_tp``),
+the MLP over its slice of the ffn (``layers.mlp_apply_tp``), the
+embedding lookup and the logits over its vocabulary block
+(``layers.embed``, ``layers.unembed``).  The partial outputs (float32,
+unrounded, from the row blocks' matmuls) are summed in float32 in shard
+order on the unit's device and cast once, where the residual stream and
+the norms stay, and the logits are concatenated there.
 """
 from __future__ import annotations
 
@@ -168,7 +177,11 @@ def _apply_layer(
             )
     else:
         h = L.rmsnorm(p["ln1"], x)
-        attn_out, new_cache = L.attention_apply(
+        tp = L.is_tp(p["attn"]["wq"])
+        if cache is not None and L.is_tp(cache["k"]) != tp:
+            raise ValueError("a tensor-parallel attention layer takes its K/V cache as one piece "
+                             "per model shard, and only it does")
+        attn_out, new_cache = (L.attention_apply_tp if tp else L.attention_apply)(
             p["attn"], h,
             num_heads=cfg.num_heads, kv_heads=cfg.kv_heads,
             head_dim=cfg.resolved_head_dim, positions=positions,
@@ -201,11 +214,15 @@ def _apply_layer(
                 slot_loop=slot_loop,
             )
         if cfg.shared_expert:
-            y = y + L.mlp_apply(p["mlp"], h)
+            y = y + _mlp(p["mlp"], h)
         x = x + y
     elif kind != "rwkv" and "mlp" in p:
-        x = x + L.mlp_apply(p["mlp"], h)
+        x = x + _mlp(p["mlp"], h)
     return x, new_cache, aux
+
+
+def _mlp(p: Params, h: torch.Tensor) -> torch.Tensor:
+    return (L.mlp_apply_tp if L.is_tp(p["w_in"]) else L.mlp_apply)(p, h)
 
 
 def _apply_group(group: List[Params], x: torch.Tensor, cfg: ModelConfig, start: int,
@@ -261,10 +278,14 @@ def forward(
     layer's writes back into the pieces), and that view is returned.
     """
     whole = gather if gather is not None else (lambda t: t)
+
+    def take(name):             # a top-level leaf, gathered under its name
+        return whole({name: params[name]})[name]
+
     tied = None
     if tokens_or_embeds.dim() == 2:
-        emb = whole(params["embedding"])
-        x = emb[tokens_or_embeds.long()]
+        emb = take("embedding")
+        x = L.embed(emb, tokens_or_embeds)
         if "unembedding" not in params:
             tied = emb                      # gathered once for both uses
         del emb
@@ -300,9 +321,9 @@ def forward(
 
     x = L.rmsnorm(whole(params["final_norm"]), x)
     if "unembedding" in params:
-        unemb = whole(params["unembedding"])
+        unemb = take("unembedding")
     else:
-        unemb = tied if tied is not None else whole(params["embedding"])
+        unemb = tied if tied is not None else take("embedding")
     logits = mask_pad_vocab(L.unembed(x, unemb), cfg)
     return logits, new_cache, aux_total
 

@@ -155,12 +155,20 @@ class Sharded:
         mesh's first shard); differentiable with respect to the pieces."""
         return self.box(set(self.blocks()), self.device if device is None else device)
 
-    def model_pieces(self, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
-        """One tensor per block along dimension 0 (the expert dimension, split
-        over ``model``), each gathered over the other dimensions onto
-        ``devices[m]``: the experts of model shard m."""
-        return tuple(self.box({b for b in self.blocks() if b[0] == m}, devices[m])
-                     for m in range(self.grid[0]))
+    def model_block(self, m: int, device, dim: int = 0) -> torch.Tensor:
+        """Block ``m`` along dimension ``dim`` (the one split over ``model``),
+        gathered whole along the others onto ``device``: FSDP's gather of
+        model shard m's block, in which the shard at data coordinate d
+        receives only the pieces (d′, m) of the other data shards.
+        Differentiable with respect to the pieces, as :meth:`full`."""
+        return self.box({b for b in self.blocks() if b[dim] == m}, device)
+
+    def model_pieces(self, devices: Sequence[torch.device],
+                     dim: int = 0) -> Tuple[torch.Tensor, ...]:
+        """:meth:`model_block` m on ``devices[m]`` for each block along
+        ``dim``: the experts of each model shard (dimension 0 of an expert
+        tensor), or a tensor-parallel leaf's column or row blocks."""
+        return tuple(self.model_block(m, devices[m], dim) for m in range(self.grid[dim]))
 
     @torch.no_grad()
     def write_(self, t: torch.Tensor, blocks, dim: Optional[int] = None, lo: int = 0,

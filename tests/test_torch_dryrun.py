@@ -14,13 +14,16 @@ its ``cache_shardings`` and XLA's cost analysis of one smoke decode cell.
 Held: those keys equal to the reference's, for training and serving alike
 (the port keeps params, cache and batch in pieces on a mesh of several
 shards, each block once, on its first shard); granite-3-2b's
-``decode_32k`` FLOPs on a device within 1% of its data shard's share of
-2·N·B + 4·B·S·H·hd·n_attn; every cell's FLOPs over all devices at least
+``decode_32k`` FLOPs on a device within 1% of its share of
+2·N·B + 4·B·S·H·hd·n_attn (its data shard's rows, and its model shard's
+blocks of attention, MLP and logits); every cell's FLOPs over all devices at least
 ``model_flops_global``; a decode cell's bytes at least its parameter and
 cache bytes; no cross-device bytes on one device, and on the 2 × 4 smoke
-train step the all-gather bytes that the pieces' owners and the data
-shards imply; the two-point depth extrapolation equal to the full-depth
-count on a uniform stack; the report's tables over the CLI's JSON; no
+train step the all-gather bytes that the pieces' owners, the data
+shards and tensor parallelism's blocks imply; the two-point depth
+extrapolation equal to the full-depth count on a uniform stack (that of
+the roofline and that of ``dryrun_config``); the
+report's tables over the CLI's JSON; no
 tensor memory allocated by the dry run.
 """
 import dataclasses
@@ -44,7 +47,7 @@ from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as STEPS
 from repro_torch.launch.mesh import make_meta_mesh, make_production_mesh
 from repro_torch.models.config import SHAPES, ShapeConfig
-from repro_torch.util.sharded import Sharded, bytes_per_shard
+from repro_torch.util.sharded import Sharded
 from repro_torch.util.tree import leaf_paths, leaves
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -248,13 +251,21 @@ def test_cache_shardings_equal_the_reference(ref):
 
 
 def test_decode_flops_match_the_analytic_count(decode_cells):
+    """2·N·B + 4·B·S·H·hd·n_attn over the devices: each data shard runs its
+    own rows, and each of its model shards its block of the MLP and of the
+    logits, and of attention where the heads divide (granite's 32 heads and
+    8 kv heads over model 4: a device's share is 1/(data·model))."""
     cfg, shape = get_config("granite-3-2b"), SHAPES["decode_32k"]
     B, S, hd = shape.global_batch, shape.seq_len, cfg.resolved_head_dim
+    H, kv, D = cfg.num_heads, cfg.kv_heads, cfg.d_model
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.layers))
-    want = 2 * cfg.active_param_count() * B + 4 * B * S * cfg.num_heads * hd * n_attn
+    attn_params = n_attn * (D * hd * (H + 2 * kv) + H * hd * D)
+    attn = 2 * attn_params * B + 4 * B * S * H * hd * n_attn
+    rest = 2 * (cfg.active_param_count() - attn_params) * B       # MLPs and logits
     for m, r in decode_cells.items():
-        # each data shard runs its own rows: a device's share is 1/data
-        share = want / MESHES[m][0][0]
+        data, model = MESHES[m][0]
+        heads = model if H % model == 0 and kv % model == 0 else 1
+        share = (attn / heads + rest / model) / data
         assert abs(r["flops_per_device"] - share) <= 0.01 * share, m
 
 
@@ -287,19 +298,36 @@ def test_counted_flops_cover_model_flops(arch, shape):
 
 
 def test_smoke_train_all_gather_bytes_follow_the_owners():
-    """granite smoke, 2 × 4: each data shard gathers every leaf onto its
-    device, so it receives every piece it does not hold; the gradients go
-    back the same way."""
+    """granite smoke, 2 × 4: each data shard gathers each leaf it uses whole
+    onto its device, and the block m of each tensor-parallel leaf (on 2 × 4
+    the MLP's and the embedding's) onto its model shard m, so each shard
+    receives every piece of those it does not hold; besides, the token rows
+    go to the 3 other model shards of the unit and each vocabulary block's
+    logits [2, 32, 128] come back.  The gradients go back the same way."""
     cfg, mesh = get_smoke_config("granite-3-2b"), mesh_of("2x4")
     run = DR._fake_run(cfg, ShapeConfig("t", 32, 4, "train"), mesh)
     with FakeTensorMode():
         args, _ = STEPS.input_specs(cfg, ShapeConfig("t", 32, 4, "train"), mesh)
-        held = bytes_per_shard(args["params"], mesh)
+        params = args["params"]
     units = SHD._units(mesh, 4)
-    want = sum(sum(held) - held[mesh.devices.index(dev)] for _, _, dev in units)
+    want = 0
+    for _, sub, dev in units:
+        for path, s in zip(leaf_paths(params), leaves(params)):
+            dim = SH.tp_dim(cfg, path[2:] if path[0] == "layers" else path, s.spec, mesh)
+            for b, p in zip(s.blocks(), s.pieces):
+                to = dev if dim is None else sub.device_at(model=b[dim])
+                want += p.numel() * p.element_size() if s.owner(b) != to else 0
+    tp = {path[-2] if len(path) > 1 else path[0]
+          for path, s in zip(leaf_paths(params), leaves(params))
+          if SH.tp_dim(cfg, path[2:] if path[0] == "layers" else path, s.spec, mesh) is not None}
+    assert tp == {"mlp", "embedding"}
+    Bl, T, M, V = 2, 32, 4, cfg.padded_vocab
+    logits = len(units) * (M - 1) * Bl * T * (V // M) * 4
+    tokens = len(units) * (M - 1) * Bl * T * 4
     got = run["counter"].collective_bytes()
-    assert len(units) == 2 and got["all-gather"] == want > 0
-    assert got["reduce-scatter"] == want and got["all-to-all"] == got["all-reduce"] == 0
+    assert len(units) == 2 and got["all-gather"] == want + tokens + logits and want > 0
+    assert got["reduce-scatter"] == want + logits and got["all-to-all"] == 0
+    assert got["all-reduce"] > 0
 
 
 def test_one_device_moves_nothing(decode_cells):
@@ -322,6 +350,25 @@ def test_depth_extrapolation_is_exact_on_a_uniform_stack(arch, shape, mesh):
     assert units == 3 and r["residual_whiles"] == 0
     assert (r["flops_per_device"], r["hbm_bytes_per_device"], r["collective_bytes_per_device"]) \
         == (c["flops"], c["bytes"], c["coll"])
+
+
+@pytest.mark.parametrize("shape,mesh", [(ShapeConfig("t", 16, 2, "train"), (1, 2)),
+                                        (SMOKE_DECODE, (2, 4))], ids=["train", "decode"])
+def test_two_point_dry_run_equals_the_full_depth(shape, mesh, monkeypatch):
+    """``dryrun_config`` on a uniform stack deeper than two units (fake runs
+    at one and two layers, each device's counts extrapolated) gives the
+    full-depth run's counts, collectives and state bytes: granite smoke at 3
+    layers, tensor-parallel (the remat train step on 1 × 2, every layer
+    split; a decode step on 2 × 4, its MLPs and vocabulary split)."""
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=3, remat=True)
+    mesh = make_meta_mesh(mesh, ("data", "model"))
+    two = DR.dryrun_config(cfg, shape, mesh)
+    monkeypatch.setattr(DR, "_run", DR._fake_run)
+    full = DR.dryrun_config(cfg, shape, mesh)
+    for k in ("flops_per_device", "hbm_bytes_per_device", "collective_bytes",
+              "peak_hbm_per_device", "terms", "model_flops_global"):
+        assert two[k] == full[k], k
+    assert full["collective_bytes"]["all-reduce"] > 0
 
 
 def test_dry_run_allocates_nothing():

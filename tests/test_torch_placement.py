@@ -1,31 +1,38 @@
 """The port's placement on distinct devices: the sharded LM steps fake-run on
-a data 2 × model 4 mesh of eight ``meta:i`` devices.
+data 2 × model 4 and data 2 × model 2 meshes of ``meta:i`` devices.
 
 On one card every shard's device is that card and ``.to(device)`` is a
-no-op, so the card cannot show a missing move.  Fake tensors on eight
-distinct indexed ``meta`` devices can: an op whose tensors lie on two
-devices raises ``FakeTensorDeviceMismatchError``.  The steps run at smoke
-size through ``launch.dryrun``'s fake run (``steps.input_specs`` places the
-arguments as the steps take them), and the bytes each one moves between
-devices are held by collective kind (``util.costs``):
+no-op, so the card cannot show a missing move.  Fake tensors on distinct
+indexed ``meta`` devices can: an op whose tensors lie on two devices raises
+``FakeTensorDeviceMismatchError``.  The steps run at smoke size through
+``launch.dryrun``'s fake run (``steps.input_specs`` places the arguments as
+the steps take them), and the bytes each one moves between devices are held
+by collective kind (``util.costs``), each derived here from the placement:
 
-  * the sharded train step: each data shard gathers every leaf onto its
-    device, one layer at a time (all-gather: every piece it does not hold;
-    under EP the expert leaves onto the model shards' devices), the
-    gradients go back to the pieces (reduce-scatter, the same bytes), EP
-    moves the rows and the router to the model shards (all-to-all) and sums
-    the partial outputs (all-reduce); under remat the backward's recompute
-    gathers each layer's leaves once more (all-gather only), and redoes
-    EP's forward moves;
-    the rest are 0-d float32 scalars (loss means, the divisor, gradient
-    norm partials, AdamW's step values);
+  * the sharded train step: each data shard gathers every leaf it uses
+    whole onto its device and each tensor-parallel leaf's block m onto its
+    model shard m, over ``data`` only, one layer at a time (all-gather:
+    every piece the receiving shard does not hold; under EP the expert
+    leaves onto the model shards' devices); the gradients go back to the
+    pieces (reduce-scatter, the same bytes); EP moves the rows and the
+    router to the model shards (all-to-all); tensor parallelism sends each
+    split sublayer's input out to the model shards and brings their partial
+    outputs back (all-reduce, as do EP's partial outputs), sends the token
+    rows and positions out and gathers the vocabulary blocks' logits
+    (all-gather); under remat the backward's recompute gathers each
+    layer's leaves once more and redoes the layers' forward moves; the rest
+    are 0-d float32 scalars (loss means, the divisor, gradient norm
+    partials, AdamW's step values);
   * a jamba EP decode step on state in pieces: each data shard's unit
-    gathers each layer onto its device (the expert leaves only over data,
-    onto its model shards) and its rows of the attention cache, writes the
-    position it wrote back to that position's owner (collective-permute),
-    sends the rows and the router to the other model shards (all-to-all; no
-    expert byte moves), sums the partial outputs (all-reduce) and returns
-    its logits to the first shard (all-gather).
+    gathers each layer's whole leaves onto its device and its rows of the
+    attention cache, writes the position it wrote back to that position's
+    owner (collective-permute), sends the rows and the router to the other
+    model shards (all-to-all; no expert byte moves), sums the partial
+    outputs (all-reduce) and returns its logits to the first shard
+    (all-gather);
+  * a granite decode step on data 2 × model 2, where attention is
+    tensor-parallel too: no K/V byte moves, and every device computes
+    exactly its share of the step.
 """
 import dataclasses
 import math
@@ -37,6 +44,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import sharded as SHD
+from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as STEPS
 from repro_torch.launch.mesh import make_meta_mesh
 from repro_torch.models import transformer as TF
@@ -50,6 +58,10 @@ DECODE = ShapeConfig("smoke_decode", 32, 4, "decode")
 
 def mesh24():
     return make_meta_mesh((2, 4), ("data", "model"))
+
+
+def mesh22():
+    return make_meta_mesh((2, 2), ("data", "model"))
 
 
 def _nbytes(t):
@@ -66,83 +78,194 @@ def test_meta_devices_are_distinct_under_fake_mode():
             a + b
 
 
-def param_gathers(cfg, mesh, params, B):
+def tp_of(cfg, path, s, attn_tp=True):
+    """The dimension along which the params leaf at ``path`` runs
+    tensor-parallel (``sharding.tp_dim`` on its path within its layer);
+    attention's only where ``attn_tp``."""
+    inner = path[2:] if path[0] == "layers" else path
+    dim = SH.tp_dim(cfg, inner, s.spec, s.mesh)
+    return None if dim is None or (not attn_tp and "attn" in inner) else dim
+
+
+def param_gathers(cfg, mesh, params, B, attn_tp=True):
     """(layer leaves, other leaves): the bytes of the pieces each unit of a
-    batch of B receives to make the params whole on its device, once (under
-    EP the expert leaves' pieces go to the model shards' devices)."""
+    batch of B receives to gather the params once.  A tensor-parallel leaf's
+    block m and an expert leaf's pieces m go to the unit's model shard m,
+    each piece from the shard of its own model coordinate at another data
+    coordinate (asserted: over ``data`` only); every other leaf goes whole
+    to the unit's device."""
     gather = [0, 0]
     for rows, sub, dev in SHD._units(mesh, B):
         model_devs = [sub.device_at(model=m) for m in range(sub.shape["model"])]
         for path, s in zip(leaf_paths(params), leaves(params)):
             expert = (cfg.is_moe and path[-1] in SHD._EXPERT_LEAVES and "moe" in path
                       and "model" in spec_axes(s.spec[0]))
+            dim = 0 if expert else tp_of(cfg, path, s, attn_tp)
             for b, p in zip(s.blocks(), s.pieces):
-                to = model_devs[b[0]] if expert else dev
-                gather[path[0] != "layers"] += _nbytes(p) if s.owner(b) != to else 0
+                to = model_devs[b[dim]] if dim is not None else dev
+                if s.owner(b) == to:
+                    continue
+                if dim is not None:
+                    got, want = (mesh.coords(mesh.devices.index(d)) for d in (s.owner(b), to))
+                    assert got["model"] == want["model"] and got != want, path
+                gather[path[0] != "layers"] += _nbytes(p)
     return gather
 
 
+def tp_moves(cfg, mesh, params, shape, attn_tp=True):
+    """The bytes a step's tensor parallelism moves, forward only, by kind
+    and by where (``layers``: inside the layers, ``outer``: the embeddings),
+    over the units of ``shape``'s batch, and (``layers``, ``back``) those of
+    the layers' backward.  Per unit of Bl rows on M model shards, an
+    activation [Bl, T, d_model] crossing to or from the M − 1 shards other
+    than the unit's own is A = (M − 1)·Bl·T·d_model·4 bytes:
+
+      * all-reduce: each tensor-parallel attention and MLP sends its input
+        out and its partial outputs back (2·A each); the embedding lookup
+        sends its partials back (A) and the unembedding takes its input out
+        (A).  In the backward, each such layer sends the gradient of its
+        partial outputs out (A) and brings back one input gradient per
+        column weight of a shard (A each: ``wq``, ``wk``, ``wv``; ``w_in``
+        and ``w_gate``), each summed over the shards on its own;
+      * all-gather: the token rows to the other shards ((M − 1)·Bl·T·4),
+        the positions to each tensor-parallel attention ((M − 1)·T·8), each
+        vocabulary block's logits to the unit ((M − 1)·Bl·T·(V/M)·4)."""
+    out = {where: {"all-reduce": 0, "all-gather": 0} for where in ("layers", "outer")}
+    out["back"] = {"all-reduce": 0}
+    specs = dict(zip(leaf_paths(params), leaves(params)))
+    tp = lambda path: path in specs and tp_of(cfg, path, specs[path], attn_tp) is not None  # noqa
+    for rows, sub, dev in SHD._units(mesh, shape.global_batch):
+        M, Bl = sub.shape["model"], rows.stop - rows.start
+        T = 1 if shape.is_decode else shape.seq_len
+        A = (M - 1) * Bl * T * cfg.d_model * 4
+        for i in range(TF.num_layers(cfg)):
+            attn, mlp = tp(("layers", i, "attn", "wq")), tp(("layers", i, "mlp", "w_in"))
+            gated = ("layers", i, "mlp", "w_gate") in specs
+            out["layers"]["all-reduce"] += 2 * A * (attn + mlp)
+            out["back"]["all-reduce"] += A * (attn * (1 + 3) + mlp * (1 + 1 + gated))
+            out["layers"]["all-gather"] += (M - 1) * T * 8 * attn
+        emb = tp(("embedding",))
+        unemb = tp(("unembedding",) if "unembedding" in params else ("embedding",))
+        out["outer"]["all-reduce"] += A * (emb + unemb)
+        out["outer"]["all-gather"] += ((M - 1) * Bl * T * 4 * emb
+                                       + (M - 1) * Bl * T * (cfg.padded_vocab // M) * 4 * unemb)
+    return out
+
+
+def logits_blocks(cfg, mesh, params, shape):
+    """The bytes of the vocabulary blocks' logits that cross to the units
+    (their gradients' way back is a reduce-scatter of as many)."""
+    specs = dict(zip(leaf_paths(params), leaves(params)))
+    key = ("unembedding",) if "unembedding" in params else ("embedding",)
+    if tp_of(cfg, key, specs[key]) is None:
+        return 0
+    return sum((sub.shape["model"] - 1) * (rows.stop - rows.start) * shape.seq_len
+               * (cfg.padded_vocab // sub.shape["model"]) * 4
+               for rows, sub, _ in SHD._units(mesh, shape.global_batch))
+
+
 def expected_train_moves(cfg, mesh, params):
-    """(all-gather, all-to-all) bytes of one sharded train step: each unit
+    """The bytes of one sharded train step by kind.  Forward: each unit
     receives the pieces it does not hold, the layers' twice under remat
-    (the recompute gathers them again), and EP copies the rows and the
-    router to each model shard."""
-    ep = cfg.is_moe
+    (the recompute gathers them again), EP copies the rows and the router
+    to each model shard (all-to-all) and sums the partial outputs
+    (all-reduce), and tensor parallelism moves what :func:`tp_moves` counts,
+    the layers' again under remat (but for each group's tail,
+    :func:`recompute_tail`).  Backward: each gathered piece's gradient
+    goes back (reduce-scatter), as do the logits blocks'; every all-reduce
+    and all-to-all move of a tensor that takes a gradient moves it back
+    once (the token rows and positions take none), but a tensor-parallel
+    layer's input, whose gradient comes back once per column weight
+    (:func:`tp_moves`' ``back``)."""
+    ep, layer_runs = cfg.is_moe, 2 if cfg.remat else 1
     layers, rest = param_gathers(cfg, mesh, params, TRAIN.global_batch)
-    gather = (2 if cfg.remat else 1) * layers + rest
-    a2a = 0
+    tp = tp_moves(cfg, mesh, params, TRAIN)
+    a2a = ep_reduce = 0
     for rows, sub, dev in SHD._units(mesh, TRAIN.global_batch):
         model_devs = [sub.device_at(model=m) for m in range(sub.shape["model"])]
         if ep:
             n_moe = sum(TF.layer_spec(cfg, i)[1] for i in range(TF.num_layers(cfg)))
             Bl, T, D = rows.stop - rows.start, TRAIN.seq_len, cfg.d_model
             # the expert pieces sit on their model shards already: the
-            # router and the rows go there
+            # router and the rows go there, the partial outputs come back
             a2a += n_moe * sum(D * cfg.num_experts * 4 + Bl * T * D * 4
                                for d in model_devs if d != dev)
-    return gather, a2a
+            ep_reduce += n_moe * sum(Bl * T * D * 4 for d in model_devs if d != dev)
+    logits = logits_blocks(cfg, mesh, params, TRAIN)
+    return {
+        "all-gather": layer_runs * (layers + tp["layers"]["all-gather"]) + rest
+        + tp["outer"]["all-gather"],
+        "reduce-scatter": layers + rest + logits,
+        "all-to-all": (layer_runs + 1) * a2a,
+        "all-reduce": layer_runs * tp["layers"]["all-reduce"] + tp["back"]["all-reduce"]
+        + (layer_runs + 1) * ep_reduce + 2 * tp["outer"]["all-reduce"]
+        - (recompute_tail(cfg, mesh, params) if cfg.remat else 0),
+    }
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "jamba-v0.1-52b", "rwkv6-3b"])
-def test_sharded_train_step_on_eight_devices(arch):
-    cfg, mesh = get_smoke_config(arch), mesh24()
+def recompute_tail(cfg, mesh, params):
+    """The bytes of the moves that end each checkpointed group (a layer, or a
+    hybrid's period) after its last op that saves a tensor for the
+    backward: the recompute of a non-reentrant checkpoint stops at that op,
+    so they are not made again.  A group that ends in a tensor-parallel MLP
+    returns its M − 1 remote partial outputs there ((M − 1)·Bl·T·D·4); one
+    that ends in an expert-parallel MoE layer the last model shard's
+    output (Bl·T·D·4)."""
+    specs = dict(zip(leaf_paths(params), leaves(params)))
+    group = cfg.attn_period if cfg.attn_period > 0 else 1
+    out = 0
+    for rows, sub, dev in SHD._units(mesh, TRAIN.global_batch):
+        M, act = sub.shape["model"], (rows.stop - rows.start) * TRAIN.seq_len * cfg.d_model * 4
+        for last in range(group - 1, TF.num_layers(cfg), group):
+            mlp = ("layers", last, "mlp", "w_in")
+            if TF.layer_spec(cfg, last)[1]:
+                out += act if sub.device_at(model=M - 1) != dev else 0
+            elif mlp in specs and tp_of(cfg, mlp, specs[mlp]) is not None:
+                out += (M - 1) * act
+    return out
+
+
+def _train_moves_hold(cfg, mesh):
     run = DR._fake_run(cfg, TRAIN, mesh)          # raises on a device mismatch
     got = run["counter"].collective_bytes()
     with FakeTensorMode():
         args, _ = STEPS.input_specs(cfg, TRAIN, mesh)
-        gather, a2a = expected_train_moves(cfg, mesh, args["params"])
+        want = expected_train_moves(cfg, mesh, args["params"])
         pieces = sum(len(s.pieces) for s in leaves(args["params"]))
-    assert got["all-gather"] == gather > 0
-    assert got["reduce-scatter"] == gather
-    # the forward's moves and their gradients' way back
-    assert got["all-to-all"] == 2 * a2a
-    assert (got["all-reduce"] > 0) == cfg.is_moe
+    for kind, n in want.items():
+        assert got[kind] == n, (kind, got[kind], n)
+    assert got["all-gather"] > 0 and got["reduce-scatter"] > 0
     # 0-d float32 scalars only: two a piece (the divisor, a norm partial),
     # a few a device (AdamW's step values), the units' loss and aux
     assert 0 < got["collective-permute"] <= 4 * (2 * pieces + 8 * mesh.size + 2 * 2)
     assert got["collective-permute"] % 4 == 0
-    # every shard computes: each data shard's rows on its own device
-    busy = [d for d in mesh.devices if run["counter"].flops.get(d, 0) > 0]
-    assert len(busy) == (8 if cfg.is_moe else 2)
+    return run, got
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "jamba-v0.1-52b", "rwkv6-3b"])
+def test_sharded_train_step_on_eight_devices(arch):
+    """On data 2 × model 4 the smoke configs' MLPs and vocabularies run
+    tensor-parallel (their 2 kv heads do not divide model 4): every shard
+    computes, each data shard's rows on its own model shards."""
+    cfg, mesh = get_smoke_config(arch), mesh24()
+    run, got = _train_moves_hold(cfg, mesh)
+    assert got["all-reduce"] > 0
+    assert all(run["counter"].flops.get(d, 0) > 0 for d in mesh.devices)
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "jamba-v0.1-52b", "rwkv6-3b"])
 def test_remat_train_step_gathers_each_layer_again_in_the_backward(arch):
     """Remat on: each checkpointed group gathers its layers inside the
-    group, so the backward's recompute gathers them once more; the
-    gradients go back once."""
+    group, so the backward's recompute gathers them once more (and redoes
+    EP's and tensor parallelism's forward moves); the gradients go back
+    once."""
     cfg, mesh = dataclasses.replace(get_smoke_config(arch), remat=True), mesh24()
-    run = DR._fake_run(cfg, TRAIN, mesh)
-    got = run["counter"].collective_bytes()
+    _, got = _train_moves_hold(cfg, mesh)
     with FakeTensorMode():
         args, _ = STEPS.input_specs(cfg, TRAIN, mesh)
-        gather, a2a = expected_train_moves(cfg, mesh, args["params"])
         layers, rest = param_gathers(cfg, mesh, args["params"], TRAIN.global_batch)
-    assert got["all-gather"] == gather == 2 * layers + rest
-    assert got["reduce-scatter"] == layers + rest > 0
-    # EP's forward moves twice (forward, recompute) and their way back once
-    assert got["all-to-all"] == 3 * a2a
-    assert (got["all-reduce"] > 0) == cfg.is_moe
+    assert got["reduce-scatter"] - logits_blocks(cfg, mesh, args["params"], TRAIN) \
+        == layers + rest > 0
 
 
 def test_jamba_ep_decode_step_on_eight_devices():
@@ -152,6 +275,7 @@ def test_jamba_ep_decode_step_on_eight_devices():
     with FakeTensorMode():
         args, _ = STEPS.input_specs(cfg, DECODE, mesh)
         layers, rest = param_gathers(cfg, mesh, args["params"], DECODE.global_batch)
+        tp = tp_moves(cfg, mesh, args["params"], DECODE)
         held = [sum(v) for v in zip(*(bytes_per_shard(args[k], mesh)
                                       for k in ("params", "cache", "tokens")))]
     n_moe = sum(TF.layer_spec(cfg, i)[1] for i in range(TF.num_layers(cfg)))
@@ -170,17 +294,71 @@ def test_jamba_ep_decode_step_on_eight_devices():
     # the expert pieces are there already: no expert byte
     a2a = units * n_moe * 3 * (D * E * 4 + Bl * D * 4)
     assert got["all-to-all"] == a2a
-    assert got["all-gather"] == layers + rest + kv_gather + logits
+    assert tp["layers"]["all-gather"] == 0 < tp["layers"]["all-reduce"]   # the dense MLPs
+    assert got["all-gather"] == (layers + rest + kv_gather + logits + tp["layers"]["all-gather"]
+                                 + tp["outer"]["all-gather"])
     assert got["collective-permute"] == kv_write
-    assert got["all-reduce"] == units * n_moe * 3 * Bl * D * 4      # partial outputs
+    # EP's partial outputs, and tensor parallelism's partial sums
+    assert got["all-reduce"] == (units * n_moe * 3 * Bl * D * 4 + tp["layers"]["all-reduce"]
+                                 + tp["outer"]["all-reduce"])
     assert got["reduce-scatter"] == 0
-    # each data row's dense layers on its first shard, the experts on all eight
+    # each data row's attention and mamba layers on its first shard, the
+    # experts, the MLPs' and the vocabulary's blocks on all eight
     assert all(run["counter"].flops.get(d, 0) > 0 for d in mesh.devices)
     assert math.isclose(run["counter"].flops[mesh.devices[0]],
                         max(run["counter"].flops.values()))
     # state in pieces: each shard holds its blocks; the first one the most
     held[0] += 4                                     # cache_index
     assert run["state"] == held and max(held) == held[0] and min(held) > 0
+
+
+def decode_flops_per_shard(cfg, mesh, shape):
+    """FLOPs of one tensor-parallel decode step on each device of ``mesh``,
+    every leaf split over model M: per layer, the projections of the
+    shard's H/M heads and kv/M kv heads (2·Bl·D·hd·(2H/M + 2kv/M)), its
+    attention over S cached positions (4·Bl·(H/M)·S·hd), its slice of
+    the MLP (6·Bl·D·F/M); and its block of the logits (2·Bl·D·V/M)."""
+    M, Bl = mesh.shape["model"], shape.global_batch // mesh.shape["data"]
+    D, F, V, hd = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.resolved_head_dim
+    H, kv, S = cfg.num_heads // M, cfg.kv_heads // M, shape.seq_len
+    layer = 2 * Bl * D * hd * (2 * H + 2 * kv) + 4 * Bl * H * S * hd + 6 * Bl * D * F // M
+    return cfg.layers * layer + 2 * Bl * D * V // M
+
+
+def test_tensor_parallel_decode_moves_no_kv_byte():
+    """granite decode on data 2 × model 2, where its heads divide: each model
+    shard multiplies its own blocks on its own device (every device does
+    exactly its share of the step's FLOPs), the blocks arrive over data
+    only, and no K/V byte moves (each shard reads and writes its own piece
+    of the cache: no gather, no write-back)."""
+    cfg, mesh = get_smoke_config("granite-3-2b"), mesh22()
+    run = DR._fake_run(cfg, DECODE, mesh)
+    got = run["counter"].collective_bytes()
+    with FakeTensorMode():
+        args, _ = STEPS.input_specs(cfg, DECODE, mesh)
+        layers, rest = param_gathers(cfg, mesh, args["params"], DECODE.global_batch)
+        tp = tp_moves(cfg, mesh, args["params"], DECODE)
+        kv = [s for p, s in zip(leaf_paths(args["cache"]), leaves(args["cache"]))]
+    assert kv and all(tuple(s.spec) == ("data", None, "model", None) for s in kv)
+    logits = (DECODE.global_batch // 2) * cfg.padded_vocab * 4     # data shard 1's, to the first
+    assert got["all-gather"] == (layers + rest + logits + tp["layers"]["all-gather"]
+                                 + tp["outer"]["all-gather"])
+    assert got["all-reduce"] == tp["layers"]["all-reduce"] + tp["outer"]["all-reduce"] > 0
+    assert got["collective-permute"] == got["reduce-scatter"] == got["all-to-all"] == 0
+    want = decode_flops_per_shard(cfg, mesh, DECODE)
+    assert {d: run["counter"].flops.get(d, 0) for d in mesh.devices} == \
+        dict.fromkeys(mesh.devices, want)
+
+
+def test_tensor_parallel_train_step_on_four_devices():
+    """granite's train step on data 2 × model 2: attention, MLP and
+    vocabulary all tensor-parallel; the bytes by kind as derived, and each
+    device does the same share of the FLOPs (its blocks' forward and
+    backward), within the elementwise-free count of a smoke step."""
+    cfg, mesh = get_smoke_config("granite-3-2b"), mesh22()
+    run, got = _train_moves_hold(cfg, mesh)
+    flops = [run["counter"].flops.get(d, 0) for d in mesh.devices]
+    assert min(flops) > 0 and len(set(flops)) == 1
 
 
 def test_counter_puts_a_loose_constant_on_the_ops_device():

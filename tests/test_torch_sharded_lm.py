@@ -10,7 +10,12 @@ sharded train step's loss, gradients and updated parameters for qwen2-7b
 (2 layers), jamba and rwkv6 at smoke size, ``compress_grads`` under a data
 axis of 8, and ``rebuild_mesh_after_failure``.
 The port runs the same inputs, with the reference's weights carried by
-``models.convert``, on ``make_host_mesh(8, "cpu", model=4)``.
+``models.convert``, on ``make_host_mesh(8, "cpu", model=4)``, where the
+MLPs and the vocabulary run tensor-parallel; the train step of qwen2-7b
+(2 layers) also on ``make_host_mesh(4, "cpu", model=2)`` against the
+reference on a 2 × 2 host mesh, where attention does too.
+The subprocess starts with the module's first test, and the tests that
+hold the port against it come last.
 
 Held: MoE and logits within 1e-5 of the reference at f32 (``moe_apply``
 within 2e-3, the reference's own bar for EP against one device); loss to
@@ -51,6 +56,12 @@ from repro_torch.util.tree import leaf_paths, leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN_ARCHS = {"qwen2-7b": {"layers": 2}, "jamba-v0.1-52b": {}, "rwkv6-3b": {}}
+#: (arch, mesh) of each train-step case: on data 2 x model 4 the MLP and the
+#: vocabulary run tensor-parallel (the smoke configs' 2 kv heads do not divide
+#: model 4); on 2 x 2 attention too (qwen2, with its qkv biases)
+TRAIN_CASES = [("qwen2-7b", "2x4"), ("jamba-v0.1-52b", "2x4"), ("rwkv6-3b", "2x4"),
+               ("qwen2-7b", "2x2")]
+MESHES = {"2x4": (2, 4), "2x2": (2, 2)}
 B, T = 4, 32
 LR = 3e-4
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL, PARAM_RTOL = 1e-5, 1e-4, 1e-6, 1e-4
@@ -71,9 +82,11 @@ from repro.models import transformer as TF
 from repro.models.moe import moe_init, moe_apply, moe_apply_ep
 from repro.optim import adamw, compress as COMP
 
-ARCHS, B, T, LR = {archs!r}, {B}, {T}, {LR}
+ARCHS, CASES, MESHES, B, T, LR = {archs!r}, {cases!r}, {meshes!r}, {B}, {T}, {LR}
 np_tree = lambda t: jax.tree.map(np.asarray, t)
-mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
+devs = np.asarray(jax.devices())
+meshes = {{k: Mesh(devs[:d * m].reshape(d, m), ("data", "model")) for k, (d, m) in MESHES.items()}}
+mesh = meshes["2x4"]
 out = {{}}
 
 # moe_apply_ep against moe_apply
@@ -89,7 +102,7 @@ def run_moe(cf, slot):
             ("moe", cf, slot): np_tree(moe_apply(mp, x, num_experts=E, top_k=K,
                                                  capacity_factor=cf, slot_loop=slot))}}
 
-def loss_fn(cfg, aux_weight=0.01):
+def loss_fn(cfg, mesh, aux_weight=0.01):
     def f(params, tokens, labels):
         logits, _, aux = TF.forward(params, tokens, cfg, mesh=mesh)
         loss = STEPS.cross_entropy(logits, labels)
@@ -104,7 +117,8 @@ def setup(arch):
     labels = jnp.asarray(rng.integers(0, cfg.vocab, (B, T)).astype(np.int32))
     return cfg, params, tokens, labels
 
-def run_step(arch):
+def run_step(arch, name):
+    mesh = meshes[name]
     cfg, params, tokens, labels = setup(arch)
     opt_cfg = adamw.AdamWConfig(lr=LR, total_steps=5, warmup_steps=1)
     with mesh:
@@ -114,18 +128,19 @@ def run_step(arch):
             SH.params_shardings(params, mesh)))
         new_params, _, m = jax.jit(STEPS.make_train_step(cfg, opt_cfg, mesh))(
             params_s, opt_s, tokens, labels)
-        return arch, {{"params": np_tree(params), "tokens": np.asarray(tokens),
+        return (arch, name), {{"params": np_tree(params), "tokens": np.asarray(tokens),
                       "labels": np.asarray(labels), "new_params": np_tree(new_params),
                       "step_loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
                       "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])}}
 
-def run_grads(arch):
+def run_grads(arch, name):
+    mesh = meshes[name]
     cfg, params, tokens, labels = setup(arch)
     with mesh:
         params_s = jax.device_put(params, SH.params_shardings(params, mesh))
-        (_, (loss, aux)), grads = jax.jit(jax.value_and_grad(loss_fn(cfg), has_aux=True))(
+        (_, (loss, aux)), grads = jax.jit(jax.value_and_grad(loss_fn(cfg, mesh), has_aux=True))(
             params_s, tokens, labels)
-        return arch, {{"loss": float(loss), "aux": float(aux), "grads": np_tree(grads)}}
+        return (arch, name), {{"loss": float(loss), "aux": float(aux), "grads": np_tree(grads)}}
 
 def run_serve(arch):
     # the prefill into a cache and one decode step on the mesh
@@ -136,7 +151,7 @@ def run_serve(arch):
             p, t, cfg, cache=c, cache_index=0, mesh=mesh))(params, tokens, cache)
         logits, _ = jax.jit(STEPS.make_decode_step(cfg, mesh))(
             params, cache, labels[:, -1:], jnp.asarray(T, jnp.int32))
-        return arch, {{"prefill": np.asarray(prefill), "decode": np.asarray(logits)}}
+        return (arch, "2x4"), {{"prefill": np.asarray(prefill), "decode": np.asarray(logits)}}
 
 def run_compress():
     # compress_grads under a data axis of 8
@@ -158,11 +173,11 @@ def run_compress():
 
 # XLA compiles with the GIL released: the jobs run side by side, the
 # slowest (jamba's) first
-jobs = sorted(ARCHS, key=lambda a: not a.startswith("jamba"))
+jobs = sorted(CASES, key=lambda c: not c[0].startswith("jamba"))
 with ThreadPoolExecutor(8) as ex:
-    futures = [ex.submit(run_step, a) for a in jobs]
-    futures += [ex.submit(run_grads, a) for a in jobs]
-    futures += [ex.submit(run_serve, a) for a in jobs if get_smoke_config(a).is_moe]
+    futures = [ex.submit(run_step, *c) for c in jobs]
+    futures += [ex.submit(run_grads, *c) for c in jobs]
+    futures += [ex.submit(run_serve, a) for a in ARCHS if get_smoke_config(a).is_moe]
     moe = [ex.submit(run_moe, cf, slot) for cf in (8.0, 1.25) for slot in (True, False)]
     comp = ex.submit(run_compress)
     for f in futures:
@@ -177,21 +192,45 @@ with open(sys.argv[1], "wb") as fh:
 '''
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _reference_run():
+    """Start the reference's subprocess with the module's first test; :func:`ref`
+    waits for it, and the tests that do not need it run meanwhile."""
+    d = tempfile.TemporaryDirectory()
+    path = os.path.join(d.name, "ref.pkl")
+    script = REFERENCE.format(archs=TRAIN_ARCHS, cases=TRAIN_CASES, meshes=MESHES, B=B, T=T,
+                              LR=LR)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    with open(path + ".err", "w") as err:      # a file, not a pipe that could fill
+        proc = subprocess.Popen([sys.executable, "-c", script, path], stdout=subprocess.DEVNULL,
+                                stderr=err, env=env)
+    state = {"proc": proc, "path": path, "out": None}
+    yield state
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    d.cleanup()
+
+
 @pytest.fixture(scope="module")
-def ref():
-    script = REFERENCE.format(archs=TRAIN_ARCHS, B=B, T=T, LR=LR)
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "ref.pkl")
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-        run = subprocess.run([sys.executable, "-c", script, path], capture_output=True,
-                             text=True, timeout=600, env=env)
-        assert run.returncode == 0, run.stderr[-4000:]
-        with open(path, "rb") as fh:
-            return pickle.load(fh)
+def ref(_reference_run):
+    st = _reference_run
+    if st["out"] is None:
+        rc = st["proc"].wait(timeout=600)
+        with open(st["path"] + ".err") as fh:
+            assert rc == 0, fh.read()[-4000:]
+        with open(st["path"], "rb") as fh:
+            st["out"] = pickle.load(fh)
+    return st["out"]
+
+
+def mesh_of(name):
+    data, model = MESHES[name]
+    return make_host_mesh(data * model, "cpu", model=model)
 
 
 def mesh24():
-    return make_host_mesh(8, "cpu", model=4)
+    return mesh_of("2x4")
 
 
 def _t(a):
@@ -208,28 +247,6 @@ def _close(ours, want, rtol, atol=0.0, what=""):
 # --- expert parallelism ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("slot", [True, False], ids=["slot_loop", "replica"])
-@pytest.mark.parametrize("cf", [8.0, 1.25])
-def test_moe_apply_ep_matches_reference(ref, cf, slot):
-    """Capacity 8 drops nothing; 1.25 drops, each data shard by its own
-    tokens' capacity, and exercises the dummy bin."""
-    params = tree_map(_t, ref["moe_params"])
-    x = _t(ref["moe_x"])
-    kw = dict(num_experts=8, top_k=2, capacity_factor=cf, slot_loop=slot)
-    y, aux = MOE.moe_apply_ep(params, x, mesh=mesh24(), **kw)
-    ry, raux = ref[("moe_ep", cf, slot)]
-    _close(y, ry, 1e-5, 1e-6, "y")
-    assert abs(float(aux) - float(raux)) <= 1e-5 * abs(float(raux))
-    if cf == 8.0:
-        y1, _ = MOE.moe_apply(params, x, **kw)
-        _close(y, y1, 0, 2e-3, "moe_apply")
-        _close(y1, ref[("moe", cf, slot)][0], 1e-5, 1e-6, "moe_apply vs reference")
-    # the experts as pieces (one per model shard) give the same bits
-    pieces = {k: (v if k == "router" else tuple(torch.chunk(v, 4))) for k, v in params.items()}
-    y2, aux2 = MOE.moe_apply_ep(pieces, x, mesh=mesh24(), **kw)
-    assert torch.equal(y, y2) and torch.equal(aux, aux2)
-
-
 def test_moe_apply_ep_refuses_what_the_mesh_cannot_run():
     params = MOE.moe_init(torch.Generator().manual_seed(0), 16, 32, 6)
     with pytest.raises(ValueError, match="must divide model axis"):
@@ -237,30 +254,6 @@ def test_moe_apply_ep_refuses_what_the_mesh_cannot_run():
     params = MOE.moe_init(torch.Generator().manual_seed(0), 16, 32, 8)
     with pytest.raises(ValueError, match="batch 3"):
         MOE.moe_apply_ep(params, torch.zeros(3, 2, 16), num_experts=8, top_k=2, mesh=mesh24())
-
-
-def test_forward_on_a_mesh_serves_as_the_reference(ref):
-    """jamba's prefill and a cached decode step with ``mesh``: its MoE layers
-    run expert-parallel, each data shard with its own capacity."""
-    r = ref["jamba-v0.1-52b"]
-    cfg = get_smoke_config("jamba-v0.1-52b")
-    params = params_from_reference(cfg, r["params"])
-    tokens, labels = _t(r["tokens"]), _t(r["labels"])
-    mesh = mesh24()
-    calls = []
-    real = MOE.moe_apply_ep
-    with torch.inference_mode():
-        MOE.moe_apply_ep = lambda *a, **k: calls.append(1) or real(*a, **k)
-        try:
-            logits = STEPS.make_prefill_step(cfg, mesh)(params, tokens)
-            cache = TF.init_cache(cfg, B, T + 1)
-            _, cache, _ = TF.forward(params, tokens, cfg, cache=cache, cache_index=0, mesh=mesh)
-            step, _ = STEPS.make_decode_step(cfg, mesh)(params, cache, labels[:, -1:], T)
-        finally:
-            MOE.moe_apply_ep = real
-    assert len(calls) == 3 * sum(TF.layer_spec(cfg, i)[1] for i in range(cfg.layers))
-    _close(logits, r["prefill"], 1e-5, 1e-5, "prefill")
-    _close(step, r["decode"], 1e-5, 1e-5, "decode")
 
 
 # --- the sharded train step ------------------------------------------------------------
@@ -272,14 +265,9 @@ def _port_state(arch, r):
     return cfg, params
 
 
-@pytest.mark.parametrize("arch", list(TRAIN_ARCHS))
-def test_sharded_train_step_matches_reference(ref, arch):
-    """The 2 × 4 step with the reference's weights: pieces on their shards,
-    the loss, every gradient leaf, grad_norm, lr and every updated
-    parameter."""
-    r = ref[arch]
+def _train_step_against_reference(r, arch, mesh_name):
     cfg, params = _port_state(arch, r)
-    mesh = mesh24()
+    mesh = mesh_of(mesh_name)
     sp = SHD.shard_tree(params, mesh)
     tokens, labels = _t(r["tokens"]), _t(r["labels"])
     for path, s in zip(leaf_paths(sp), leaves(sp)):
@@ -311,6 +299,7 @@ def test_sharded_train_step_matches_reference(ref, arch):
         gap = (got - w).abs()
         assert float(torch.where(fixed, gap, 0).max()) <= bar, (path, bar)
         assert float(gap.max()) <= bar + 2 * LR, path
+    return cfg, mesh, sp
 
 
 def test_sharded_step_equals_one_device_step_on_a_dense_model():
@@ -465,6 +454,32 @@ def test_sharded_bf16_microbatched_step_hands_adamw_f32_gradients(monkeypatch):
         _close(g, w, 2 ** -6, 0, path)
 
 
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_tensor_parallel_bf16_gradients_round_as_one_device(mesh_name):
+    """granite (2 layers) in bf16 on data 2 × model 4 (MLP and vocabulary
+    tensor-parallel) and 2 × 2 (attention too): the row blocks' partial
+    outputs are summed unrounded and cast once, and each column weight's
+    input gradient likewise, so a tensor-parallel layer rounds where one
+    device's layer rounds.  The gradients then agree with the one-device
+    bf16 step's to a few bf16 roundings of the data split (2^-8 each):
+    within 2^-6 of each leaf's largest entry, and the loss within 2^-8."""
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=2, dtype="bfloat16")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
+    params = TF.init_params(torch.Generator().manual_seed(0), cfg)
+    l1, _, g1 = STEPS.make_grad_fn(cfg)(tree_map(torch.clone, params), tokens, labels)
+    mesh = mesh_of(mesh_name)
+    sp = SHD.shard_tree(params, mesh)
+    loss, _, grads = STEPS.make_grad_fn(cfg, mesh=mesh)(sp, tokens, labels)
+    assert any(SH.tp_dim(cfg, p[2:], s.spec, mesh) is not None
+               for p, s in zip(leaf_paths(sp), leaves(sp)) if p[0] == "layers")
+    assert abs(float(loss) - float(l1)) <= 2 ** -8 * float(l1)
+    for path, g, w in zip(leaf_paths(g1), leaves(full_tree(grads, "cpu")), leaves(g1)):
+        assert g.dtype == w.dtype == torch.bfloat16, path
+        _close(g.float(), w.float(), 2 ** -6, 0, path)
+
+
 def test_sharded_compressed_step_takes_top_k_over_the_reference_stacks():
     """The compressed step on a mesh: top-k over each stack of the averaged
     gradients, the residual cut back into its pieces; fed the same
@@ -493,32 +508,7 @@ def test_sharded_compressed_step_takes_top_k_over_the_reference_stacks():
         assert torch.equal(r.full(), r1)
 
 
-def test_compress_grads_over_a_data_axis_matches_reference(ref):
-    """Each shard gets the mean of the shards' sparse gradients (a small
-    leaf its own dense one) and keeps its own residual, as the reference's
-    shard_map body gives it."""
-    c = ref["compress"]
-    cfg = COMP.CompressionConfig(density=c["density"], min_size=c["min_size"])
-    grads = [{k: _t(v[d]) for k, v in c["g"].items()} for d in range(8)]
-    states = [COMP.CompressionState({k: _t(v[d]) for k, v in c["r"].items()})
-              for d in range(8)]
-    out, states, m = COMP.compress_grads(cfg, grads, states, axis_name="data")
-    assert len(out) == len(states) == 8
-    assert m["compress_ratio"] == (int(64 * 128 * c["density"]) * 8 + 16 * 4) / ((64 * 128 + 16) * 4)
-    for d in range(8):
-        _close(out[d]["w"], c["new_g"]["w"][d], 1e-6, 0, "w")
-        assert torch.equal(out[d]["b"], grads[d]["b"])
-        np.testing.assert_array_equal(out[d]["b"].numpy(), c["new_g"]["b"][d])
-        np.testing.assert_array_equal(states[d].residual["w"].numpy(), c["new_r"]["w"][d])
-        np.testing.assert_array_equal(states[d].residual["b"].numpy(), c["new_r"]["b"][d])
-    assert torch.equal(out[0]["w"], out[7]["w"])
-
-
 # --- data, checkpoints, trainer ----------------------------------------------------------
-
-
-def test_rebuild_mesh_after_failure_matches_reference(ref):
-    assert rebuild_mesh_after_failure(0.25, 8, "cpu").shape["data"] == ref["rebuild_data"] == 6
 
 
 def test_global_batch_array_gives_each_data_shard_its_rows():
@@ -651,3 +641,101 @@ def test_cuda_shards_raise_without_a_card():
                             dataclasses.replace(get_smoke_config("granite-3-2b"), layers=1))
     with pytest.raises((RuntimeError, AssertionError)):
         SHD.shard_tree(params, mesh)
+
+
+# --- against the reference's outputs: these run last, so that the reference's
+# subprocess, started with the module's first test, runs beside the tests above ---------
+
+
+@pytest.mark.parametrize("slot", [True, False], ids=["slot_loop", "replica"])
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_moe_apply_ep_matches_reference(ref, cf, slot):
+    """Capacity 8 drops nothing; 1.25 drops, each data shard by its own
+    tokens' capacity, and exercises the dummy bin."""
+    params = tree_map(_t, ref["moe_params"])
+    x = _t(ref["moe_x"])
+    kw = dict(num_experts=8, top_k=2, capacity_factor=cf, slot_loop=slot)
+    y, aux = MOE.moe_apply_ep(params, x, mesh=mesh24(), **kw)
+    ry, raux = ref[("moe_ep", cf, slot)]
+    _close(y, ry, 1e-5, 1e-6, "y")
+    assert abs(float(aux) - float(raux)) <= 1e-5 * abs(float(raux))
+    if cf == 8.0:
+        y1, _ = MOE.moe_apply(params, x, **kw)
+        _close(y, y1, 0, 2e-3, "moe_apply")
+        _close(y1, ref[("moe", cf, slot)][0], 1e-5, 1e-6, "moe_apply vs reference")
+    # the experts as pieces (one per model shard) give the same bits
+    pieces = {k: (v if k == "router" else tuple(torch.chunk(v, 4))) for k, v in params.items()}
+    y2, aux2 = MOE.moe_apply_ep(pieces, x, mesh=mesh24(), **kw)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+
+
+def test_forward_on_a_mesh_serves_as_the_reference(ref):
+    """jamba's prefill and a cached decode step with ``mesh``: its MoE layers
+    run expert-parallel, each data shard with its own capacity."""
+    r = ref[("jamba-v0.1-52b", "2x4")]
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    params = params_from_reference(cfg, r["params"])
+    tokens, labels = _t(r["tokens"]), _t(r["labels"])
+    mesh = mesh24()
+    calls = []
+    real = MOE.moe_apply_ep
+    with torch.inference_mode():
+        MOE.moe_apply_ep = lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            logits = STEPS.make_prefill_step(cfg, mesh)(params, tokens)
+            cache = TF.init_cache(cfg, B, T + 1)
+            _, cache, _ = TF.forward(params, tokens, cfg, cache=cache, cache_index=0, mesh=mesh)
+            step, _ = STEPS.make_decode_step(cfg, mesh)(params, cache, labels[:, -1:], T)
+        finally:
+            MOE.moe_apply_ep = real
+    assert len(calls) == 3 * sum(TF.layer_spec(cfg, i)[1] for i in range(cfg.layers))
+    _close(logits, r["prefill"], 1e-5, 1e-5, "prefill")
+    _close(step, r["decode"], 1e-5, 1e-5, "decode")
+
+
+@pytest.mark.parametrize("arch", [a for a, m in TRAIN_CASES if m == "2x4"])
+def test_sharded_train_step_matches_reference(ref, arch):
+    """The 2 × 4 step with the reference's weights: pieces on their shards,
+    the loss, every gradient leaf, grad_norm, lr and every updated
+    parameter; the MLP and the vocabulary run tensor-parallel (rwkv6: the
+    vocabulary only), attention gathered whole."""
+    _train_step_against_reference(ref[(arch, "2x4")], arch, "2x4")
+
+
+@pytest.mark.parametrize("arch", [a for a, m in TRAIN_CASES if m == "2x2"])
+def test_tensor_parallel_train_step_matches_reference(ref, arch):
+    """The data 2 × model 2 step, where the smoke configs' 4 heads and 2 kv
+    heads divide: attention, MLP and vocabulary all tensor-parallel (every
+    ruled leaf of a layer split over model), held to the same bars as on
+    2 × 4 against the reference on the same mesh shape."""
+    cfg, mesh, sp = _train_step_against_reference(ref[(arch, "2x2")], arch, "2x2")
+    tp = [p for p, s in zip(leaf_paths(sp), leaves(sp))
+          if SH.tp_dim(cfg, p[2:] if p[0] == "layers" else p, s.spec, mesh) is not None]
+    assert {p[-2] for p in tp if p[0] == "layers"} == {"attn", "mlp"}
+    assert len(tp) == cfg.layers * (10 if cfg.qkv_bias else 7) + len(
+        [k for k in sp if k.endswith("embedding")])
+
+
+def test_compress_grads_over_a_data_axis_matches_reference(ref):
+    """Each shard gets the mean of the shards' sparse gradients (a small
+    leaf its own dense one) and keeps its own residual, as the reference's
+    shard_map body gives it."""
+    c = ref["compress"]
+    cfg = COMP.CompressionConfig(density=c["density"], min_size=c["min_size"])
+    grads = [{k: _t(v[d]) for k, v in c["g"].items()} for d in range(8)]
+    states = [COMP.CompressionState({k: _t(v[d]) for k, v in c["r"].items()})
+              for d in range(8)]
+    out, states, m = COMP.compress_grads(cfg, grads, states, axis_name="data")
+    assert len(out) == len(states) == 8
+    assert m["compress_ratio"] == (int(64 * 128 * c["density"]) * 8 + 16 * 4) / ((64 * 128 + 16) * 4)
+    for d in range(8):
+        _close(out[d]["w"], c["new_g"]["w"][d], 1e-6, 0, "w")
+        assert torch.equal(out[d]["b"], grads[d]["b"])
+        np.testing.assert_array_equal(out[d]["b"].numpy(), c["new_g"]["b"][d])
+        np.testing.assert_array_equal(states[d].residual["w"].numpy(), c["new_r"]["w"][d])
+        np.testing.assert_array_equal(states[d].residual["b"].numpy(), c["new_r"]["b"][d])
+    assert torch.equal(out[0]["w"], out[7]["w"])
+
+
+def test_rebuild_mesh_after_failure_matches_reference(ref):
+    assert rebuild_mesh_after_failure(0.25, 8, "cpu").shape["data"] == ref["rebuild_data"] == 6

@@ -180,6 +180,79 @@ def test_sanitize_and_batch_sharding(mesh):
     assert tuple(ours.spec) == tuple(RP(dp if len(dp) > 1 else dp[0]))
 
 
+#: the leaves tensor parallelism splits, by parent: the one dimension the
+#: reference's rule puts ``model`` on is the output features of a column
+#: leaf (the last) and the input features of a row leaf (the first)
+TP_COLUMNS = {"attn": {"wq", "wk", "wv", "bq", "bk", "bv"}, "mlp": {"w_in", "w_gate"}}
+TP_ROWS = {"attn": {"wo"}, "mlp": {"w_out"}}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_dim_reads_the_reference_spec_of_each_leaf(arch, mesh):
+    """At full size: a leaf runs tensor-parallel exactly where it is one of
+    attention's projections (whose heads and kv heads both divide over
+    ``model``), the MLP's (a MoE layer's shared expert included) or an
+    embedding, and the reference's spec of it puts ``model`` on the
+    dimension that holds the heads, the ffn or the vocabulary; along that
+    dimension.  No leaf of the encoder–decoder, and none of a mamba or
+    rwkv mixer, a norm, the router or an expert tensor, runs so."""
+    ref, ours = _trees(arch, False)
+    cfg = _configs(arch, False)[1]
+    stub = _stub(mesh)
+    M = stub.shape["model"]
+    heads_divide = cfg.num_heads % M == 0 and cfg.kv_heads % M == 0
+    ref_specs = RSH.params_pspecs(ref, stub)
+    seen = set()
+    specs = leaves(SH.params_pspecs(ours, stub))
+    for path, leaf, spec in zip(leaf_paths(ours), leaves(ours), specs):
+        ref_spec, stacked = _ref_leaf(cfg, ref_specs, path)
+        ref_spec = tuple(ref_spec)[1:] if stacked and tuple(ref_spec) else tuple(ref_spec)
+        name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+        if name in ("embedding", "unembedding") and parent is None:
+            dim = 0
+        elif parent in TP_COLUMNS and name in TP_COLUMNS[parent]:
+            dim = leaf.dim() - 1
+        elif parent in TP_ROWS and name in TP_ROWS[parent]:
+            dim = 0
+        else:
+            dim = None
+        if dim is not None and (cfg.is_encdec or not ref_spec or ref_spec[dim] != "model"
+                                or (parent == "attn" and not heads_divide)):
+            dim = None
+        got = SH.tp_dim(cfg, path, spec, stub)
+        assert got == dim, (path, got, dim, ref_spec)
+        if got is not None:
+            seen.add(parent or "vocab")
+    if cfg.is_encdec:
+        assert not seen
+    elif arch == "granite-3-2b":
+        # 32 heads and 8 kv heads divide over model 4, not over 16
+        assert seen == ({"attn", "mlp", "vocab"} if M == 4 else {"mlp", "vocab"})
+
+
+def test_tp_dim_on_the_smoke_meshes():
+    """The smoke configs' 4 heads and 2 kv heads divide over model 2, not 4:
+    granite on data 2 x model 2 runs attention, MLP and vocabulary
+    tensor-parallel, on 2 x 4 the MLP and vocabulary only; a mesh without
+    a model split (the restart's model 1) runs nothing so; rwkv6's only
+    such leaves are its two embeddings."""
+    def groups(arch, mesh):
+        cfg = REG.get_smoke_config(arch)
+        ours = _meta(TF.init_params, types.SimpleNamespace(device=torch.device("meta")), cfg)
+        specs = SH.params_pspecs(ours, mesh)
+        return {(p[-2] if len(p) > 1 else p[-1]): SH.tp_dim(cfg, p, s, mesh)
+                for p, s in zip(leaf_paths(ours), leaves(specs))
+                if SH.tp_dim(cfg, p, s, mesh) is not None}
+    assert set(groups("granite-3-2b", MESH.make_host_mesh(4, "cpu", model=2))) == \
+        {"attn", "mlp", "embedding"}
+    assert set(groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=4))) == \
+        {"mlp", "embedding"}
+    assert groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=1)) == {}
+    assert groups("rwkv6-3b", MESH.make_host_mesh(8, "cpu", model=4)) == \
+        {"embedding": 0, "unembedding": 0}
+
+
 def _dropped(cfg, mesh):
     """(leaves with a rule, leaves whose spec lost an axis of its rule to
     ``sanitize_spec``) of ``cfg``'s parameters on ``mesh``."""
