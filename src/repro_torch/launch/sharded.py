@@ -37,13 +37,24 @@ placed here explicitly:
     [cache_index, cache_index + T) along S, and the recurrent states (split
     by batch only, so the unit's own block) replaced.  A tensor-parallel
     attention layer's K/V (kv heads split over ``model``) are not moved:
-    model shard m reads and writes its own piece in place.  The logits
-    come back whole on the first shard's device.
+    model shard m reads and writes its own piece in place.  A recurrent
+    state keeps its cut (the reference replicates it over ``model``): the
+    unit gathers its rows whole, a tensor-parallel mamba or rwkv6 layer
+    hands each model shard its heads' slice and gathers the shards' new
+    heads back, and the whole is written back as on one device.  It needs
+    no counterpart of attention's fallback below: its heads are cut on the
+    unit's device, whatever the batch, so a batch that does not divide
+    over the data shards (one unit, the state whole on the first shard)
+    runs tensor-parallel too.  The logits come back whole on the first
+    shard's device.
   * **Tensor parallelism** (the reference's "TP over ``model``": heads,
     ffn, vocabulary; ``sharding.tp_dim`` says which leaves).  Model shard
     m of a unit multiplies its own column and row blocks on its device:
     attention over its whole heads and GQA groups, the MLP (and a MoE
-    shared expert) over its slice of the ffn, the embedding lookup and the
+    shared expert) over its slice of the ffn, the mamba mixer and rwkv6's
+    time mix over their whole heads (the scan and the group norm of each
+    head on its shard, with its slices of the per-head vectors), rwkv6's
+    channel mix over its slice of the ffn, the embedding lookup and the
     logits over its vocabulary block.  The row blocks' partial outputs
     leave their matmuls as float32, unrounded, and are summed in float32 in
     shard order on the unit's device and cast once, and the
@@ -148,10 +159,11 @@ def _rows(t, rows: slice, device):
 def unit_gather(cfg, sub: ShardMesh, device, ep: bool, attn_tp: bool = True):
     """The ``gather`` that ``transformer.forward`` takes for one unit: a
     subtree of ``Sharded`` leaves → each leaf whole on ``device``, except
-    that a tensor-parallel leaf (``sharding.tp_dim``; attention's only where
-    ``attn_tp``) comes as its model blocks, and under EP an expert leaf as
-    its model pieces, each gathered over the data shards only onto model
-    shard m of ``sub`` (``Sharded.model_pieces``)."""
+    that a tensor-parallel leaf (``sharding.tp_dim``: attention's only where
+    ``attn_tp``; the mamba mixers' and rwkv6's projections always) comes as
+    its model blocks, and under EP an expert leaf as its model pieces, each
+    gathered over the data shards only onto model shard m of ``sub``
+    (``Sharded.model_pieces``)."""
     model_devs = ([sub.device_at(model=m) for m in range(sub.shape["model"])]
                   if "model" in sub.axis_names else None)
 
@@ -240,10 +252,12 @@ class _UnitCache:
     ``view[i] = entry`` writes what the layer wrote back into the owner
     pieces: of attention K/V the T positions the step wrote along S (from
     ``cache_index``, clamped as the layer clamps it), of a recurrent state
-    the whole block, replaced.  Attention K/V whose kv heads are split over
-    ``model`` (a tensor-parallel layer's) are handed as the unit's pieces
-    themselves, one per model shard in shard order, each on its owner's
-    device: the layer writes them in place and nothing is written back."""
+    the whole block, replaced (a tensor-parallel recurrent layer takes its
+    state so too, and cuts it by heads itself).  Attention K/V whose kv
+    heads are split over ``model`` (a tensor-parallel layer's) are handed as
+    the unit's pieces themselves, one per model shard in shard order, each
+    on its owner's device: the layer writes them in place and nothing is
+    written back."""
 
     def __init__(self, cache, unit: int, device, cache_index: int, T: int):
         self.cache, self.unit, self.device = cache, unit, device

@@ -33,6 +33,7 @@ import math
 from typing import Any, Optional, Tuple
 
 from repro_torch.launch.mesh import ShardMesh
+from repro_torch.models.mamba import mamba_num_heads
 from repro_torch.util.sharded import PartitionSpec
 from repro_torch.util.tree import leaf_paths, leaves, tree_map
 
@@ -142,7 +143,45 @@ def param_spec(path: Tuple, leaf: Any, mesh, fsdp_over_pod: bool = False) -> Par
 _TP_GROUPS = {
     "attn": (("wq", "wk", "wv", "bq", "bk", "bv"), ("wo",)),
     "mlp": (("w_in", "w_gate"), ("w_out",)),
+    "mixer": (("w_in", "w_gate", "w_B", "w_C"), ("w_out",)),
 }
+#: rwkv6's leaves sit directly under the layer (their parent is a layer's
+#: index, or nothing in one layer's subtree), so its two groups are found by
+#: the config's ``rwkv`` flag; their names ``wk``, ``wv`` and ``wo`` are also
+#: attention's, under ``attn``.
+_RWKV_GROUPS = {
+    "time_mix": (("wr", "wk", "wv", "wg"), ("wo",)),
+    "channel_mix": (("ck", "cr"), ("cv",)),
+}
+
+
+def _tp_group(cfg, path: Tuple):
+    """(group name, column blocks, row blocks) of the group whose leaf is at
+    ``path``, or None."""
+    name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    if cfg.rwkv and not isinstance(parent, str):
+        groups = _RWKV_GROUPS.items()
+    else:
+        groups = [(parent, _TP_GROUPS[parent])] if parent in _TP_GROUPS else []
+    for group, (cols, rows) in groups:
+        if name in cols + rows:
+            return group, cols, rows
+    return None
+
+
+def _group_divides(cfg, group: str, model: int) -> bool:
+    """Whether ``group``'s blocks cut whole heads (attention: whole GQA
+    groups too) or, for rwkv6's channel mix, whether both of its widths
+    split over ``model``."""
+    if group == "attn":
+        return cfg.num_heads % model == 0 and cfg.kv_heads % model == 0
+    if group == "mixer":
+        return mamba_num_heads(cfg.d_model, cfg.mamba_expand) % model == 0
+    if group == "time_mix":
+        return cfg.num_heads % model == 0
+    if group == "channel_mix":
+        return cfg.d_ff % model == 0 and cfg.d_model % model == 0
+    return True
 
 
 def tp_dim(cfg, path: Tuple, spec, mesh) -> Optional[int]:
@@ -152,7 +191,7 @@ def tp_dim(cfg, path: Tuple, spec, mesh) -> Optional[int]:
 
     ``path`` is the leaf's key path in the parameters or in one layer's
     subtree (its last two keys name the leaf and its parent); ``spec`` is
-    the leaf's own :func:`param_spec`.  Three groups run so, as the
+    the leaf's own :func:`param_spec`.  These groups run so, as the
     reference's rules lay out (heads / ffn / vocab over ``model``):
 
       * attention's ``wq``, ``wk``, ``wv`` (and ``bq``, ``bk``, ``bv``) by
@@ -161,27 +200,49 @@ def tp_dim(cfg, path: Tuple, spec, mesh) -> Optional[int]:
         groups);
       * the MLP's ``w_in`` and ``w_gate`` by columns and ``w_out`` by rows
         (the dense MLP and the MoE ``shared_expert``);
+      * the mamba mixer's ``w_in``, ``w_gate``, ``w_B`` and ``w_C`` by
+        columns and ``w_out`` by rows, where its heads
+        (``mamba_expand·d_model // 64``) divide over ``model``: each shard
+        whole heads, their value, gate and state columns;
+      * rwkv6's time mix, ``wr``, ``wk``, ``wv`` and ``wg`` by columns and
+        ``wo`` by rows, where ``num_heads`` divides over ``model``;
+      * rwkv6's channel mix, ``ck`` and ``cr`` by columns and ``cv`` by
+        rows, where ``d_ff`` and ``d_model`` both divide (each of the three
+        leaves' specs splits then, as the MLP runs where attention's heads
+        do not divide);
       * ``embedding`` and ``unembedding`` by vocabulary rows.
 
     Each only where its spec splits that dimension over ``model``
     (``sanitize_spec`` keeps the split where the dimension divides).  Every
-    other leaf (norms, the router, the mamba, rwkv and linear-attention
-    leaves, the MoE experts, which run expert-parallel) and every leaf of
-    the encoder–decoder, which runs on one device, is used whole.  The
-    answer depends only on the config and the mesh's shape."""
+    other leaf is used whole, on the unit's device: the norms, the router,
+    the MoE experts (which run expert-parallel), rwkv6's ``mix``, ``cmix``
+    and its decay LoRA ``w_lora_a`` and ``w_lora_b`` (the decay is computed
+    once, from all of d_model, before each shard takes its heads' columns of
+    it; ``w_lora_a``'s split over a rank of 64 would save D·64 weights), the
+    mamba mixer's step projection ``w_dt`` (D·H weights, whose product is
+    likewise computed once and cut by heads: a block of one or two columns
+    a shard goes through another GEMM than the whole product, and the scan
+    magnifies a rounding of the step Δ through exp(−Δ·A) over a chunk), and
+    the per-head vectors ``w0``, ``u``, ``gn_scale``, ``dt_bias``, ``A_log``
+    and ``D_skip``, whose specs replicate them: a tensor-parallel layer
+    hands each shard its heads' slice.  So is every leaf of the
+    encoder–decoder, which runs on one device.  The answer depends only on
+    the config and the mesh's shape."""
     if cfg.is_encdec or not path:
         return None
     name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    group = None
     if name in ("embedding", "unembedding") and parent is None:
         dim = 0
-    elif parent in _TP_GROUPS and name in _TP_GROUPS[parent][0] + _TP_GROUPS[parent][1]:
-        dim = len(spec) - 1 if name in _TP_GROUPS[parent][0] else 0
     else:
-        return None
+        found = _tp_group(cfg, path)
+        if found is None:
+            return None
+        group, cols, _ = found
+        dim = len(spec) - 1 if name in cols else 0
     if not spec or spec[dim] != "model":
         return None
-    if parent == "attn" and (cfg.num_heads % mesh.shape["model"]
-                             or cfg.kv_heads % mesh.shape["model"]):
+    if group is not None and not _group_divides(cfg, group, mesh.shape["model"]):
         return None
     return dim
 

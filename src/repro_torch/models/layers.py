@@ -450,6 +450,21 @@ def tp_reduce(parts, device, dtype) -> torch.Tensor:
     return acc if acc.dtype == dtype else acc.to(dtype)
 
 
+def head_slice(t: torch.Tensor, m: int, n: int, device, dim: int = 0) -> torch.Tensor:
+    """Model shard m's slice, entries [m·n, (m+1)·n) along ``dim``, of a
+    tensor whole on the reducing device (a per-head vector or state that the
+    reference replicates over ``model``), moved to the shard's ``device``:
+    its part of the gather of that tensor, whose gradient's way back is a
+    reduce-scatter."""
+    return move(t.narrow(dim, m * n, n), device, "all-gather", "reduce-scatter")
+
+
+def gather_heads(states, device) -> torch.Tensor:
+    """The model shards' new recurrent states of their heads (dimension 1,
+    in shard order) whole on ``device``: an all-gather."""
+    return torch.cat([move(s, device, "all-gather") for s in states], 1)
+
+
 def _blocks(params: Params, m: int) -> Params:
     return {k: v[m] for k, v in params.items()}
 

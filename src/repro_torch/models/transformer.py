@@ -34,8 +34,12 @@ at most one group's weights (and the embeddings) are whole at once.  Where
 the gather hands a leaf as one block per model shard (tensor parallelism,
 ``launch/sharding.py::tp_dim``), the layer multiplies each block on its
 shard: attention over each shard's heads (``layers.attention_apply_tp``),
-the MLP over its slice of the ffn (``layers.mlp_apply_tp``), the
-embedding lookup and the logits over its vocabulary block
+the MLP over its slice of the ffn (``layers.mlp_apply_tp``), the mamba
+mixer and rwkv6's time mix over each shard's whole heads and rwkv6's
+channel mix over its slice of the ffn (``mamba.mamba_block_*_tp``,
+``rwkv6.rwkv6_block_*_tp``: the recurrent state comes whole to the unit's
+device, each shard scans its heads' slice of it, and the new state comes
+back whole), the embedding lookup and the logits over its vocabulary block
 (``layers.embed``, ``layers.unembed``).  The partial outputs (float32,
 unrounded, from the row blocks' matmuls) are summed in float32 in shard
 order on the unit's device and cast once, where the residual stream and
@@ -157,24 +161,10 @@ def _apply_layer(
     aux = torch.zeros((), device=x.device)
     new_cache = None
     if kind == "rwkv":
-        if cache is not None and x.shape[1] == 1:
-            x, new_cache = R.rwkv6_block_decode(p, x, cache, num_heads=cfg.num_heads)
-        else:
-            x, new_cache = R.rwkv6_block_apply(
-                p, x, num_heads=cfg.num_heads, chunk=cfg.la_chunk, state=cache,
-            )
+        x, new_cache = _recurrent(p, x, cfg, kind, cache)
         return x, new_cache, aux
     if kind == "mamba":
-        H = max(cfg.mamba_expand * cfg.d_model // 64, 1)
-        if cache is not None and x.shape[1] == 1:
-            x, new_cache = M.mamba_block_decode(
-                p["mixer"], x, cache, num_heads=H, d_state=cfg.mamba_d_state
-            )
-        else:
-            x, new_cache = M.mamba_block_apply(
-                p["mixer"], x, num_heads=H, d_state=cfg.mamba_d_state,
-                chunk=cfg.la_chunk, state=cache,
-            )
+        x, new_cache = _recurrent(p["mixer"], x, cfg, kind, cache)
     else:
         h = L.rmsnorm(p["ln1"], x)
         tp = L.is_tp(p["attn"]["wq"])
@@ -219,6 +209,35 @@ def _apply_layer(
     elif kind != "rwkv" and "mlp" in p:
         x = x + _mlp(p["mlp"], h)
     return x, new_cache, aux
+
+
+#: kind: ((apply, decode) on one device, (apply, decode) tensor-parallel)
+_RECURRENT = {
+    "rwkv": ((R.rwkv6_block_apply, R.rwkv6_block_decode),
+             (R.rwkv6_block_apply_tp, R.rwkv6_block_decode_tp)),
+    "mamba": ((M.mamba_block_apply, M.mamba_block_decode),
+              (M.mamba_block_apply_tp, M.mamba_block_decode_tp)),
+}
+
+
+def _recurrent(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, cache):
+    """A rwkv6 block or a mamba mixer: (x, new state).  Tensor-parallel where
+    its projections come as model blocks; its state comes whole either way
+    (``cache_spec`` splits it by batch only)."""
+    if cache is not None and any(L.is_tp(v) for v in cache.values()):
+        raise ValueError("a recurrent layer takes its state whole, on its unit's device; a "
+                         "tensor-parallel one hands each model shard its heads' slice")
+    if kind == "rwkv":
+        tp = L.is_tp(p["wr"]) or L.is_tp(p["ck"])
+        kw = {"num_heads": cfg.num_heads}
+    else:
+        tp = L.is_tp(p["w_in"])
+        kw = {"num_heads": M.mamba_num_heads(cfg.d_model, cfg.mamba_expand),
+              "d_state": cfg.mamba_d_state}
+    apply, decode = _RECURRENT[kind][tp]
+    if cache is not None and x.shape[1] == 1:
+        return decode(p, x, cache, **kw)
+    return apply(p, x, chunk=cfg.la_chunk, state=cache, **kw)
 
 
 def _mlp(p: Params, h: torch.Tensor) -> torch.Tensor:

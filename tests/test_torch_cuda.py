@@ -1319,10 +1319,12 @@ def test_train_restart_on_card(cuda):
 # --- the sharded LM path (chip_smoke.py phase 23) ------------------------------
 
 
-@pytest.mark.parametrize("arch,layers", [("qwen2-7b", 2), ("jamba-v0.1-52b", None)])
+@pytest.mark.parametrize("arch,layers", [("qwen2-7b", 2), ("jamba-v0.1-52b", None),
+                                         ("rwkv6-3b", None)])
 def test_sharded_step_on_card_shards_matches_cpu_shards(cuda, arch, layers):
     """f32 with full-precision matmuls: one 2 x 4 sharded train step (jamba's
-    MoE layers expert-parallel) on card shards and on CPU shards from the
+    MoE layers expert-parallel, its mamba mixers and rwkv6's channel mix
+    tensor-parallel) on card shards and on CPU shards from the
     same weights: loss, grad_norm, every averaged gradient leaf within 1e-4
     of its max + 1e-6, every updated leaf within 1e-4 of its max where the
     gradient is determined (``chip_smoke.updated_within``)."""

@@ -32,7 +32,15 @@ by collective kind (``util.costs``), each derived here from the placement:
     (all-gather);
   * a granite decode step on data 2 × model 2, where attention is
     tensor-parallel too: no K/V byte moves, and every device computes
-    exactly its share of the step.
+    exactly its share of the step;
+  * the rwkv6 train step on data 2 × model 2, where its heads divide:
+    every projection of its time mix and channel mix in blocks.
+
+The recurrent layers' tensor parallelism moves besides each shard's heads'
+slices of the per-head vectors, of rwkv6's decay and (decode) of the state,
+which come whole to the unit (all-gather; their gradients back as a
+reduce-scatter), the state back, and rwkv6's receptance blocks
+(``tp_moves``).
 """
 import dataclasses
 import math
@@ -118,32 +126,58 @@ def tp_moves(cfg, mesh, params, shape, attn_tp=True):
     over the units of ``shape``'s batch, and (``layers``, ``back``) those of
     the layers' backward.  Per unit of Bl rows on M model shards, an
     activation [Bl, T, d_model] crossing to or from the M − 1 shards other
-    than the unit's own is A = (M − 1)·Bl·T·d_model·4 bytes:
+    than the unit's own is A = (M − 1)·Bl·T·d_model·4 bytes, and one of its
+    column blocks (d_model/M wide) A/M:
 
-      * all-reduce: each tensor-parallel attention and MLP sends its input
-        out and its partial outputs back (2·A each); the embedding lookup
-        sends its partials back (A) and the unembedding takes its input out
-        (A).  In the backward, each such layer sends the gradient of its
-        partial outputs out (A) and brings back one input gradient per
-        column weight of a shard (A each: ``wq``, ``wk``, ``wv``; ``w_in``
-        and ``w_gate``), each summed over the shards on its own;
+      * all-reduce: each tensor-parallel attention, MLP and mamba mixer sends
+        its input out and its partial outputs back (2·A each), rwkv6's time
+        mix its four lerps out and its partial outputs back (5·A), its
+        channel mix two lerps out and its partial outputs back (3·A); the
+        embedding lookup sends its partials back (A) and the unembedding
+        takes its input out (A).  In the backward, each such layer sends
+        the gradient of its partial outputs out (A) and brings back one
+        input gradient per column weight of a shard (A each: ``wq``,
+        ``wk``, ``wv``; ``w_in`` and ``w_gate``; the mixer's four; rwkv6's
+        four and two), each summed over the shards on its own;
       * all-gather: the token rows to the other shards ((M − 1)·Bl·T·4),
         the positions to each tensor-parallel attention ((M − 1)·T·8), each
-        vocabulary block's logits to the unit ((M − 1)·Bl·T·(V/M)·4)."""
+        vocabulary block's logits to the unit ((M − 1)·Bl·T·(V/M)·4); each
+        shard's heads' slices of the per-head vectors that come whole (the
+        mixer's ``dt_bias``, ``A_log``, ``D_skip``, H/M each; rwkv6's ``u``
+        and ``gn_scale``, d_model/M each), of the mixer's step projection
+        ((M − 1)·Bl·T·(H/M)·4), of rwkv6's decay (A/M) and, in a
+        decode step, of the recurrent state out and back (2 of
+        (M − 1)·Bl·(H/M)·K·V·4), and rwkv6's receptance blocks to the unit
+        (A/M); their gradients go back as a reduce-scatter (``back``)."""
     out = {where: {"all-reduce": 0, "all-gather": 0} for where in ("layers", "outer")}
-    out["back"] = {"all-reduce": 0}
+    out["back"] = {"all-reduce": 0, "reduce-scatter": 0}
     specs = dict(zip(leaf_paths(params), leaves(params)))
     tp = lambda path: path in specs and tp_of(cfg, path, specs[path], attn_tp) is not None  # noqa
+    mamba_H = cfg.mamba_expand * cfg.d_model // 64
     for rows, sub, dev in SHD._units(mesh, shape.global_batch):
         M, Bl = sub.shape["model"], rows.stop - rows.start
         T = 1 if shape.is_decode else shape.seq_len
         A = (M - 1) * Bl * T * cfg.d_model * 4
         for i in range(TF.num_layers(cfg)):
             attn, mlp = tp(("layers", i, "attn", "wq")), tp(("layers", i, "mlp", "w_in"))
+            mixer = tp(("layers", i, "mixer", "w_in"))
+            time_mix, channel_mix = tp(("layers", i, "wr")), tp(("layers", i, "ck"))
             gated = ("layers", i, "mlp", "w_gate") in specs
-            out["layers"]["all-reduce"] += 2 * A * (attn + mlp)
-            out["back"]["all-reduce"] += A * (attn * (1 + 3) + mlp * (1 + 1 + gated))
+            out["layers"]["all-reduce"] += (2 * A * (attn + mlp + mixer) + 5 * A * time_mix
+                                            + 3 * A * channel_mix)
+            out["back"]["all-reduce"] += A * (attn * (1 + 3) + mlp * (1 + 1 + gated)
+                                              + mixer * (1 + 4) + time_mix * (1 + 4)
+                                              + channel_mix * (1 + 2))
             out["layers"]["all-gather"] += (M - 1) * T * 8 * attn
+            H = mamba_H if mixer else cfg.num_heads
+            K, V = (cfg.mamba_d_state, cfg.mamba_expand * cfg.d_model // H) if mixer else (cfg.d_model // H,) * 2
+            sliced = ((M - 1) * (H // M) * (3 + Bl * T) * 4 * mixer
+                      + (M - 1) * (cfg.d_model // M) * 2 * 4 * time_mix
+                      + A // M * time_mix + A // M * channel_mix)
+            out["layers"]["all-gather"] += sliced
+            out["back"]["reduce-scatter"] += sliced if not shape.is_decode else 0
+            if shape.is_decode and (mixer or time_mix):
+                out["layers"]["all-gather"] += 2 * (M - 1) * Bl * (H // M) * K * V * 4
         emb = tp(("embedding",))
         unemb = tp(("unembedding",) if "unembedding" in params else ("embedding",))
         out["outer"]["all-reduce"] += A * (emb + unemb)
@@ -195,7 +229,7 @@ def expected_train_moves(cfg, mesh, params):
     return {
         "all-gather": layer_runs * (layers + tp["layers"]["all-gather"]) + rest
         + tp["outer"]["all-gather"],
-        "reduce-scatter": layers + rest + logits,
+        "reduce-scatter": layers + rest + logits + tp["back"]["reduce-scatter"],
         "all-to-all": (layer_runs + 1) * a2a,
         "all-reduce": layer_runs * tp["layers"]["all-reduce"] + tp["back"]["all-reduce"]
         + (layer_runs + 1) * ep_reduce + 2 * tp["outer"]["all-reduce"]
@@ -264,7 +298,8 @@ def test_remat_train_step_gathers_each_layer_again_in_the_backward(arch):
     with FakeTensorMode():
         args, _ = STEPS.input_specs(cfg, TRAIN, mesh)
         layers, rest = param_gathers(cfg, mesh, args["params"], TRAIN.global_batch)
-    assert got["reduce-scatter"] - logits_blocks(cfg, mesh, args["params"], TRAIN) \
+        sliced = tp_moves(cfg, mesh, args["params"], TRAIN)["back"]["reduce-scatter"]
+    assert got["reduce-scatter"] - logits_blocks(cfg, mesh, args["params"], TRAIN) - sliced \
         == layers + rest > 0
 
 
@@ -294,7 +329,13 @@ def test_jamba_ep_decode_step_on_eight_devices():
     # the expert pieces are there already: no expert byte
     a2a = units * n_moe * 3 * (D * E * 4 + Bl * D * 4)
     assert got["all-to-all"] == a2a
-    assert tp["layers"]["all-gather"] == 0 < tp["layers"]["all-reduce"]   # the dense MLPs
+    # the dense MLPs and the mamba mixers (4 heads over model 4): the heads'
+    # slices of the per-head vectors, of the step projection and of the
+    # state out, the state back
+    S_slice = Bl * 1 * cfg.mamba_d_state * (cfg.mamba_expand * D // 4) * 4
+    n_mamba = sum(TF.layer_spec(cfg, i)[0] == "mamba" for i in range(TF.num_layers(cfg)))
+    assert tp["layers"]["all-gather"] == units * n_mamba * 3 * ((3 + Bl) * 4 + 2 * S_slice)
+    assert tp["layers"]["all-reduce"] > 0
     assert got["all-gather"] == (layers + rest + kv_gather + logits + tp["layers"]["all-gather"]
                                  + tp["outer"]["all-gather"])
     assert got["collective-permute"] == kv_write
@@ -359,6 +400,20 @@ def test_tensor_parallel_train_step_on_four_devices():
     run, got = _train_moves_hold(cfg, mesh)
     flops = [run["counter"].flops.get(d, 0) for d in mesh.devices]
     assert min(flops) > 0 and len(set(flops)) == 1
+
+
+def test_rwkv6_runs_tensor_parallel_on_four_devices():
+    """rwkv6's train step on data 2 × model 2, where the smoke config's 2
+    heads divide (on 2 × 4 only its channel mix splits): the time mix and
+    the channel mix in blocks on their model shards, the bytes by kind as
+    derived (the per-head slices and the decay's columns out, the
+    receptance blocks back), and every device computes.  The norms, the
+    decay and the token shifts run on the unit's device, so the shares are
+    not equal, as granite's are."""
+    cfg, mesh = get_smoke_config("rwkv6-3b"), mesh22()
+    run, got = _train_moves_hold(cfg, mesh)
+    flops = [run["counter"].flops.get(d, 0) for d in mesh.devices]
+    assert min(flops) > 0 and got["all-reduce"] > 0
 
 
 def test_counter_puts_a_loose_constant_on_the_ops_device():

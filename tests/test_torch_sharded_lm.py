@@ -11,9 +11,10 @@ sharded train step's loss, gradients and updated parameters for qwen2-7b
 axis of 8, and ``rebuild_mesh_after_failure``.
 The port runs the same inputs, with the reference's weights carried by
 ``models.convert``, on ``make_host_mesh(8, "cpu", model=4)``, where the
-MLPs and the vocabulary run tensor-parallel; the train step of qwen2-7b
-(2 layers) also on ``make_host_mesh(4, "cpu", model=2)`` against the
-reference on a 2 × 2 host mesh, where attention does too.
+MLPs, the vocabulary, jamba's mamba mixers and rwkv6's channel mix run
+tensor-parallel; the train steps also on ``make_host_mesh(4, "cpu",
+model=2)`` against the reference on a 2 × 2 host mesh, where attention and
+rwkv6's time mix do too.
 The subprocess starts with the module's first test, and the tests that
 hold the port against it come last.
 
@@ -27,6 +28,7 @@ lr·sign(g), a sign the two packages' rounding does not fix, so the two
 updates may differ by up to 2·lr.
 """
 import dataclasses
+import functools
 import os
 import pickle
 import subprocess
@@ -56,11 +58,13 @@ from repro_torch.util.tree import leaf_paths, leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN_ARCHS = {"qwen2-7b": {"layers": 2}, "jamba-v0.1-52b": {}, "rwkv6-3b": {}}
-#: (arch, mesh) of each train-step case: on data 2 x model 4 the MLP and the
-#: vocabulary run tensor-parallel (the smoke configs' 2 kv heads do not divide
-#: model 4); on 2 x 2 attention too (qwen2, with its qkv biases)
+#: (arch, mesh) of each train-step case: on data 2 x model 4 the MLP, the
+#: vocabulary, jamba's mamba mixers (4 heads) and rwkv6's channel mix run
+#: tensor-parallel (the smoke configs' 2 kv heads and rwkv6's 2 heads do not
+#: divide model 4); on 2 x 2 attention (qwen2, with its qkv biases; jamba)
+#: and rwkv6's time mix too
 TRAIN_CASES = [("qwen2-7b", "2x4"), ("jamba-v0.1-52b", "2x4"), ("rwkv6-3b", "2x4"),
-               ("qwen2-7b", "2x2")]
+               ("qwen2-7b", "2x2"), ("jamba-v0.1-52b", "2x2"), ("rwkv6-3b", "2x2")]
 MESHES = {"2x4": (2, 4), "2x2": (2, 2)}
 B, T = 4, 32
 LR = 3e-4
@@ -454,30 +458,83 @@ def test_sharded_bf16_microbatched_step_hands_adamw_f32_gradients(monkeypatch):
         _close(g, w, 2 ** -6, 0, path)
 
 
-@pytest.mark.parametrize("mesh_name", list(MESHES))
-def test_tensor_parallel_bf16_gradients_round_as_one_device(mesh_name):
+_BF16_RUNS = {}
+
+
+def _bf16_case_grads(arch, cfg, params, tokens, labels, model, dtype):
+    """(loss, gradients whole on the CPU) of ``cfg``'s step on data 2 ×
+    ``model`` CPU shards, its weights at ``dtype``; kept for the module, so
+    that the cases share the data 2 × model 1 runs."""
+    key = (arch, model, dtype)
+    if key not in _BF16_RUNS:
+        c = dataclasses.replace(cfg, dtype="float32") if dtype == torch.float32 else cfg
+        p = params if dtype == torch.bfloat16 else tree_map(lambda t: t.float(), params)
+        mesh = make_host_mesh(2 * model, "cpu", model=model)
+        loss, _, g = STEPS.make_grad_fn(c, mesh=mesh)(SHD.shard_tree(p, mesh), tokens, labels)
+        _BF16_RUNS[key] = (float(loss), full_tree(g, "cpu"))
+    return _BF16_RUNS[key]
+
+
+@pytest.mark.parametrize("arch,mesh_name", [
+    *(pytest.param("granite-3-2b", m, id=m) for m in MESHES),
+    pytest.param("jamba-v0.1-52b", "2x2", id="jamba-2x2")])
+def test_tensor_parallel_bf16_gradients_round_as_one_device(arch, mesh_name):
     """granite (2 layers) in bf16 on data 2 × model 4 (MLP and vocabulary
     tensor-parallel) and 2 × 2 (attention too): the row blocks' partial
     outputs are summed unrounded and cast once, and each column weight's
     input gradient likewise, so a tensor-parallel layer rounds where one
     device's layer rounds.  The gradients then agree with the one-device
     bf16 step's to a few bf16 roundings of the data split (2^-8 each):
-    within 2^-6 of each leaf's largest entry, and the loss within 2^-8."""
-    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), layers=2, dtype="bfloat16")
+    within 2^-6 of each leaf's largest entry, and the loss within 2^-8.
+
+    jamba (8 layers: seven mamba mixers, one attention, four MoE layers) on
+    2 × 2, its mamba mixers (two heads a shard) and attention
+    tensor-parallel.  Its bf16 gradients lie far from its f32 ones in
+    every placement (up to ~25 · 2^-6 of a leaf's largest entry for the
+    mixers' per-head vectors, whose gradients sum many cancelling terms),
+    so a reordered f32 addition anywhere moves them by more than 2^-6; and
+    its MoE layers route each data shard by its own rows, as one device
+    does not.  So it is held against the same step with no model split
+    (data 2 × model 1: the same rows per unit, the same routing, every
+    layer whole): leaf by leaf, the tensor-parallel step's bf16 gradients
+    are no farther from its own f32 gradients than twice that step's are
+    from its own (a layer that rounded more, each partial rounded before
+    the sum, would stand out), and the loss within 2^-8."""
     rng = np.random.default_rng(5)
+    if arch == "granite-3-2b":
+        cfg = dataclasses.replace(get_smoke_config(arch), layers=2, dtype="bfloat16")
+    else:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
     labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32))
     params = TF.init_params(torch.Generator().manual_seed(0), cfg)
-    l1, _, g1 = STEPS.make_grad_fn(cfg)(tree_map(torch.clone, params), tokens, labels)
     mesh = mesh_of(mesh_name)
-    sp = SHD.shard_tree(params, mesh)
-    loss, _, grads = STEPS.make_grad_fn(cfg, mesh=mesh)(sp, tokens, labels)
-    assert any(SH.tp_dim(cfg, p[2:], s.spec, mesh) is not None
-               for p, s in zip(leaf_paths(sp), leaves(sp)) if p[0] == "layers")
-    assert abs(float(loss) - float(l1)) <= 2 ** -8 * float(l1)
-    for path, g, w in zip(leaf_paths(g1), leaves(full_tree(grads, "cpu")), leaves(g1)):
-        assert g.dtype == w.dtype == torch.bfloat16, path
-        _close(g.float(), w.float(), 2 ** -6, 0, path)
+
+    def grads(model, dtype=torch.bfloat16):
+        return _bf16_case_grads(arch, cfg, params, tokens, labels, model, dtype)
+
+    assert any(SH.tp_dim(cfg, p[2:], s, mesh) is not None
+               for p, s in zip(leaf_paths(params), leaves(SH.params_pspecs(params, mesh)))
+               if p[0] == "layers")
+    if arch == "granite-3-2b":
+        l1, _, g1 = STEPS.make_grad_fn(cfg)(tree_map(torch.clone, params), tokens, labels)
+        loss, g = grads(MESHES[mesh_name][1])
+        assert abs(loss - float(l1)) <= 2 ** -8 * float(l1)
+        for path, got, w in zip(leaf_paths(g1), leaves(g), leaves(g1)):
+            assert got.dtype == w.dtype == torch.bfloat16, path
+            _close(got.float(), w.float(), 2 ** -6, 0, path)
+        return
+    assert {p[3] for p, s in zip(leaf_paths(params), leaves(SH.params_pspecs(params, mesh)))
+            if p[0] == "layers" and SH.tp_dim(cfg, p[2:], s, mesh) is not None
+            and p[2] == "mixer"} == {"w_in", "w_gate", "w_B", "w_C", "w_out"}
+    (loss, g), (_, g32) = grads(MESHES[mesh_name][1]), grads(MESHES[mesh_name][1], torch.float32)
+    (l1, g1), (_, g1_32) = grads(1), grads(1, torch.float32)
+    assert abs(loss - l1) <= 2 ** -8 * l1
+    for path, a, a32, b, b32 in zip(leaf_paths(params), leaves(g), leaves(g32), leaves(g1),
+                                    leaves(g1_32)):
+        assert a.dtype == b.dtype, path
+        drift = float((a.float() - a32).abs().max())
+        assert drift <= 2 * float((b.float() - b32).abs().max()), (path, drift)
 
 
 def test_sharded_compressed_step_takes_top_k_over_the_reference_stacks():
@@ -697,23 +754,41 @@ def test_forward_on_a_mesh_serves_as_the_reference(ref):
 def test_sharded_train_step_matches_reference(ref, arch):
     """The 2 × 4 step with the reference's weights: pieces on their shards,
     the loss, every gradient leaf, grad_norm, lr and every updated
-    parameter; the MLP and the vocabulary run tensor-parallel (rwkv6: the
-    vocabulary only), attention gathered whole."""
+    parameter; the MLP, the vocabulary, jamba's mamba mixers (one head a
+    shard) and rwkv6's channel mix run tensor-parallel, attention and
+    rwkv6's time mix (2 heads over 4) gathered whole."""
     _train_step_against_reference(ref[(arch, "2x4")], arch, "2x4")
 
 
 @pytest.mark.parametrize("arch", [a for a, m in TRAIN_CASES if m == "2x2"])
 def test_tensor_parallel_train_step_matches_reference(ref, arch):
     """The data 2 × model 2 step, where the smoke configs' 4 heads and 2 kv
-    heads divide: attention, MLP and vocabulary all tensor-parallel (every
-    ruled leaf of a layer split over model), held to the same bars as on
-    2 × 4 against the reference on the same mesh shape."""
+    heads, jamba's 4 mamba heads and rwkv6's 2 heads divide: attention,
+    MLP, the mamba mixer, both halves of rwkv6 and the vocabulary all
+    tensor-parallel (every projection of a layer split over model, handed
+    to the layer as its model blocks), held to the same bars as on 2 × 4
+    against the reference on the same mesh shape."""
     cfg, mesh, sp = _train_step_against_reference(ref[(arch, "2x2")], arch, "2x2")
     tp = [p for p, s in zip(leaf_paths(sp), leaves(sp))
           if SH.tp_dim(cfg, p[2:] if p[0] == "layers" else p, s.spec, mesh) is not None]
-    assert {p[-2] for p in tp if p[0] == "layers"} == {"attn", "mlp"}
-    assert len(tp) == cfg.layers * (10 if cfg.qkv_bias else 7) + len(
-        [k for k in sp if k.endswith("embedding")])
+    mixers = {"attn": 7 if cfg.qkv_bias else 4, "mamba": 5, "rwkv": 8}
+    per_layer = [mixers[TF.layer_spec(cfg, i)[0]] + 3 * ("mlp" in lp)
+                 for i, lp in enumerate(sp["layers"])]
+    assert len(tp) == sum(per_layer) + len([k for k in sp if k.endswith("embedding")])
+    assert {p[2] if isinstance(p[2], str) and len(p) > 3 else "rwkv"
+            for p in tp if p[0] == "layers"} == {
+        "qwen2-7b": {"attn", "mlp"}, "jamba-v0.1-52b": {"attn", "mixer", "mlp"},
+        "rwkv6-3b": {"rwkv"}}[arch]
+    # and the gather hands them so: one block per model shard
+    gather = SHD.unit_gather(cfg, mesh.select(data=0), mesh.devices[0], SHD._ep(cfg, mesh, B))
+    for i, lp in enumerate(sp["layers"]):
+        got = gather(lp)
+        for path in leaf_paths(lp):
+            if "moe" in path:             # the experts come as their EP pieces
+                continue
+            leaf = functools.reduce(lambda n, k: n[k], path, got)
+            assert isinstance(leaf, tuple) == (("layers", i) + path in tp), path
+            assert not isinstance(leaf, tuple) or len(leaf) == mesh.shape["model"]
 
 
 def test_compress_grads_over_a_data_axis_matches_reference(ref):

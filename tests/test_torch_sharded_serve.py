@@ -14,12 +14,17 @@ cut by ``sharded.shard_tree``, the cache cut by ``sharding.cache_pspecs``
 and the batch as ``Sharded`` rows (``sharded.batch_rows``), through
 ``make_prefill_step`` and ``make_decode_step`` on
 ``make_host_mesh(8, "cpu", model=4)``; granite (B = 4 and 3, against the
-reference on a 2 × 2 host mesh) and jamba (B = 4, a prompt of 16) also on
-``make_host_mesh(4, "cpu", model=2)``.
-On 2 × 4 the MLPs and the vocabulary run tensor-parallel and attention
-(2 kv heads over model 4) is gathered whole; on 2 × 2, where the smoke
-configs' 4 heads and 2 kv heads divide, attention too, each model shard
-reading and writing its own piece of the K/V cache.
+reference on a 2 × 2 host mesh), rwkv6 (B = 4 and 3) and jamba (B = 4,
+a prompt of 16, and B = 3), against the reference's runs on 2 × 4, also
+on ``make_host_mesh(4, "cpu", model=2)``.
+On 2 × 4 the MLPs, the vocabulary, jamba's mamba mixers (4 heads) and
+rwkv6's channel mix run tensor-parallel and attention (2 kv heads over
+model 4) and rwkv6's time mix (2 heads) are gathered whole; on 2 × 2, where
+the smoke configs' 4 heads and 2 kv heads and rwkv6's 2 heads divide,
+attention and the time mix too, each model shard reading and writing its
+own piece of the K/V cache.  A recurrent state keeps ``cache_spec``'s cut
+(batch over data, whole over model): the unit gathers it whole and each
+model shard scans its heads' slice.
 
 Cases: B = 4 (one unit per data shard, two rows each) and B = 3 (no split:
 one unit, the whole batch on the first shard, as the reference does not
@@ -31,9 +36,11 @@ and over every axis at B = 3.
 Held: the logits and every cache piece after the steps against those of
 the same steps on whole tensors on one device (with the mesh for expert
 parallelism only, as in the reference; the cache cut by ``cache_spec``):
-bit for bit at f32 where no layer has a tensor-parallel leaf (rwkv6), so
-the pieces add no rounding of their own, and within 1e-5 + 1e-5·max|one
-device| where the partial sums change the order of additions; the
+within 1e-5 + 1e-5·max|one device|, since every model here has
+tensor-parallel layers on these meshes, whose partial sums change the
+order of additions (rwkv6 on 2 × 4 was held bit for bit while only its
+embeddings split; its channel mix, d_ff 256 over 4, now runs
+tensor-parallel there); the
 logits on the first shard's device and within 1e-5 + 1e-5·max|ref| of the
 reference's (the bar of
 ``test_torch_sharded_lm.py::test_forward_on_a_mesh_serves_as_the_reference``).
@@ -210,18 +217,12 @@ def _serve_on_pieces(r, arch, B, T, bar, mesh_name="2x4"):
     _close(logits, r["decode"], bar, "decode")
 
     # the same steps on whole tensors on one device, the mesh for EP only:
-    # bit for bit where no layer has a tensor-parallel leaf (the embedding
-    # lookup is exact, and so are rwkv6's logits by vocabulary block); else
-    # within the f32 bar, since the partial sums change the order of additions
-    tp = any(SH.tp_dim(cfg, p[2:], s.spec, mesh) is not None
-             for p, s in zip(leaf_paths(sp), leaves(sp)) if p[0] == "layers")
-    assert tp == (arch != "rwkv6-3b")
-
-    def held(ours, want, what):
-        if tp:
-            _close(ours, want, BAR, what)
-        else:
-            assert torch.equal(ours, want), what
+    # within the f32 bar, since the partial sums of the tensor-parallel
+    # layers (every model has some on these meshes) change the order of
+    # additions
+    assert any(SH.tp_dim(cfg, p[2:], s.spec, mesh) is not None
+               for p, s in zip(leaf_paths(sp), leaves(sp)) if p[0] == "layers")
+    held = lambda ours, want, what: _close(ours, want, BAR, what)    # noqa: E731
 
     whole = TF.init_cache(cfg, B, S)
     with torch.inference_mode():
@@ -327,9 +328,11 @@ def test_serve_steps_refuse_state_they_cannot_run():
 def test_expert_leaves_stay_in_their_model_pieces():
     """jamba, B = 4: each unit takes the expert leaves as their model
     pieces (gathered over data onto the model shards only), never whole;
-    so too the tensor-parallel leaves (on 2 x 4 the dense MLPs and the two
-    embeddings, by their column, row or vocabulary blocks), while attention
-    (2 kv heads over model 4) and the mamba mixers come whole."""
+    so too the tensor-parallel leaves (on 2 x 4 the dense MLPs, the mamba
+    mixers' projections, one head a shard, and the two embeddings, by their
+    column, row or vocabulary blocks), while attention (2 kv heads over
+    model 4) and the mixers' norms, step projections and per-head vectors come
+    whole."""
     cfg = get_smoke_config("jamba-v0.1-52b")
     mesh = mesh24()
     sp = SHD.shard_tree(TF.init_params(torch.Generator().manual_seed(0), cfg), mesh)
@@ -348,11 +351,14 @@ def test_expert_leaves_stay_in_their_model_pieces():
     experts = [p for p in pieces if "moe" in p]
     assert len(experts) == 2 * 3 * n_moe and all(p[-1] in SHD._EXPERT_LEAVES for p in experts)
     n_mlp = sum("mlp" in lp for lp in sp["layers"])
-    assert sorted(p for p in pieces if "moe" not in p) == sorted(
-        [p for p in leaf_paths(sp) if "mlp" in p or p in (("embedding",), ("unembedding",))] * 2)
-    assert n_mlp > 0 and not any(p is not None and ("mlp" in p or p in experts) for p in whole)
+    projections = ("w_in", "w_gate", "w_B", "w_C", "w_out")
+    tp = [p for p in leaf_paths(sp) if "mlp" in p or ("mixer" in p and p[-1] in projections)
+          or p in (("embedding",), ("unembedding",))]
+    assert sorted(p for p in pieces if "moe" not in p) == sorted(tp * 2)
+    assert n_mlp > 0 and not any(p is not None and (p in tp or p in experts) for p in whole)
     assert {p[-1] for p in whole if p is not None and "attn" in p} == {"wq", "wk", "wv", "wo"}
-    assert any(p is not None and "mixer" in p for p in whole)
+    assert {p[-1] for p in whole if p is not None and "mixer" in p} == {
+        "scale", "w_dt", "dt_bias", "A_log", "D_skip"}
 
 
 # --- against the reference's outputs: these run last, so that the reference's
@@ -376,6 +382,22 @@ def test_tensor_parallel_serve_steps_match_the_reference(ref, B):
     (one unit, the cache cut along S) the decode steps gather attention
     whole."""
     _serve_on_pieces(ref[("granite-3-2b", B, T, "2x2")], "granite-3-2b", B, T, BAR, "2x2")
+
+
+@pytest.mark.parametrize("arch,B", [("rwkv6-3b", 4), ("rwkv6-3b", 3), ("jamba-v0.1-52b", 3)])
+def test_recurrent_tensor_parallel_serve_steps_match_the_reference(ref, arch, B):
+    """rwkv6 and jamba on data 2 x model 2, against the reference's steps on
+    2 x 4 (its mesh runs equal its one-device run bit for bit): rwkv6's time
+    mix (one head a shard) and channel mix, jamba's mamba mixers (two heads
+    a shard) tensor-parallel, every recurrent state gathered whole onto its
+    unit's device and scanned by heads on the model shards.  At B = 3 one
+    unit runs the whole batch, its state whole on the first shard: the
+    recurrent layers need no counterpart of attention's fallback for a
+    cache cut along S (jamba's attention falls back; over 32 tokens at its
+    model's bar).  jamba at B = 4 is
+    ``test_jamba_tensor_parallel_and_expert_parallel_match_the_reference``."""
+    bar = JAMBA_32_BAR if arch == "jamba-v0.1-52b" else BAR
+    _serve_on_pieces(ref[(arch, B, T, "2x4")], arch, B, T, bar, "2x2")
 
 
 def test_jamba_on_pieces_matches_the_reference_over_a_short_prompt(ref):

@@ -180,11 +180,34 @@ def test_sanitize_and_batch_sharding(mesh):
     assert tuple(ours.spec) == tuple(RP(dp if len(dp) > 1 else dp[0]))
 
 
-#: the leaves tensor parallelism splits, by parent: the one dimension the
+#: the leaves tensor parallelism splits, by group: the one dimension the
 #: reference's rule puts ``model`` on is the output features of a column
-#: leaf (the last) and the input features of a row leaf (the first)
-TP_COLUMNS = {"attn": {"wq", "wk", "wv", "bq", "bk", "bv"}, "mlp": {"w_in", "w_gate"}}
-TP_ROWS = {"attn": {"wo"}, "mlp": {"w_out"}}
+#: leaf (the first set, its last dimension) and the input features of a row
+#: leaf (the second set, its first).  A group is named by the leaves' parent,
+#: but for rwkv6's two, whose leaves sit directly under the layer.
+TP_GROUPS = {"attn": ({"wq", "wk", "wv", "bq", "bk", "bv"}, {"wo"}),
+             "mlp": ({"w_in", "w_gate"}, {"w_out"}),
+             "mixer": ({"w_in", "w_gate", "w_B", "w_C"}, {"w_out"}),
+             "time_mix": ({"wr", "wk", "wv", "wg"}, {"wo"}),
+             "channel_mix": ({"ck", "cr"}, {"cv"})}
+
+
+def _group_of(cfg, name, parent):
+    if cfg.rwkv and not isinstance(parent, str):
+        return next((g for g in ("time_mix", "channel_mix") if name in set.union(*TP_GROUPS[g])),
+                    None)
+    return parent if parent in TP_GROUPS and name in set.union(*TP_GROUPS[parent]) else None
+
+
+def _whole_units(cfg, group, M):
+    """Whether ``group``'s blocks cut whole units over model M: attention's
+    heads and kv heads, the mamba mixer's heads (one per 64 of its
+    ``mamba_expand·d_model`` channels), rwkv6's heads, and for rwkv6's
+    channel mix both d_ff and d_model."""
+    return {"attn": cfg.num_heads % M == 0 and cfg.kv_heads % M == 0,
+            "mixer": (cfg.mamba_expand * cfg.d_model // 64) % M == 0,
+            "time_mix": cfg.num_heads % M == 0,
+            "channel_mix": cfg.d_ff % M == 0 and cfg.d_model % M == 0}.get(group, True)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -192,16 +215,17 @@ TP_ROWS = {"attn": {"wo"}, "mlp": {"w_out"}}
 def test_tp_dim_reads_the_reference_spec_of_each_leaf(arch, mesh):
     """At full size: a leaf runs tensor-parallel exactly where it is one of
     attention's projections (whose heads and kv heads both divide over
-    ``model``), the MLP's (a MoE layer's shared expert included) or an
-    embedding, and the reference's spec of it puts ``model`` on the
-    dimension that holds the heads, the ffn or the vocabulary; along that
-    dimension.  No leaf of the encoder–decoder, and none of a mamba or
-    rwkv mixer, a norm, the router or an expert tensor, runs so."""
+    ``model``), the MLP's (a MoE layer's shared expert included), the mamba
+    mixer's (whose heads divide), rwkv6's time mix's (whose heads divide)
+    or channel mix's (whose d_ff and d_model divide), or an embedding, and
+    the reference's spec of it puts ``model`` on the dimension that holds
+    the heads, the ffn or the vocabulary; along that dimension.  No leaf of
+    the encoder–decoder, and no norm, router, expert tensor, decay LoRA or
+    per-head vector, runs so."""
     ref, ours = _trees(arch, False)
     cfg = _configs(arch, False)[1]
     stub = _stub(mesh)
     M = stub.shape["model"]
-    heads_divide = cfg.num_heads % M == 0 and cfg.kv_heads % M == 0
     ref_specs = RSH.params_pspecs(ref, stub)
     seen = set()
     specs = leaves(SH.params_pspecs(ours, stub))
@@ -209,48 +233,129 @@ def test_tp_dim_reads_the_reference_spec_of_each_leaf(arch, mesh):
         ref_spec, stacked = _ref_leaf(cfg, ref_specs, path)
         ref_spec = tuple(ref_spec)[1:] if stacked and tuple(ref_spec) else tuple(ref_spec)
         name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+        group = _group_of(cfg, name, parent)
         if name in ("embedding", "unembedding") and parent is None:
             dim = 0
-        elif parent in TP_COLUMNS and name in TP_COLUMNS[parent]:
-            dim = leaf.dim() - 1
-        elif parent in TP_ROWS and name in TP_ROWS[parent]:
-            dim = 0
+        elif group is not None:
+            dim = leaf.dim() - 1 if name in TP_GROUPS[group][0] else 0
         else:
             dim = None
         if dim is not None and (cfg.is_encdec or not ref_spec or ref_spec[dim] != "model"
-                                or (parent == "attn" and not heads_divide)):
+                                or not _whole_units(cfg, group, M)):
             dim = None
         got = SH.tp_dim(cfg, path, spec, stub)
         assert got == dim, (path, got, dim, ref_spec)
         if got is not None:
-            seen.add(parent or "vocab")
+            seen.add(group or "vocab")
     if cfg.is_encdec:
         assert not seen
     elif arch == "granite-3-2b":
         # 32 heads and 8 kv heads divide over model 4, not over 16
         assert seen == ({"attn", "mlp", "vocab"} if M == 4 else {"mlp", "vocab"})
+    elif arch == "rwkv6-3b":
+        # 40 heads divide over model 4, not over 16; d_ff 8960 and d_model
+        # 2560 over both
+        assert seen == ({"time_mix", "channel_mix", "vocab"} if M == 4
+                        else {"channel_mix", "vocab"})
+    elif arch == "jamba-v0.1-52b":
+        # 128 mamba heads divide over 4 and 16, 8 kv heads only over 4
+        assert seen == ({"attn", "mixer", "mlp", "vocab"} if M == 4
+                        else {"mixer", "mlp", "vocab"})
+
+
+def _smoke_groups(arch, mesh, smoke=True):
+    """{path within the layer (or the top-level leaf's): tp_dim} of the leaves
+    of ``arch``'s layers and embeddings that run tensor-parallel on ``mesh``
+    (the same in every layer of a kind)."""
+    cfg = REG.get_smoke_config(arch) if smoke else REG.get_config(arch)
+    ours = _meta(TF.init_params, types.SimpleNamespace(device=torch.device("meta")), cfg)
+    specs = SH.params_pspecs(ours, mesh)
+    out = {}
+    for p, s in zip(leaf_paths(ours), leaves(specs)):
+        inner = p[2:] if p[0] == "layers" else p
+        dim = SH.tp_dim(cfg, p, s, mesh)
+        assert dim == SH.tp_dim(cfg, inner, s, mesh), p
+        if p[0] == "layers":                # a layer's leaf under its index in a group
+            assert dim == SH.tp_dim(cfg, (0,) + inner, s, mesh), p
+        if dim is not None:
+            assert out.setdefault(inner, dim) == dim, p
+    return out
 
 
 def test_tp_dim_on_the_smoke_meshes():
     """The smoke configs' 4 heads and 2 kv heads divide over model 2, not 4:
     granite on data 2 x model 2 runs attention, MLP and vocabulary
     tensor-parallel, on 2 x 4 the MLP and vocabulary only; a mesh without
-    a model split (the restart's model 1) runs nothing so; rwkv6's only
-    such leaves are its two embeddings."""
-    def groups(arch, mesh):
-        cfg = REG.get_smoke_config(arch)
-        ours = _meta(TF.init_params, types.SimpleNamespace(device=torch.device("meta")), cfg)
-        specs = SH.params_pspecs(ours, mesh)
-        return {(p[-2] if len(p) > 1 else p[-1]): SH.tp_dim(cfg, p, s, mesh)
-                for p, s in zip(leaf_paths(ours), leaves(specs))
-                if SH.tp_dim(cfg, p, s, mesh) is not None}
-    assert set(groups("granite-3-2b", MESH.make_host_mesh(4, "cpu", model=2))) == \
+    a model split (the restart's model 1) runs nothing so."""
+    groups = lambda arch, mesh: {p[-2] if len(p) > 1 else p[-1] for p in _smoke_groups(arch, mesh)}
+    assert groups("granite-3-2b", MESH.make_host_mesh(4, "cpu", model=2)) == \
         {"attn", "mlp", "embedding"}
-    assert set(groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=4))) == \
+    assert groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=4)) == \
         {"mlp", "embedding"}
-    assert groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=1)) == {}
-    assert groups("rwkv6-3b", MESH.make_host_mesh(8, "cpu", model=4)) == \
-        {"embedding": 0, "unembedding": 0}
+    assert _smoke_groups("granite-3-2b", MESH.make_host_mesh(8, "cpu", model=1)) == {}
+
+
+_TIME_MIX = {("wr",): 1, ("wk",): 1, ("wv",): 1, ("wg",): 1, ("wo",): 0}
+_CHANNEL_MIX = {("ck",): 1, ("cr",): 1, ("cv",): 0}
+_MIXER = {("mixer", n): 1 for n in ("w_in", "w_gate", "w_B", "w_C")} | {
+    ("mixer", "w_out"): 0}
+_ATTN = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1, ("attn", "wo"): 0}
+_MLP = {("mlp", "w_in"): 1, ("mlp", "w_gate"): 1, ("mlp", "w_out"): 0}
+_VOCAB = {("embedding",): 0, ("unembedding",): 0}
+
+
+@pytest.mark.parametrize("arch,mesh,smoke,want", [
+    # smoke rwkv6: 2 heads of 64, d_ff 256; smoke jamba: 4 mamba heads, 4
+    # heads and 2 kv heads
+    ("rwkv6-3b", "2x2", True, _TIME_MIX | _CHANNEL_MIX | _VOCAB),
+    ("rwkv6-3b", "2x4", True, _CHANNEL_MIX | _VOCAB),
+    ("jamba-v0.1-52b", "2x2", True, _ATTN | _MIXER | _MLP | _VOCAB),
+    ("jamba-v0.1-52b", "2x4", True, _MIXER | _MLP | _VOCAB),
+    # full width: rwkv6-3b's 40 heads do not divide over 16, its d_ff 8960
+    # and d_model 2560 do; jamba's 128 mamba heads do, its 8 kv heads not
+    ("rwkv6-3b", "16x16", False, _CHANNEL_MIX | _VOCAB),
+    ("jamba-v0.1-52b", "16x16", False, _MIXER | _MLP | _VOCAB),
+])
+def test_tp_dim_table_of_the_recurrent_mixers(arch, mesh, smoke, want):
+    """Which rwkv6 and jamba leaves run tensor-parallel, and along which
+    dimension, on data 2 x model 2, 2 x 4 and 16 x 16 (the same in every
+    layer of a kind, keyed by the path within the layer, by a layer's index
+    or by nothing).  Everything else stays whole: the decay LoRA, the mix
+    vectors, the per-head vectors and the norms."""
+    data, model = (int(n) for n in mesh.split("x"))
+    stub = types.SimpleNamespace(shape={"data": data, "model": model},
+                                 axis_names=("data", "model"))
+    assert _smoke_groups(arch, stub, smoke) == want
+
+
+def test_tp_dim_never_confuses_attention_with_rwkv6():
+    """``wk``, ``wv`` and ``wo`` name leaves of attention (under ``attn``)
+    and of rwkv6's time mix (directly under the layer): each keeps its own
+    group's rule and condition.  Under jamba a leaf of those names outside
+    ``attn`` is no group's; under rwkv6 one inside ``attn`` is attention's
+    (whose 2 kv heads divide over model 2, not 4), never the time mix's."""
+    rwkv, jamba = REG.get_smoke_config("rwkv6-3b"), REG.get_smoke_config("jamba-v0.1-52b")
+    m2, m4 = _stub_of(2, 2), _stub_of(2, 4)
+    col, row = SH.P("data", "model"), SH.P("model", "data")
+    for name, spec, dim in (("wk", col, 1), ("wv", col, 1), ("wo", row, 0)):
+        assert SH.tp_dim(jamba, ("attn", name), spec, m2) == dim
+        assert SH.tp_dim(jamba, ("attn", name), spec, m4) is None        # kv heads 2 over 4
+        assert SH.tp_dim(jamba, (name,), spec, m2) is None
+        assert SH.tp_dim(jamba, ("layers", 4, name), spec, m2) is None
+        assert SH.tp_dim(rwkv, (name,), spec, m2) == dim                  # 2 heads over 2
+        assert SH.tp_dim(rwkv, ("layers", 1, name), spec, m4) is None     # 2 heads over 4
+        assert SH.tp_dim(rwkv, ("attn", name), spec, m2) == dim
+        assert SH.tp_dim(rwkv, ("mixer", name), spec, m2) is None
+    # the channel mix runs on its own condition (d_ff 256 and d_model 128
+    # over 4), the time mix's names never take it
+    assert SH.tp_dim(rwkv, ("ck",), col, m4) == 1 and SH.tp_dim(rwkv, ("cv",), row, m4) == 0
+    assert SH.tp_dim(rwkv, ("mlp", "w_in"), col, m4) == 1
+    assert SH.tp_dim(rwkv, ("w_in",), col, m4) is None
+
+
+def _stub_of(data, model):
+    return types.SimpleNamespace(shape={"data": data, "model": model},
+                                 axis_names=("data", "model"))
 
 
 def _dropped(cfg, mesh):
