@@ -146,26 +146,41 @@ Phases (any failure exits non-zero and prints no result line):
     weights drawn on the CPU from one seed and numpy-seeded inputs, on the
     CPU and on the card at f32 (TF32 off, asserted): forward logits
     (``make_prefill_step``; encode + decode for seamless, ``vlm_prepend``
-    for internvl2) and 8 cached decode steps within 1e-4 + 1e-4 |cpu|;
+    for internvl2) and 8 cached decode steps within 1e-4 + 1e-4 |cpu|, and
+    the same for four of them at their published counts (kimi-k2's 384
+    experts at top-8, llama4-scout's 16 at top-1, internvl2's 256 patches,
+    seamless's 1,024 frames);
     (b) full width, random bf16 weights from a seeded generator on the
-    card: granite-3-2b and rwkv6-3b at full depth and jamba-v0.1-52b cut to
-    one 8-layer period (7 mamba, 1 attention, 4 MoE layers of 16 experts), a
-    prefill of B=4 x P=1536 into the cache, then G=32 greedy steps through
+    card, depth cut only where one card forces it: granite-3-2b, rwkv6-3b
+    and seamless-m4t-medium (12 + 12 layers, 1,024 numpy-seeded frames) at
+    full depth, jamba-v0.1-52b cut to one 8-layer period (7 mamba, 1
+    attention, 4 MoE layers of 16 experts), kimi-k2-1t-a32b to 1 of 61
+    layers (384 experts, top-8, shared expert), llama4-scout-17b-a16e to 4
+    of 48 (16 experts, top-1, shared expert) and internvl2-76b to 8 of 80
+    (256 numpy-seeded patch embeddings ahead of the prompt, counted by the
+    cache and every decode index); a prefill of B=4 x P=1536 into the cache
+    (the encoder run once first), then G=32 greedy steps through
     ``make_decode_step``, and one full forward over prompt + generated
     tokens: at bf16 their distance, the forward's own distance from f32 and
     the argmax agreement are logged (bf16 rounding over the full depth moves
-    the logits as far); then the same weights in f32 (TF32 off) generate
-    from the same prompts, and every f32 step's logits must lie within
-    2e-3 + 2e-3 |logit| (the reference's own tolerance for this identity)
-    of the f32 full forward's, whose argmax must be the generated token
-    wherever its top-2 margin exceeds twice that, at one position at least;
-    where that forward drops MoE routings over capacity (logged) the check
-    does not stand and the script says so; a second bf16 run from the seed
-    gives the same tokens;
+    the logits as far), the logits must be finite; then the same weights in
+    f32 (TF32 off) generate from the same prompts, and every f32 step's
+    logits must lie within 2e-3 + 2e-3 |logit| (the reference's own
+    tolerance for this identity) of the f32 full forward's, whose argmax
+    must be the generated token wherever its top-2 margin exceeds twice
+    that, at one position at least; where the prefill or that forward drops
+    MoE routings over capacity (logged) the check runs again with
+    ``moe_apply``'s capacity factor set so that nothing drops, and holds
+    there; a config whose f32 weights would pass 3/4 of the card (kimi-k2)
+    has no f32 check and says so; a second bf16 run from the seed gives the
+    same tokens;
     (c) prefill ms, decode ms/step, tokens/s and peak allocated memory of
     the second run, each beside its least time (decode: the bf16 weight
-    bytes a step reads, routed experts only, over the memory rate; prefill:
-    2 x active parameters x B x P over the dense bf16 rate); (d)
+    bytes a step reads, routed experts only, over the memory rate, and for
+    MoE every expert's too, which a step reads; prefill: 2 x parameters x
+    the rows each multiplies over the dense bf16 rate), the peak of the
+    whole row, the encoder-decoder's cross-attention K/V share of a step;
+    (d)
     ``python -m repro_torch.launch.serve --arch granite-3-2b`` (full config)
     on the card;
 22. (run after 21, before the result lines of 18; phase 21's models freed
@@ -199,7 +214,12 @@ Phases (any failure exits non-zero and prints no result line):
     through a checkpoint bit for bit; (f) for (b) and (c) the median step
     ms after the first, tokens/s, peak allocated memory and the least step
     time (8 N B S flops over the dense bf16 rate, plus 22 bytes a parameter
-    of AdamW over the memory rate); (g) ``python -m
+    of AdamW over the memory rate); (g) seamless-m4t-medium at full width
+    and depth, bf16: 3 ``make_train_step`` steps at B=4 x S=1536 against
+    1,024 frames a sequence, losses finite and the last below the first,
+    step ms, tokens/s, peak and least time as (f); then in f32 (TF32 off)
+    at B=1 x S=64 with all 1,024 frames, loss, grad_norm and every gradient
+    leaf card against CPU as in (a); (h) ``python -m
     repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 2 --seq
     512`` (full config) on the card;
 23. (run after 22, before the result lines of 18) the sharded LM path,
@@ -2331,16 +2351,27 @@ def distributed_phase(A_small, eco: dict, bmw: dict) -> dict:
     return out
 
 
-#: Phase 21: the full-width configs (arch, layers kept or None for all), the
-#: prompt batch and length (past the 1,024-row kv chunk and no multiple of
-#: it; a multiple of la_chunk, as the chunked recurrence needs), the decode
-#: steps, the f32 tolerance of the CPU-versus-card parity and that of the
-#: f32 decode-versus-forward check at full width.
-LM_FULL = (("granite-3-2b", None), ("rwkv6-3b", None), ("jamba-v0.1-52b", 8))
+#: Phase 21: the full-width configs (arch, layers kept or None for all:
+#: depth cut only as far as one 80 GB card forces), the prompt batch and
+#: length (past the 1,024-row kv chunk and no multiple of it; a multiple of
+#: la_chunk, as the chunked recurrence needs), the decode steps, the f32
+#: tolerance of the CPU-versus-card parity and that of the f32
+#: decode-versus-forward check at full width; the share of the card's
+#: memory a config's f32 weights may take for its f32 check; the published
+#: counts phase 21(a) gives back to four smoke configs (narrow width, as
+#: tests/test_torch_published_counts.py).
+LM_FULL = (("granite-3-2b", None), ("rwkv6-3b", None), ("jamba-v0.1-52b", 8),
+           ("kimi-k2-1t-a32b", 1), ("llama4-scout-17b-a16e", 4), ("internvl2-76b", 8),
+           ("seamless-m4t-medium", None))
 LM_B, LM_P, LM_G = 4, 1536, 32
 LM_F32_ATOL = LM_F32_RTOL = 1e-4
 LM_DECODE_TOL = 2e-3     # f32 decode vs full forward, as tests/test_models.py
 LM_PROFILED = 4          # decode steps of run 1 traced by torch.profiler
+LM_F32_FIT = 0.75
+LM_PUBLISHED = (("kimi-k2-1t-a32b", dict(num_experts=384, top_k=8)),
+                ("llama4-scout-17b-a16e", dict(num_experts=16, top_k=1)),
+                ("internvl2-76b", dict(frontend_seq=256)),
+                ("seamless-m4t-medium", dict(frontend_seq=1024)))
 
 
 def tree_leaves(tree):
@@ -2411,15 +2442,20 @@ def lm_smoke_pair(cfg, dev, seed: int):
 
 
 def lm_parity() -> float:
-    """Phase 21(a): the ten smoke configs on the CPU and on the card, at f32."""
+    """Phase 21(a): the ten smoke configs on the CPU and on the card, at f32;
+    then four of them at their published expert, top-k, patch and frame
+    counts (``LM_PUBLISHED``; kimi-k2's f32 hold, which its full-width row
+    cannot have)."""
     import torch
 
     from repro_torch.configs.registry import all_archs, get_smoke_config
 
     t0 = time.perf_counter()
     worst = 0.0
-    for arch in all_archs():
-        cfg = get_smoke_config(arch)
+    cases = [(arch, get_smoke_config(arch)) for arch in all_archs()] + [
+        (f"{arch} {' '.join(f'{k}={v}' for k, v in counts.items())}",
+         dataclasses.replace(get_smoke_config(arch), **counts)) for arch, counts in LM_PUBLISHED]
+    for arch, cfg in cases:
         with torch.inference_mode():
             cpu = lm_smoke_pair(cfg, torch.device("cpu"), 0)
             card = lm_smoke_pair(cfg, torch.device("cuda"), 0)
@@ -2435,8 +2471,9 @@ def lm_parity() -> float:
         worst = max(worst, *errs)
         log(f"[lm/parity] {arch}: forward {tuple(card[0].shape)} max |card - cpu| "
             f"{errs[0]:.3e}; 8 cached decode steps {errs[1]:.3e}")
-    log(f"[lm/parity] ten smoke configs within {LM_F32_ATOL} + {LM_F32_RTOL}|cpu| at f32 "
-        f"(TF32 off), worst {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[lm/parity] ten smoke configs and four at their published counts within "
+        f"{LM_F32_ATOL} + {LM_F32_RTOL}|cpu| at f32 (TF32 off), worst {worst:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -2465,43 +2502,109 @@ class DispatchLog:
         return sum(int(v) for v in getattr(self, which))
 
 
+class NoDrops:
+    """While on, every ``moe.moe_apply`` runs at the capacity factor that
+    makes its capacity the N tokens of its call (its own
+    ``capacity_factor`` argument; no default of the package changes): a
+    token routes to an expert at most once, so nothing is dropped."""
+
+    def __init__(self, moe_module):
+        self.moe, self.apply = moe_module, moe_module.moe_apply
+
+    def __enter__(self):
+        def apply(params, x, *, num_experts, top_k, **kw):
+            # int(N top_k / E x cf) = N; the 1e-6 keeps the product's
+            # rounding from landing at N - 1
+            kw["capacity_factor"] = num_experts / top_k * (1 + 1e-6)
+            return self.apply(params, x, num_experts=num_experts, top_k=top_k, **kw)
+        self.moe.moe_apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.apply
+
+
+def lm_model(cfg):
+    """The module whose ``init_params`` and ``init_cache`` build ``cfg``."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TF
+
+    return ED if cfg.is_encdec else TF
+
+
+def lm_prefix(cfg) -> int:
+    """Rows ahead of the prompt in the decoder's sequence and cache: the
+    ``vit`` frontend's patches, else none."""
+    return cfg.frontend_seq if cfg.frontend == "vit" else 0
+
+
+def lm_moe_layers(cfg) -> int:
+    from repro_torch.models import transformer as TF
+
+    if cfg.is_encdec:
+        return 0
+    return sum(m for _, m in (TF.layer_spec(cfg, i) for i in range(TF.num_layers(cfg))))
+
+
 def lm_seeded(cfg, seed: int, B: int, P: int, device="cuda"):
     """Weights in ``cfg.dtype`` and [B, P] prompts, drawn on ``device`` from
     one seeded generator."""
     import torch
 
-    from repro_torch.models import transformer as TF
-
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = TF.init_params(gen, cfg)
+    params = lm_model(cfg).init_params(gen, cfg)
     return params, torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
 
 
-def lm_generate(cfg, params, prompts, G: int, profile_last: int = 0):
+def lm_frontend(cfg, seed: int, B: int, device="cuda"):
+    """The frontend stub's input, numpy-seeded float32 [B, frontend_seq,
+    d_model]: patch embeddings (``vit``) or encoder frames (encoder–decoder);
+    None for a text-only decoder."""
+    import torch
+
+    if not (cfg.is_encdec or cfg.frontend == "vit"):
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((B, cfg.frontend_seq, cfg.d_model))
+                            .astype(np.float32)).to(device)
+
+
+def lm_generate(cfg, params, prompts, G: int, profile_last: int = 0, extra=None):
     """A prefill of ``prompts`` into the cache, then ``G`` greedy steps
-    through ``make_decode_step``.  Returns every step's logits [B, G+1, V]
-    (the prefill's last position first), the tokens [B, G+1], the host
-    times (s) of the prefill and of the decode steps, and, where
-    ``profile_last`` > 0, the device work of each of the last
-    ``profile_last`` steps from ``torch.profiler`` (kernels launched, their
-    summed device ms)."""
+    through ``make_decode_step``.  ``extra`` is the frontend's input: patch
+    embeddings go ahead of the prompt (the prefill runs
+    ``make_prefill_step``'s forward, and the cache rows and every decode
+    index count the patches); encoder frames are encoded once, inside the
+    prefill's time, and every decoder call attends to that output.  Returns
+    every step's logits [B, G+1, V] (the prefill's last position first), the
+    tokens [B, G+1], the host times (s) of the prefill and of the decode
+    steps, and, where ``profile_last`` > 0, the device work of each of the
+    last ``profile_last`` steps from ``torch.profiler`` (kernels launched,
+    their summed device ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps as STEPS
-    from repro_torch.models import transformer as TF
+    from repro_torch.models import encdec as ED
 
     B, P = prompts.shape
-    cache = TF.init_cache(cfg, B, P + G, device=prompts.device)
+    off = lm_prefix(cfg)
+    cache = lm_model(cfg).init_cache(cfg, B, off + P + G, device=prompts.device)
     step = STEPS.make_decode_step(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache, _ = TF.forward(params, prompts, cfg, cache=cache, cache_index=0)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = ED.encode(params, extra, cfg)
+        logits, cache = ED.decode(params, prompts, enc_out, cfg, cache=cache, cache_index=0)
+    else:
+        logits, cache, _ = STEPS._decoder_forward(cfg)(params, prompts, extra, cache=cache,
+                                                       cache_index=0)
     tok = logits[:, -1:].argmax(-1)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    outs, toks = [logits[:, -1]], [tok]
+    outs, toks = [logits[:, -1].clone()], [tok]
     del logits
     prof = None
     t0 = time.perf_counter()
@@ -2509,7 +2612,7 @@ def lm_generate(cfg, params, prompts, G: int, profile_last: int = 0):
         if profile_last and i == G - profile_last:
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
-        logits, cache = step(params, cache, tok, P + i)
+        logits, cache = step(params, cache, tok, off + P + i, enc_out)
         tok = logits[:, -1:].argmax(-1)
         outs.append(logits[:, 0])
         toks.append(tok)
@@ -2524,33 +2627,53 @@ def lm_generate(cfg, params, prompts, G: int, profile_last: int = 0):
     return torch.stack(outs, 1), torch.cat(toks, 1), t_prefill, t_decode, work
 
 
-def lm_check_f32(cfg, params, prompts, G: int, tag: str) -> dict:
+def lm_full_logits(cfg, params, seq, P: int, extra=None):
+    """One full forward (``make_prefill_step``) over ``seq``, prompt +
+    generated tokens, after the patches or against the encoder's output of
+    ``extra``: the logits of the prompt's last position and of each later
+    one, [B, G + 1, vocab] (padded rows cut), copied out of the whole
+    [B, T, padded vocab] tensor so that it is freed."""
+    from repro_torch.launch import steps as STEPS
+
+    logits = STEPS.make_prefill_step(cfg)(params, seq, extra)
+    return logits[:, lm_prefix(cfg) + P - 1:, :cfg.vocab].clone()
+
+
+def lm_check_f32(cfg, params, prompts, G: int, tag: str, extra=None,
+                 no_drop: bool = False) -> dict:
     """The decode-versus-forward check at float32 (TF32 off): a prefill and
     ``G`` greedy steps from ``params`` (float32), then one full forward over
     prompt + generated tokens.  Every step's logits lie within
     ``LM_DECODE_TOL`` (atol and rtol, the reference's own tolerance for this
     identity) of the full forward's at its position, and the full forward's
     argmax is the generated token wherever its top-2 margin exceeds twice
-    that tolerance, which must hold at one position at least.  Where the full
-    forward drops MoE routings over capacity that the steps kept, the
-    identity does not hold (as in the reference) and nothing is asserted."""
+    that tolerance, which must hold at one position at least.  Where the
+    prefill or the full forward drops MoE routings over capacity that the
+    steps keep, the identity does not hold (as in the reference) and
+    nothing is asserted; with ``no_drop`` both run under :class:`NoDrops`,
+    must drop nothing, and the identity is held."""
+    import contextlib
+
     import torch
 
     from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as TF
 
     V, P = cfg.vocab, prompts.shape[1]
-    with torch.inference_mode():
-        dec, toks, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, G)
+    mlayers = lm_moe_layers(cfg)
+    with torch.inference_mode(), (NoDrops(MOE) if no_drop else contextlib.nullcontext()):
+        with DispatchLog(MOE) as moe_gen:
+            dec, toks, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, G, extra=extra)
         seq = torch.cat([prompts, toks[:, :-1]], dim=1)
         with DispatchLog(MOE) as moe_full:
-            full = TF.forward(params, seq, cfg)[0][:, P - 1:, :V]
+            full = lm_full_logits(cfg, params, seq, P, extra)
     dec = dec[..., :V]
     if dec.dtype != torch.float32 or full.dtype != torch.float32:
         raise AssertionError(f"{tag} the f32 check ran at {dec.dtype}, {full.dtype}")
     if int(toks.max()) >= V:
         raise AssertionError(f"{tag} f32 greedy decode picked a padded vocabulary row")
     drops = moe_full.total("dropped")
+    pre_drops = sum(int(v) for v in moe_gen.dropped[:mlayers])
+    step_drops = sum(int(v) for v in moe_gen.dropped[mlayers:])
     gap = (full - dec).abs()
     tol = LM_DECODE_TOL + LM_DECODE_TOL * full.abs()
     top2 = full.topk(2, dim=-1).values
@@ -2559,19 +2682,25 @@ def lm_check_f32(cfg, params, prompts, G: int, tag: str) -> dict:
     out = {"gap": float(gap.max()), "gap_last": float(gap[:, -1].max()),
            "over_tol": float((gap / tol).max()), "checked": int(checked.sum()),
            "agree": int((agree & checked).sum()), "positions": checked.numel(),
-           "drops": drops, "max_logit": float(full.abs().max()),
+           "drops": drops, "prefill_drops": pre_drops, "step_drops": step_drops,
+           "max_logit": float(full.abs().max()),
            "prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3 / G}
-    log(f"{tag} f32 check: decode vs full forward over {seq.shape[1]} tokens, max |gap| "
+    what = "f32 check" + (" with nothing dropped (capacity = N tokens)" if no_drop else "")
+    log(f"{tag} {what}: decode vs full forward over {seq.shape[1]} tokens, max |gap| "
         f"{out['gap']:.3e} (last position {out['gap_last']:.3e}), {out['over_tol']:.3f} of "
         f"{LM_DECODE_TOL} + {LM_DECODE_TOL}|logit| at worst; max |logit| {out['max_logit']:.3f}; "
         f"argmax = generated token at {out['agree']} of {out['checked']} positions whose top-2 "
         f"margin exceeds twice that ({out['positions']} generated positions); MoE drops in the "
-        f"full forward {drops}; f32 prefill {out['prefill_ms']:.2f} ms, decode "
+        f"full forward {drops}, in the cached prefill {pre_drops}, in the decode steps "
+        f"{step_drops}; f32 prefill {out['prefill_ms']:.2f} ms, decode "
         f"{out['decode_ms']:.3f} ms/step")
-    if drops:
-        log(f"{tag} the f32 check does not stand: the full forward dropped {drops} routings "
-            f"over capacity that the decode steps kept (capacity is set by the B*T tokens of "
-            f"one call)")
+    if no_drop and (drops or pre_drops or step_drops):
+        raise AssertionError(f"{tag} {drops + pre_drops + step_drops} routings dropped at "
+                             f"capacity = N")
+    if drops or pre_drops:
+        log(f"{tag} the f32 check does not stand here: the full forward dropped {drops} and the "
+            f"cached prefill {pre_drops} routings over capacity that the decode steps kept "
+            f"(capacity is set by the B*T tokens of one call)")
         return out
     if not bool((gap <= tol).all()):
         raise AssertionError(f"{tag} f32 decode differs from the full forward by "
@@ -2588,14 +2717,17 @@ def lm_check_f32(cfg, params, prompts, G: int, tag: str) -> dict:
 def weight_bytes_per_step(params, cfg, routed_per_step: float) -> float:
     """Bytes of weights one decode step must read: every tensor once (the
     input embedding only where it is also the unembedding: an untied one is
-    read B rows at a time), and of each MoE layer's experts only the
-    ``routed_per_step`` (mean over the steps, per MoE layer) that the step's
-    tokens were routed to."""
+    read B rows at a time; not the encoder, which runs once before the
+    steps), and of each MoE layer's experts only the ``routed_per_step``
+    (mean over the steps, per MoE layer) that the step's tokens were routed
+    to."""
     nbytes = lambda t: t.numel() * t.element_size()
     total = sum(nbytes(t) for t in tree_leaves(params))
     if "unembedding" in params:
         total -= nbytes(params["embedding"])
-    for lp in params["layers"]:
+    if "enc_layers" in params:
+        total -= sum(nbytes(t) for t in tree_leaves([params["enc_layers"], params["enc_norm"]]))
+    for lp in params.get("layers", ()):
         if "moe" in lp:
             E = lp["moe"]["w_in"].shape[0]
             expert = sum(nbytes(lp["moe"][k]) for k in ("w_in", "w_gate", "w_out"))
@@ -2603,13 +2735,38 @@ def weight_bytes_per_step(params, cfg, routed_per_step: float) -> float:
     return total
 
 
+def encdec_split(params):
+    """(parameters that multiply the encoder's rows, the rest) of an
+    encoder–decoder: the encoder and the cross-attention's K/V weights
+    against the decoder's weights and the (tied) embedding."""
+    count = lambda tree: sum(t.numel() for t in tree_leaves(tree))
+    enc = count([params["enc_layers"], params["enc_norm"]]) + sum(
+        lp["xattn"][k].numel() for lp in params["dec_layers"] for k in ("wk", "wv"))
+    return enc, count(params) - enc
+
+
+def prefill_flops(cfg, params, B: int, P: int) -> float:
+    """2 x parameters x the rows each multiplies in a prefill: the active
+    parameters over the B (patches + P) decoder rows; for the encoder–decoder
+    :func:`encdec_split`'s over the B x frames rows and B x P rows."""
+    if not cfg.is_encdec:
+        return 2 * cfg.active_param_count() * B * (lm_prefix(cfg) + P)
+    enc, rest = encdec_split(params)
+    return 2 * (enc * B * cfg.frontend_seq + rest * B * P)
+
+
 def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
     """Phase 21(b)+(c): greedy generation at full width, bf16 and then f32
     from the same weights, each checked against one full forward; repeated
-    from its seed at bf16, timed."""
+    from its seed at bf16, timed.  A config whose f32 weights would take
+    more than ``LM_F32_FIT`` of the card's memory (kimi-k2) has no f32
+    check: its bars are the repeated tokens, no padded-vocabulary pick and
+    finite logits.  Where the f32 check's forwards drop MoE routings, it
+    runs again with nothing dropped (:class:`NoDrops`) and holds there."""
     import torch
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec as ED
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as TF
 
@@ -2618,13 +2775,23 @@ def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
         cfg = dataclasses.replace(cfg, layers=layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     tag = f"[lm/{arch}]"
-    cut = f"{cfg.layers} of {get_config(arch).layers} layers"
-    kinds = [TF.layer_spec(cfg, i) for i in range(TF.num_layers(cfg))]
-    log(f"{tag} {cut} ({sum(k == 'attn' for k, _ in kinds)} attention, "
-        f"{sum(k == 'mamba' for k, _ in kinds)} mamba, {sum(k == 'rwkv' for k, _ in kinds)} "
-        f"rwkv, {sum(m for _, m in kinds)} MoE), d_model {cfg.d_model}, vocab {cfg.vocab} "
-        f"(padded {cfg.padded_vocab}), {cfg.dtype}; B={LM_B} P={LM_P} G={LM_G}")
+    mlayers = lm_moe_layers(cfg)
+    if cfg.is_encdec:
+        what = (f"{cfg.encoder_layers} encoder and {cfg.layers} decoder layers (all), "
+                f"{cfg.frontend_seq} encoder frames")
+    else:
+        kinds = [TF.layer_spec(cfg, i)[0] for i in range(TF.num_layers(cfg))]
+        what = (f"{cfg.layers} of {get_config(arch).layers} layers ({kinds.count('attn')} "
+                f"attention, {kinds.count('mamba')} mamba, {kinds.count('rwkv')} rwkv, {mlayers} "
+                f"MoE" + (f" of {cfg.num_experts} experts, top-{cfg.top_k}"
+                          + (", shared expert" if cfg.shared_expert else "") if mlayers else "")
+                + ")" + (f", {lm_prefix(cfg)} patches ahead of the prompt" if lm_prefix(cfg)
+                         else ""))
+    log(f"{tag} {what}, d_model {cfg.d_model}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
+        f"{cfg.dtype}; B={LM_B} P={LM_P} G={LM_G}")
     V = cfg.vocab
+    extra = lm_frontend(cfg, 0, LM_B)
+    torch.cuda.reset_peak_memory_stats()
 
     # run 1: generate at bf16, then one full forward over prompt + generated
     # tokens; its distance from the decode steps is logged, not held (bf16
@@ -2632,20 +2799,21 @@ def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
     t0 = time.perf_counter()
     with torch.inference_mode(), DispatchLog(MOE) as moe_dec:
         params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
-        dec, toks, t_pre1, t_dec1, work = lm_generate(cfg, params, prompts, LM_G, LM_PROFILED)
+        dec, toks, t_pre1, t_dec1, work = lm_generate(cfg, params, prompts, LM_G, LM_PROFILED,
+                                                      extra)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    mlayers = sum(m for _, m in kinds)
     # experts routed to per MoE layer and step (the prefill's dispatches,
     # one per MoE layer, come first)
     step_routed = [int(v) for v in moe_dec.routed[mlayers:]]
     routed_steps = sum(step_routed) / len(step_routed) if step_routed else 0.0
     seq = torch.cat([prompts, toks[:, :-1]], dim=1)                   # P + G tokens
     with torch.inference_mode(), DispatchLog(MOE) as moe_full:
-        full, _, _ = TF.forward(params, seq, cfg)
-    full = full[:, LM_P - 1:, :V].float()                             # G + 1 positions
+        full = lm_full_logits(cfg, params, seq, LM_P, extra).float()  # G + 1 positions
     dec = dec[..., :V].float()
     if int(toks.max()) >= V:
         raise AssertionError(f"{tag} greedy decode picked a padded vocabulary row")
+    if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"{tag} non-finite bf16 logits")
     gap = (full - dec).abs().amax(-1)                                 # [B, G + 1]
     agree = int((full.argmax(-1) == toks).sum())
     log(f"{tag} run 1 (bf16): {n_params / 1e9:.3f} G parameters; decode vs full forward over "
@@ -2657,56 +2825,93 @@ def lm_full_width(arch: str, layers, mem_rate: float, bf16_rate: float) -> dict:
            f"dispatches); in the cached prefill {sum(int(v) for v in moe_dec.dropped[:mlayers])}, "
            f"in the decode steps {sum(int(v) for v in moe_dec.dropped[mlayers:])}"
            if mlayers else ""))
-    # the same weights in f32: the full forward's own bf16 rounding (logged),
-    # then the check that holds, the f32 decode against the f32 forward
-    upcast_(params)
-    with torch.inference_mode():
-        full32 = TF.forward(params, seq, cfg32)[0][:, LM_P - 1:, :V]
-    bf16_f32 = float((full - full32).abs().max())
-    log(f"{tag} bf16 rounding: max |full forward bf16 - f32| on the same weights and tokens "
-        f"{bf16_f32:.4f}")
     one_device = {"tokens": toks.cpu(), "logits": dec.cpu(), "bf16_gap": float(gap.max()),
-                  "bf16_f32": bf16_f32}
-    del full, full32, dec
-    check = lm_check_f32(cfg32, params, prompts, LM_G, tag)
+                  "bf16_f32": None}
+    total = torch.cuda.get_device_properties(0).total_memory
+    check = None
+    if 4 * n_params <= LM_F32_FIT * total:
+        # the same weights in f32: the full forward's own bf16 rounding
+        # (logged), then the check that holds, the f32 decode against the
+        # f32 forward
+        upcast_(params)
+        with torch.inference_mode():
+            full32 = lm_full_logits(cfg32, params, seq, LM_P, extra)
+        one_device["bf16_f32"] = float((full - full32).abs().max())
+        log(f"{tag} bf16 rounding: max |full forward bf16 - f32| on the same weights and tokens "
+            f"{one_device['bf16_f32']:.4f}")
+        del full, full32, dec
+        check = lm_check_f32(cfg32, params, prompts, LM_G, tag, extra)
+        if check["drops"] or check["prefill_drops"]:
+            held = lm_check_f32(cfg32, params, prompts, LM_G, tag, extra, no_drop=True)
+            check = dict(held, default_drops=check["drops"],
+                         default_prefill_drops=check["prefill_drops"])
+    else:
+        del full, dec
+        log(f"{tag} no f32 check at full width: its f32 weights would take "
+            f"{4 * n_params / 2**30:.1f} GiB of the card's {total / 2**30:.1f} GiB (over "
+            f"{LM_F32_FIT:.0%}); here its bars are the same tokens from the seed, no padded "
+            f"vocabulary row and finite logits, and phase 21(a) holds it card against CPU at f32 "
+            f"at its published expert count and top-k, narrow")
     del params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    row_peak = torch.cuda.max_memory_allocated()
+    free_cuda()
 
     # run 2: the same seed again, timed, with the peak memory
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         params, prompts = lm_seeded(cfg, 0, LM_B, LM_P)
-        _, toks2, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, LM_G)
+        _, toks2, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, LM_G, extra=extra)
     peak = torch.cuda.max_memory_allocated()
     if not torch.equal(toks, toks2):
         raise AssertionError(f"{tag} two runs from one seed gave different tokens")
     wbytes = weight_bytes_per_step(params, cfg, routed_steps)
+    wbytes_all = weight_bytes_per_step(params, cfg, cfg.num_experts)
+    pre_bound = prefill_flops(cfg, params, LM_B, LM_P) / bf16_rate * 1e3
+    xkv_ms = None
+    if cfg.is_encdec:
+        # the cross-attention K/V every decode step recomputes from the
+        # encoder's output, layer by layer, as the reference does
+        with torch.inference_mode():
+            enc_out = ED.encode(params, extra, cfg)
+            xkv_ms = eager_ms(lambda: [ED._enc_kv(lp["xattn"], enc_out, cfg)
+                                       for lp in params["dec_layers"]], iters=20)
+        del enc_out
     del params, prompts
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_cuda()
     dec_ms = t_dec * 1e3 / LM_G
     pre_ms = t_pre * 1e3
     dec_bound = wbytes / mem_rate * 1e3
-    pre_bound = 2 * cfg.active_param_count() * LM_B * LM_P / bf16_rate * 1e3
     tok_s = LM_B * LM_G / t_dec
     log(f"{tag} run 2 (bf16, same seed): the same {toks2.numel()} tokens; prefill {pre_ms:.2f} ms "
-        f"(bound {pre_bound:.2f} ms = 2 x {cfg.active_param_count() / 1e9:.3f} G active params "
-        f"x {LM_B * LM_P} tokens / bf16 peak; x{pre_ms / pre_bound:.2f}), decode "
+        f"(bound {pre_bound:.2f} ms = 2 x parameters x the rows each multiplies / bf16 peak; "
+        f"x{pre_ms / pre_bound:.2f}), decode "
         f"{dec_ms:.3f} ms/step (bound {dec_bound:.3f} ms = {wbytes / 1e9:.3f} GB of weights"
         + (f", {routed_steps:.2f} of {cfg.num_experts} experts a MoE layer" if mlayers else "")
         + f" / memory rate; x{dec_ms / dec_bound:.2f}), {tok_s:.1f} tokens/s, peak "
-        f"{peak / 2**30:.2f} GiB allocated; run 1 (cold, its last {LM_PROFILED} steps profiled): "
+        f"{peak / 2**30:.2f} GiB allocated (the whole row's, f32 check included: "
+        f"{row_peak / 2**30:.2f} GiB); run 1 (cold, its last {LM_PROFILED} steps profiled): "
         f"prefill {t_pre1 * 1e3:.2f} ms, decode {t_dec1 * 1e3 / LM_G:.3f} ms/step "
         f"({time.perf_counter() - t0:.1f} s in all)")
+    if mlayers:
+        log(f"{tag} a MoE decode step runs every expert (as the reference does): "
+            f"{wbytes_all / 1e9:.3f} GB of weights, {wbytes_all / mem_rate * 1e3:.3f} ms at the "
+            f"memory rate, x{dec_ms / (wbytes_all / mem_rate * 1e3):.2f}; the routed-only bound "
+            f"above is the least a step could read")
+    if xkv_ms is not None:
+        log(f"{tag} the cross-attention K/V of the {cfg.layers} decoder layers, recomputed from "
+            f"the encoder's output each step: {xkv_ms:.3f} ms eager, {xkv_ms / dec_ms:.1%} of "
+            f"the {dec_ms:.3f} ms step")
+    layers_run = cfg.layers if cfg.is_encdec else TF.num_layers(cfg)
     log(f"{tag} a decode step launches {work['kernels']:.0f} kernels "
-        f"({work['kernels'] / TF.num_layers(cfg):.1f} a layer) that keep the card busy "
+        f"({work['kernels'] / layers_run:.1f} a layer) that keep the card busy "
         f"{work['busy_ms']:.3f} ms (torch.profiler, run 1): {work['busy_ms'] / dec_ms:.1%} of "
         f"run 2's {dec_ms:.3f} ms step, idle {1 - work['busy_ms'] / dec_ms:.1%}")
     return {"arch": arch, "layers": cfg.layers, "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound,
             "decode_ms": dec_ms, "decode_bound_ms": dec_bound, "tokens_per_s": tok_s,
-            "peak_bytes": peak, "f32_check": check, "step_kernels": work["kernels"],
-            "step_busy_ms": work["busy_ms"], **one_device}
+            "peak_bytes": peak, "row_peak_bytes": row_peak, "f32_check": check,
+            "step_kernels": work["kernels"], "step_busy_ms": work["busy_ms"],
+            "decode_all_experts_ms": wbytes_all / mem_rate * 1e3, "xattn_kv_ms": xkv_ms,
+            **one_device}
 
 
 def lm_phase(mem_rate: float, bf16_rate: float) -> list:
@@ -2719,7 +2924,10 @@ def lm_phase(mem_rate: float, bf16_rate: float) -> list:
         raise AssertionError("f32 matmuls must run at full precision (TF32 off) for phase 21")
     t_phase = time.perf_counter()
     lm_parity()
-    rows = [lm_full_width(arch, layers, mem_rate, bf16_rate) for arch, layers in LM_FULL]
+    rows = []
+    for arch, layers in LM_FULL:
+        free_cuda()         # each config's weights go before the next one's are drawn
+        rows.append(lm_full_width(arch, layers, mem_rate, bf16_rate))
 
     # (d) the --arch CLI on the card, full config
     t0 = time.perf_counter()
@@ -3096,6 +3304,132 @@ def train_rwkv(mem_rate: float, bf16_rate: float) -> dict:
             "losses": losses}
 
 
+#: Phase 22(g): seamless-m4t-medium trained whole (arch, batch, decoder
+#: sequence, steps; the encoder takes the config's 1,024 frames a sequence)
+#: and the batch and decoder sequence of its f32 gradient check (with all
+#: 1,024 frames).
+TR_SEAMLESS = ("seamless-m4t-medium", 4, 1536, 3)
+TR_SEAMLESS_F32 = (1, 64)
+
+
+def encdec_step_bound_ms(params, cfg, B: int, S: int, mem_rate: float, bf16_rate: float):
+    """:func:`step_bound_ms` of an encoder–decoder step: :func:`encdec_split`'s
+    parameters over the B x frames rows and the B x S decoder rows; AdamW
+    over every parameter."""
+    enc, rest = encdec_split(params)
+    comp = (step_bound_ms(enc, B * cfg.frontend_seq, mem_rate, bf16_rate)[0]
+            + step_bound_ms(rest, B * S, mem_rate, bf16_rate)[0])
+    return comp, step_bound_ms(enc + rest, 0, mem_rate, bf16_rate)[1]
+
+
+def train_seamless(mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 22(g): seamless-m4t-medium at full width and depth (12 encoder
+    and 12 decoder layers), bf16, remat as configured: ``make_train_step``
+    steps at B=4 x S=1536, each batch's 1,024 frames a sequence
+    numpy-seeded by its step; every loss finite and the last below the
+    first."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import encdec as ED
+    from repro_torch.optim import adamw
+    from repro_torch.util.tree import leaves
+
+    arch, B, S, steps = TR_SEAMLESS
+    cfg = get_config(arch)
+    tag = f"[train/{arch}]"
+    mesh = make_host_mesh(1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = ED.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt_state = adamw.init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    comp_ms, opt_ms = encdec_step_bound_ms(params, cfg, B, S, mem_rate, bf16_rate)
+    step = STEPS.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                                        total_steps=steps))
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    losses, times = [], []
+    for s in range(steps):
+        tokens, labels = global_batch_array(data, s, mesh)
+        frames = lm_frontend(cfg, s, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, tokens, labels, frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} the last loss {losses[-1]:.4f} is not below the first "
+                             f"{losses[0]:.4f}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    tokens_s = B * S / step_ms * 1e3
+    log(f"{tag} {cfg.encoder_layers} encoder and {cfg.layers} decoder layers (all), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab} (tied), {n_params / 1e9:.3f} G parameters, "
+        f"{cfg.dtype}, remat {cfg.remat}; B={B} S={S} against {cfg.frontend_seq} frames a "
+        f"sequence: losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; step {step_ms:.1f} ms (median of steps 2-{steps}; first {times[0] * 1e3:.1f} ms), "
+        f"{tokens_s:.0f} decoder tokens/s; least time {comp_ms:.1f} ms (8 N x the rows each "
+        f"weight multiplies / bf16 peak) + {opt_ms:.1f} ms = {comp_ms + opt_ms:.1f} ms, "
+        f"x{step_ms / (comp_ms + opt_ms):.2f}; peak {peak / 2**30:.2f} GiB allocated")
+    del params, opt_state, m
+    free_cuda()
+    return {"arch": arch, "step_ms": step_ms, "bound_ms": comp_ms + opt_ms, "peak": peak,
+            "losses": losses, "tokens_per_s": tokens_s}
+
+
+def train_seamless_f32() -> dict:
+    """Phase 22(g), f32: seamless-m4t-medium at full width and depth in f32
+    (TF32 off), remat on, B=1 x S=64 against all 1,024 frames: the loss,
+    grad_norm and every gradient leaf of ``make_grad_fn`` on the card
+    against the CPU's, from the same weights (drawn on the CPU) and
+    numpy-seeded inputs, at phase 22(a)'s bars."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import encdec as ED
+    from repro_torch.optim import adamw
+    from repro_torch.util.tree import leaf_paths, leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(TR_SEAMLESS[0]), dtype="float32")
+    B, S = TR_SEAMLESS_F32
+    tag = f"[train/{cfg.name} f32]"
+    t0 = time.perf_counter()
+    p_cpu = ED.init_params(torch.Generator().manual_seed(0), cfg)
+    inputs = [torch.from_numpy(a) for a in train_smoke_inputs(cfg, 0, B, S)]
+    grad_fn = STEPS.make_grad_fn(cfg)
+    t1 = time.perf_counter()
+    l_cpu, _, g_cpu = grad_fn(p_cpu, *inputs)
+    t_cpu = time.perf_counter() - t1
+    p_card = tree_map(lambda t: t.to("cuda"), p_cpu)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l_card, _, g_card = grad_fn(p_card, *[t.cuda() for t in inputs])
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t1
+    errs = {"loss": check_within(f"{tag} loss", l_card, l_cpu, TR_RTOL, TR_ATOL),
+            "grad_norm": check_within(f"{tag} grad_norm", adamw.global_norm(g_card),
+                                      adamw.global_norm(g_cpu), TR_RTOL, TR_ATOL)}
+    rel = [check_within(f"{tag} gradient leaf {'/'.join(map(str, q))} {tuple(g.shape)}", gc, g,
+                        TR_RTOL, TR_ATOL) / max(float(g.abs().max()), 1e-30)
+           for q, gc, g in zip(leaf_paths(g_cpu), leaves(g_card), leaves(g_cpu))]
+    log(f"{tag} B={B} S={S} against {cfg.frontend_seq} frames, remat {cfg.remat}: loss "
+        f"{float(l_card):.9g} on the card, {float(l_cpu):.9g} on the CPU (|diff| "
+        f"{errs['loss']:.3e}); grad_norm {float(adamw.global_norm(g_card)):.9g} and "
+        f"{float(adamw.global_norm(g_cpu)):.9g} (|diff| {errs['grad_norm']:.3e}); "
+        f"{len(rel)} gradient leaves within {TR_RTOL} max|g| + {TR_ATOL} (worst {max(rel):.3e} "
+        f"of its leaf's max); make_grad_fn {t_cpu:.1f} s on the CPU, {t_card * 1e3:.1f} ms on "
+        f"the card ({time.perf_counter() - t0:.1f} s in all)")
+    del p_card, g_card, l_card
+    free_cuda()
+    return dict(errs, worst_rel=max(rel), cpu_s=t_cpu, card_ms=t_card * 1e3)
+
+
 def fd_gap(loss_at, flat_p, flat_g, idx, eps: float = TR_FD_EPS) -> dict:
     """The central differences of the loss along v = g_S / |g_S|, the
     gradient restricted to the leaves ``idx``, at eps and 2 eps, against
@@ -3257,8 +3591,11 @@ def train_phase(mem_rate: float, bf16_rate: float) -> list:
     rows = [train_granite(mem_rate, bf16_rate), train_rwkv(mem_rate, bf16_rate)]
     train_grad_check()
     train_restart_check()
+    # (g) the encoder-decoder trained whole, then its f32 gradients
+    rows.append(train_seamless(mem_rate, bf16_rate))
+    train_seamless_f32()
 
-    # (g) the training CLI on the card, full config
+    # (h) the training CLI on the card, full config
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",

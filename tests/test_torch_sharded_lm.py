@@ -46,6 +46,7 @@ from repro_torch.data.pipeline import DataConfig, global_batch_array
 from repro_torch.launch import sharded as SHD
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as STEPS
+from repro_torch.launch import train as TRAIN_CLI
 from repro_torch.launch.mesh import ShardMesh, make_host_mesh, rebuild_mesh_after_failure
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
@@ -677,15 +678,13 @@ def test_elastic_restart_reshards_onto_the_smaller_mesh(tmp_path):
         assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
 
 
-def test_launch_train_on_a_mesh_of_cpu_shards():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "jamba-v0.1-52b",
-         "--smoke", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "32",
-         "--shards", "8", "--model-axis", "4"],
-        capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert "[trainer] step 2 loss" in out.stdout and "over 2 steps" in out.stdout
+def test_launch_train_on_a_mesh_of_cpu_shards(capsys):
+    """The training CLI's ``main`` in this process (a subprocess starts a
+    torch of its own beside the test workers and the reference's run)."""
+    TRAIN_CLI.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu", "--steps", "2",
+                    "--batch", "4", "--seq", "32", "--shards", "8", "--model-axis", "4"])
+    out = capsys.readouterr().out
+    assert "[trainer] step 2 loss" in out and "over 2 steps" in out
 
 
 def test_cuda_shards_raise_without_a_card():

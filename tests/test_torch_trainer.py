@@ -12,10 +12,6 @@ so a gradient of ~1e-8 that rounds differently in the two packages moves its
 parameter ±lr, and on other weights the losses may drift further apart.
 """
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -37,7 +33,6 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import trainer as TR
 
-ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-5
 
 
@@ -167,14 +162,13 @@ def test_cross_package_run_from_reference_weights():
         assert abs(m["loss"] - r["loss"]) <= LOSS_RTOL * r["loss"], (m, r)
 
 
-def test_launch_train_cli_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-3-2b", "--smoke",
-         "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "32"],
-        capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert "[trainer] step 3 loss" in out.stdout and "over 3 steps" in out.stdout
+def test_launch_train_cli_on_cpu(capsys):
+    """The training CLI's ``main`` in this process, as a user's command line
+    would call it."""
+    LAUNCH.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", "--steps", "3",
+                    "--batch", "2", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert "[trainer] step 3 loss" in out and "over 3 steps" in out
 
 
 def test_launch_train_asks_for_one_shard_on_a_host_of_several_cards(monkeypatch):
