@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CSR-k, SELL-C-σ, segmented-sum and DIA/CSR-hybrid paths,
-the ELL baseline path, the serving engine, the distributed layer and the LM
-tree's serving and training paths, one-device and sharded, on one NVIDIA GPU.
+the ELL baseline path, the serving engine, the distributed layer, the LM
+tree's serving and training paths, one-device and sharded, and the LM
+tree's shape cells at their lengths, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -231,8 +232,9 @@ Phases (any failure exits non-zero and prints no result line):
     within 1e-4 max|g| + 1e-6, every updated parameter within 1e-4 of its
     leaf's max where the gradient is outside that bar of 0, else within
     2 lr more: Adam's first step), and ``moe_apply_ep`` alone; (b)
-    granite-3-2b at full width and depth, bf16, 2 trainer steps on data 2
-    x model 4 from phase 22(b)'s seed and batches, each loss within 1e-2
+    granite-3-2b at full width and depth, bf16, 3 trainer steps on data 2
+    x model 4 from phase 22(b)'s seed and batches (each step's time and the
+    host's load average logged), each loss within 1e-2
     of phase 22(b)'s, step ms, peak memory and the pieces' bytes per
     shard beside ``state_bytes_per_device``; (c) the same at f32, 2
     layers, the sharded step against the one-device step (gradients and
@@ -274,7 +276,35 @@ Phases (any failure exits non-zero and prints no result line):
     mesh, started in the background after the build and each exiting 0;
     (c) the three examples on the card at their defaults (``train_lm`` at
     ``--steps 20``), side by side: ``quickstart``'s CSR-k product within
-    1e-4 of plain CSR.
+    1e-4 of plain CSR;
+25. (run after 24, before the result lines of 18) the reference's shape
+    cells (``models/config.py::SHAPES``) at their lengths, TF32 off; each
+    row logs ms, its bound, kernels and device-busy ms (``torch.profiler``),
+    the peak allocated beside the resident state counted from the tensors
+    (weights, cache, optimizer moments) and the host's load average; only
+    batch and depth are cut (``CELL_*``): (a) at smoke width and f32, card
+    against CPU within 1e-4 + 1e-4 |cpu|: granite-3-2b ``decode_32k`` at
+    B=2 and jamba-v0.1-52b and rwkv6-3b ``long_500k`` at B=1, a cache of
+    32,768 or 524,288 rows drawn with numpy from a seed in the reference's
+    layout (``cell_ref_cache``) and carried by ``cache_from_reference``, 4
+    steps to the cache's last row, the logits and the caches after it; and
+    granite-3-2b's ``train_4k`` gradients at B=1 x S=4,096, remat on, every
+    leaf within 1e-4 max|g| + 1e-6; (b) at full width, bf16: granite-3-2b
+    (40 layers) a cached prefill of 32,752 tokens into a 32,768-row cache,
+    16 greedy steps at B=1 to its last row, the cache copied into B=16
+    rows and 16 steps there (every row the same tokens, the largest logit
+    gap between rows logged), then ``prefill_32k``: ``make_prefill_step``
+    over the same 32,768 tokens at B=1, its last 16 positions' gap to the
+    steps' logits logged and its argmax the generated token wherever its
+    top-2 margin exceeds twice that position's gap (at one position at
+    least); ``train_4k``: 3 ``make_train_step`` steps at B=2 x S=4,096,
+    remat on, losses finite and falling; ``long_500k``: one jamba period
+    and rwkv6-3b whole at B=1, a 524,288-row cache and states drawn on the
+    card from a seed, 16 greedy steps from index 524,272, finite logits;
+    (c) granite-3-2b at 4 of its 40 layers in f32: a cached prefill of
+    32,760 tokens, 8 steps to row 32,767, each within 2e-3 + 2e-3 |logit|
+    of the uncached forward over the same 32,768 tokens, the argmax as in
+    phase 21.
 
 bf16 x, inside the phases above (each kernel reads a bf16 x, sums in f32
 and writes y in bf16, rounded once):
@@ -336,6 +366,13 @@ VALUE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def loadavg() -> str:
+    """The host's 1, 5 and 15 minute load averages, logged beside host-clock numbers."""
+    import os
+
+    return "load average " + ", ".join(f"{v:.2f}" for v in os.getloadavg())
 
 
 def card_line() -> str:
@@ -2640,7 +2677,7 @@ def lm_full_logits(cfg, params, seq, P: int, extra=None):
 
 
 def lm_check_f32(cfg, params, prompts, G: int, tag: str, extra=None,
-                 no_drop: bool = False) -> dict:
+                 no_drop: bool = False, profile_last: int = 0) -> dict:
     """The decode-versus-forward check at float32 (TF32 off): a prefill and
     ``G`` greedy steps from ``params`` (float32), then one full forward over
     prompt + generated tokens.  Every step's logits lie within
@@ -2651,7 +2688,8 @@ def lm_check_f32(cfg, params, prompts, G: int, tag: str, extra=None,
     prefill or the full forward drops MoE routings over capacity that the
     steps keep, the identity does not hold (as in the reference) and
     nothing is asserted; with ``no_drop`` both run under :class:`NoDrops`,
-    must drop nothing, and the identity is held."""
+    must drop nothing, and the identity is held.  ``profile_last`` steps
+    are profiled as in :func:`lm_generate` (``work`` in the result)."""
     import contextlib
 
     import torch
@@ -2662,7 +2700,8 @@ def lm_check_f32(cfg, params, prompts, G: int, tag: str, extra=None,
     mlayers = lm_moe_layers(cfg)
     with torch.inference_mode(), (NoDrops(MOE) if no_drop else contextlib.nullcontext()):
         with DispatchLog(MOE) as moe_gen:
-            dec, toks, t_pre, t_dec, _ = lm_generate(cfg, params, prompts, G, extra=extra)
+            dec, toks, t_pre, t_dec, work = lm_generate(cfg, params, prompts, G, profile_last,
+                                                        extra)
         seq = torch.cat([prompts, toks[:, :-1]], dim=1)
         with DispatchLog(MOE) as moe_full:
             full = lm_full_logits(cfg, params, seq, P, extra)
@@ -2684,7 +2723,7 @@ def lm_check_f32(cfg, params, prompts, G: int, tag: str, extra=None,
            "agree": int((agree & checked).sum()), "positions": checked.numel(),
            "drops": drops, "prefill_drops": pre_drops, "step_drops": step_drops,
            "max_logit": float(full.abs().max()),
-           "prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3 / G}
+           "prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3 / G, "work": work}
     what = "f32 check" + (" with nothing dropped (capacity = N tokens)" if no_drop else "")
     log(f"{tag} {what}: decode vs full forward over {seq.shape[1]} tokens, max |gap| "
         f"{out['gap']:.3e} (last position {out['gap_last']:.3e}), {out['over_tol']:.3f} of "
@@ -3000,9 +3039,10 @@ def train_smoke_inputs(cfg, seed: int, B: int = 2, T: int = 16):
     return tokens, labels, extra
 
 
-def train_smoke_grads(cfg, dev, seed: int):
+def train_smoke_grads(cfg, dev, seed: int, B: int = 2, T: int = 16):
     """(params, inputs, loss, aux, grads) of ``cfg`` on ``dev`` through
-    ``make_grad_fn``, from weights drawn on the CPU from ``seed``."""
+    ``make_grad_fn`` at B x T, from weights drawn on the CPU from
+    ``seed``."""
     import torch
 
     from repro_torch.launch import steps as STEPS
@@ -3014,7 +3054,7 @@ def train_smoke_grads(cfg, dev, seed: int):
     params = tree_map(lambda t: t.to(dev),
                       model.init_params(torch.Generator().manual_seed(seed), cfg))
     inputs = [None if a is None else torch.from_numpy(a).to(dev)
-              for a in train_smoke_inputs(cfg, seed)]
+              for a in train_smoke_inputs(cfg, seed, B, T)]
     loss, aux, grads = STEPS.make_grad_fn(cfg)(params, *inputs)
     return params, inputs, loss, aux, grads
 
@@ -3634,7 +3674,7 @@ SH_B, SH_T = 4, 32
 SH_RTOL = 1e-4
 SH_LOGIT_TOL = 1e-4
 SH_LOSS_TOL = 1e-2
-SH_STEPS = 2
+SH_STEPS = 3
 SH_RESTART_B = 24
 SH_EP_MODEL = 4
 SH_RWKV_STEPS = 2
@@ -3893,11 +3933,11 @@ def sharded_granite(mem_rate: float, bf16_rate: float, phase22: dict) -> dict:
         + f" against phase 22(b)'s " + ", ".join(f"{v:.4f}" for v in ref)
         + f" (|gap| max {max(gaps):.2e}, bar {SH_LOSS_TOL}); grad_norm "
         + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
-        + f"; step {step_ms:.1f} ms (median of steps 2-{SH_STEPS}; first "
-        f"{metrics[0]['time_s'] * 1e3:.1f} ms) against phase 22(b)'s one-device "
-        f"{phase22['step_ms']:.1f} ms and the least {comp_ms + opt_ms:.1f} ms; peak "
+        + f"; steps " + ", ".join(f"{m['time_s'] * 1e3:.1f}" for m in metrics)
+        + f" ms, {step_ms:.1f} ms the median of steps 2-{SH_STEPS}, against phase 22(b)'s "
+        f"one-device {phase22['step_ms']:.1f} ms and the least {comp_ms + opt_ms:.1f} ms; peak "
         f"{peak / 2**30:.2f} GiB allocated (one device: {phase22['peak'] / 2**30:.2f} GiB); "
-        f"{t_run:.1f} s")
+        f"{t_run:.1f} s; {loadavg()}")
     del state, meta
     free_cuda()
     return {"step_ms": step_ms, "peak": peak, "losses": losses, "gaps": gaps,
@@ -4462,7 +4502,7 @@ def sharded_phase(mem_rate: float, bf16_rate: float, lm_rows: list, train_rows: 
     out["rwkv_serve"] = sharded_rwkv_serve(next(r for r in lm_rows if r["arch"] == "rwkv6-3b"))
     out["rwkv_train"] = sharded_rwkv_train(mem_rate, bf16_rate,
                                            next(r for r in train_rows if r["arch"] == "rwkv6-3b"))
-    log(f"[sharded] phase done in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[sharded] phase done in {time.perf_counter() - t_phase:.1f} s; {loadavg()}")
     return out
 
 
@@ -4679,6 +4719,593 @@ def dryrun_phase(lm_rows: list, train_rows: list, sharded: dict, dry_cli: list,
             f"{secs:.1f} s of its start")
     log(f"[dryrun] phase done in {time.perf_counter() - t_phase:.1f} s")
     return {"cells": rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the reference's shape cells
+# ---------------------------------------------------------------------------
+
+#: Phase 25: the reference's shape cells (``models/config.py::SHAPES``) at
+#: their lengths.  Only batch and depth are cut, each where one 80 GB card
+#: forces it: decode_32k's B=128 to 16 (a granite-3-2b sequence's cache is
+#: 2.68 GB), prefill_32k's B=32 to 1 (some 17 GB of f32 score blocks alive
+#: a sequence), train_4k's B=256 to 2; jamba-v0.1-52b at one 8-layer
+#: period as in phase 21, and (c)'s f32 identity at 4 of granite's 40
+#: layers.  The greedy steps at full width (the last writes the cache's
+#: last row), the narrow steps of (a), the train steps; the train cell's
+#: learning rate, its first update at it and its second at a tenth (the
+#: cosine's floor): at 0.55 of it the second update took the third loss
+#: above the first (11.14, 10.35, 12.54 on the card), as phase 22(b)'s does
+#: at lr 3e-4.
+CELL_DECODE_B = 16
+CELL_PREFILL_B = 1
+CELL_TRAIN_B = 2
+CELL_JAMBA_LAYERS = 8
+CELL_F32_LAYERS = 4
+CELL_STEPS, CELL_NARROW_STEPS, CELL_TRAIN_STEPS, CELL_F32_STEPS = 16, 4, 3, 8
+CELL_TRAIN_LR = 1.5e-4
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``, synchronised on both sides: (its
+    result, host ms, CUDA kernels launched, their summed device ms); the
+    three kernel names with the most device time, and their ms, are left
+    in ``profiled.top``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    profiled.top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return out, ms, len(kernels), sum(e.device_time_total for e in kernels) / 1e3
+
+
+def cell_steps(step, n: int):
+    """``step(i)`` for i < n, each synchronised and timed on the host, the
+    last under :func:`profiled`: (outputs, host ms of each, the last's
+    kernels and busy ms, the median ms of the unprofiled steps after the
+    first (of the only step where n is 1 or 2: the profiled one))."""
+    import torch
+
+    outs, ms = [], []
+    for i in range(n - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(step(i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out, last_ms, kernels, busy = profiled(lambda: step(n - 1))
+    outs.append(out)
+    ms.append(last_ms)
+    med = float(np.median(ms[1:-1])) if n >= 3 else last_ms
+    return outs, ms, kernels, busy, med
+
+
+def attention_flops(cfg, B: int, T: int) -> float:
+    """A causal forward's attention FLOPs over T rows: QK^T and PV, 2 T^2 Dh
+    each a head, half the square under the mask: 2 L H Dh T^2 a sequence,
+    L the attention layers."""
+    from repro_torch.models import transformer as TF
+
+    L = sum(TF.layer_spec(cfg, i)[0] == "attn" for i in range(TF.num_layers(cfg)))
+    return 2.0 * L * cfg.num_heads * cfg.resolved_head_dim * T * T * B
+
+
+def cache_bytes_read(cache, valid: int) -> float:
+    """Bytes of a decode cache one step must read: the K and V rows below
+    ``valid`` of each attention layer, every recurrent state read and
+    written."""
+    total = 0.0
+    for entry in cache:
+        if "k" in entry:
+            k = entry["k"]
+            total += 2 * k.shape[0] * valid * k[0, 0].numel() * k.element_size()
+        else:
+            total += 2 * nbytes(entry)
+    return total
+
+
+def cell_ref_cache(cfg, B: int, S: int, seed: int):
+    """A decode cache of S rows in the reference's ``init_cache`` layout,
+    float32 draws from ``seed`` in numpy (every attention row and every
+    recurrent state): stacked over layers, or a list over the period's
+    positions each stacked over periods (hybrids), or a list per layer
+    (interleaved dense/MoE).  ``convert.cache_from_reference`` carries it
+    to the port."""
+    from repro_torch.models import transformer as TF
+
+    rng = np.random.default_rng(seed)
+    layers = TF.init_cache(cfg, B, S, device="meta")
+    draw = lambda entry: {k: rng.standard_normal(tuple(t.shape), dtype=np.float32)
+                          for k, t in entry.items()}
+    stack = lambda entries: {k: np.stack([e[k] for e in entries]) for k in entries[0]}
+    drawn = [draw(e) for e in layers]
+    if cfg.attn_period > 0:
+        P = cfg.attn_period
+        return [stack(drawn[j::P]) for j in range(P)]
+    if cfg.is_moe and cfg.moe_every > 1:
+        return drawn
+    return stack(drawn)
+
+
+def cell_log(tag: str, what: str, r: dict) -> dict:
+    """One line of a cell: ms, bound, kernels and busy ms, peak beside the
+    resident state, the machine's load."""
+    res = " + ".join(f"{k} {v / 2**30:.2f}" for k, v in r["resident"].items())
+    log(f"{tag} {what}: {r['ms']:.3f} ms ({r['ms_what']}); bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_what']}), x{r['ms'] / r['bound_ms']:.2f}; {r['kernels']} kernels busy "
+        f"{r['busy_ms']:.3f} ms ({r['busy_what']}, torch.profiler), "
+        f"{r['busy_ms'] / r['profiled_ms']:.1%} of its {r['profiled_ms']:.3f} ms"
+        + "".join(f"{', most in' if i == 0 else ','} {name[:60]} {t:.3f} ms"
+                  for i, (name, t) in enumerate(r["top"])) + "; peak "
+        f"{r['peak'] / 2**30:.2f} GiB allocated beside {sum(r['resident'].values()) / 2**30:.2f} "
+        f"GiB resident ({res} GiB); {loadavg()}")
+    return dict(r, tag=tag)
+
+
+def f32_within(what: str, card, cpu) -> float:
+    """max |card - cpu|, every entry finite and within ``LM_F32_ATOL`` +
+    ``LM_F32_RTOL`` |cpu|, or raise."""
+    import torch
+
+    err = (card - cpu).abs()
+    if not bool(torch.isfinite(card).all()) or not bool(
+            (err <= LM_F32_ATOL + LM_F32_RTOL * cpu.abs()).all()):
+        raise AssertionError(f"{what} card vs CPU max |err| {float(err.max()):.3e} over "
+                             f"{LM_F32_ATOL} + {LM_F32_RTOL}|cpu|")
+    return float(err.max())
+
+
+def cell_narrow_decode(arch: str, cell: str, B: int, mem_rate: float) -> dict:
+    """Phase 25(a), one decode cell at smoke width and f32: the cell's S rows
+    drawn in the reference's layout (:func:`cell_ref_cache`), carried to
+    the CPU and to the card, then ``CELL_NARROW_STEPS`` steps of
+    ``make_decode_step`` from index S - steps on both: each step's logits
+    and the caches after the last-row write within ``LM_F32_ATOL`` +
+    ``LM_F32_RTOL`` |cpu|."""
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.convert import cache_from_reference
+    from repro_torch.util.tree import tree_map
+
+    cfg, S, n = get_smoke_config(arch), SHAPES[cell].seq_len, CELL_NARROW_STEPS
+    tag = f"[cells/{cell} {arch} narrow]"
+    ref = cell_ref_cache(cfg, B, S, 0)
+    cpu_params = TF.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (B, n)).astype(np.int32)
+    step = STEPS.make_decode_step(cfg)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        state = {"cache": cache_from_reference(cfg, ref, dev)}
+        toks = torch.from_numpy(tokens).to(dev)
+        if dev == "cpu":
+            seeded_last = {i: e["k"][:, S - 1].clone() for i, e in enumerate(state["cache"])
+                           if "k" in e}
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            resident = {"weights": nbytes(params), "cache": nbytes(state["cache"])}
+
+        def run(i):
+            logits, state["cache"] = step(params, state["cache"], toks[:, i:i + 1], S - n + i)
+            return logits[:, 0].float()
+
+        with torch.inference_mode():
+            if dev == "cpu":
+                outs = [run(i) for i in range(n)]
+            else:
+                outs, ms, kernels, busy, med = cell_steps(run, n)
+        got[dev] = (torch.stack(outs, 1).cpu(), [tree_map(lambda t: t.cpu(), e)
+                                                  for e in state["cache"]])
+    peak = torch.cuda.max_memory_allocated()
+    (cpu_l, cpu_c), (card_l, card_c) = got["cpu"], got["cuda"]
+    err = f32_within(f"{tag} logits", card_l, cpu_l)
+    cache_err = max(f32_within(f"{tag} cache layer {i} {k}", a[k], b[k])
+                    for i, (a, b) in enumerate(zip(card_c, cpu_c)) for k in a)
+    for i, last in seeded_last.items():     # the last step wrote the cache's last row
+        if torch.equal(card_c[i]["k"][:, S - 1], last):
+            raise AssertionError(f"{tag} layer {i}: row {S - 1} not written")
+    bound = (nbytes(cpu_params) + cache_bytes_read(got["cuda"][1], S)) / mem_rate * 1e3
+    kv = len(seeded_last)
+    r = cell_log(tag, f"B={B}, {S:,} rows in {kv} attention and {len(card_c) - kv} recurrent "
+                 f"layers, {n} steps from index {S - n:,} (the last writes row {S - 1:,}); "
+                 f"logits card vs CPU max |err| {err:.3e}, caches {cache_err:.3e} (bar "
+                 f"{LM_F32_ATOL} + {LM_F32_RTOL}|cpu|), max |logit| "
+                 f"{float(cpu_l.abs().max()):.3f}",
+                 {"ms": med, "ms_what": f"a step, median of steps 2-{n - 1}",
+                  "bound_ms": bound, "bound_what": "f32 weights + cache rows read / memory rate",
+                  "kernels": kernels, "busy_ms": busy, "busy_what": f"step {n}",
+                  "top": profiled.top,
+                  "profiled_ms": ms[-1], "peak": peak, "resident": resident})
+    return dict(r, err=err, cache_err=cache_err)
+
+
+def cell_narrow_train(f32_rate: float) -> dict:
+    """Phase 25(a), train_4k at smoke width: granite-3-2b's f32 loss and
+    every gradient leaf of ``make_grad_fn`` at B=1 x S=4,096, remat on,
+    card against CPU within phase 22's 1e-4 max|g| + 1e-6."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.config import SHAPES
+    from repro_torch.util.tree import leaves
+
+    cfg = dc.replace(get_smoke_config("granite-3-2b"), remat=True)
+    S = SHAPES["train_4k"].seq_len
+    tag = "[cells/train_4k granite-3-2b narrow]"
+    _, _, l_cpu, _, g_cpu = train_smoke_grads(cfg, torch.device("cpu"), 0, 1, S)
+    torch.cuda.reset_peak_memory_stats()
+    (p, _, l_card, _, g_card), ms, kernels, busy = profiled(
+        lambda: train_smoke_grads(cfg, torch.device("cuda"), 0, 1, S))
+    peak = torch.cuda.max_memory_allocated()
+    check_within(f"{tag} loss", l_card, l_cpu, TR_RTOL, TR_ATOL)
+    worst = max(check_within(f"{tag} gradient leaf {i} {tuple(g.shape)}", gc, g, TR_RTOL, TR_ATOL)
+                / max(float(g.abs().max()), 1e-30)
+                for i, (gc, g) in enumerate(zip(leaves(g_card), leaves(g_cpu))))
+    n_params = sum(t.numel() for t in leaves(p))
+    bound = (8 * n_params * S + 4 * attention_flops(cfg, 1, S)) / f32_rate * 1e3
+    r = cell_log(tag, f"B=1 x S={S:,}, remat on, f32: loss {float(l_card):.6f} (CPU "
+                 f"{float(l_cpu):.6f}), {len(leaves(g_cpu))} gradient leaves within {TR_RTOL} "
+                 f"max|g| + {TR_ATOL} (worst {worst:.3e} of its leaf's max)",
+                 {"ms": ms, "ms_what": "the gradient call, weights drawn and copied included",
+                  "bound_ms": bound, "bound_what": "(8 N S + 4 x attention's forward FLOPs) / "
+                                                   "f32 peak",
+                  "kernels": kernels, "busy_ms": busy, "busy_what": "the same call",
+                  "top": profiled.top,
+                  "profiled_ms": ms, "peak": peak,
+                  "resident": {"weights": nbytes(p), "gradients": nbytes(g_card)}})
+    return dict(r, worst_rel=worst)
+
+
+def cell_granite_serve(mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 25(b), granite-3-2b at full width and depth, bf16: a cached
+    prefill of S - ``CELL_STEPS`` tokens into an S-row cache (decode_32k's
+    S), ``CELL_STEPS`` greedy steps at B=1 (the last writes row S - 1), the
+    cache copied into ``CELL_DECODE_B`` rows and as many steps there (every
+    row the same tokens); then prefill_32k, ``make_prefill_step`` over the
+    same S tokens at B=``CELL_PREFILL_B``, held against the decode steps'
+    logits."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import SHAPES
+
+    arch = "granite-3-2b"
+    cfg, V = get_config(arch), get_config(arch).vocab
+    S, G = SHAPES["decode_32k"].seq_len, CELL_STEPS
+    P = S - G
+    if SHAPES["prefill_32k"].seq_len != S:
+        raise AssertionError("prefill_32k and decode_32k differ in length")
+    tag = f"[cells/decode_32k {arch}]"
+    rows = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params, prompt = lm_seeded(cfg, 0, 1, P)
+        wbytes = weight_bytes_per_step(params, cfg, 0)
+        cache = TF.init_cache(cfg, 1, S, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, _ = TF.forward(params, prompt, cfg, cache=cache, cache_index=0)
+        first = logits[:, -1, :V].float()
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        del logits
+        pre_bound = ((prefill_flops(cfg, params, 1, P) + attention_flops(cfg, 1, P))
+                     / bf16_rate * 1e3)
+        log(f"{tag} {cfg.layers} layers, d_model {cfg.d_model}, bf16, {nbytes(params) / 1e9:.3f} "
+            f"GB of weights; cached prefill of {P:,} tokens at B=1 into a {S:,}-row cache "
+            f"({nbytes(cache) / 1e9:.3f} GB): {pre_ms:.1f} ms, bound {pre_bound:.1f} ms "
+            f"((2 N T + 2 L H Dh T^2) / bf16 peak), x{pre_ms / pre_bound:.2f}; {loadavg()}")
+        step = STEPS.make_decode_step(cfg)
+
+        def decode(cache, B: int):
+            state = {"cache": cache, "tok": first.argmax(-1, keepdim=True).expand(B, 1)}
+
+            def run(i):
+                logits, state["cache"] = step(params, state["cache"], state["tok"], P + i)
+                state["tok"] = logits[:, -1:, :V].argmax(-1)
+                return logits[:, 0, :V].float(), state["tok"]
+
+            outs, ms, kernels, busy, med = cell_steps(run, G)
+            return (torch.stack([o[0] for o in outs], 1),
+                    torch.cat([state_tok for _, state_tok in outs], 1), ms, kernels, busy, med)
+
+        for B in (1, CELL_DECODE_B):
+            if B > 1:
+                # each step writes its own row before it attends, so the rows
+                # the B=1 steps wrote are rewritten before they are read
+                cache = [{k: t.repeat(B, *(1,) * (t.dim() - 1)) for k, t in e.items()}
+                         for e in cache]
+                free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            dec, toks, ms, kernels, busy, med = decode(cache, B)
+            peak = torch.cuda.max_memory_allocated()
+            if not bool(torch.isfinite(dec).all()):
+                raise AssertionError(f"{tag} B={B}: non-finite logits")
+            if any(not bool(e["k"][:, S - 1].abs().sum()) for e in cache):
+                raise AssertionError(f"{tag} B={B}: row {S - 1} of the cache not written")
+            read = sum(cache_bytes_read(cache, P + i + 1) for i in range(G)) / G
+            what = f"B={B}: {G} greedy steps from index {P:,} (the last writes row {S - 1:,})"
+            if B > 1:
+                row_gap = float((dec - dec[:1]).abs().max())
+                same = bool((toks == toks[:1]).all())
+                what += (f"; every row the same tokens: {same}, the largest logit gap between "
+                         f"rows {row_gap:.4f}; tokens as B=1's at "
+                         f"{int((toks[0].cpu() == rows[1]['toks'][0]).sum())} of {G}")
+                if not same:
+                    raise AssertionError(f"{tag} B={B}: rows gave different tokens")
+            rows[B] = cell_log(
+                tag, what,
+                {"ms": med, "ms_what": f"a step, median of steps 2-{G - 1}",
+                 "bound_ms": (wbytes + read) / mem_rate * 1e3,
+                 "bound_what": f"{wbytes / 1e9:.3f} GB of weights + {read / 1e9:.3f} GB of "
+                               f"cache rows a step / memory rate",
+                 "kernels": kernels, "busy_ms": busy, "busy_what": f"step {G}",
+                 "top": profiled.top,
+                 "profiled_ms": ms[-1], "peak": peak,
+                 "resident": {"weights": nbytes(params), "cache": nbytes(cache)}})
+            rows[B].update(toks=toks.cpu(), dec=dec.cpu(), step_ms=ms)
+        del cache
+        free_cuda()
+
+        # prefill_32k: the prompt and the tokens the B=1 steps were fed, S in all
+        fed = torch.cat([first.argmax(-1, keepdim=True), rows[1]["toks"][:, :-1].cuda()], 1)
+        seq = torch.cat([prompt, fed], 1).repeat(CELL_PREFILL_B, 1)
+        torch.cuda.reset_peak_memory_stats()
+        prefill = STEPS.make_prefill_step(cfg)
+        logits, ms, kernels, busy = profiled(lambda: prefill(params, seq))
+        peak = torch.cuda.max_memory_allocated()
+        full = logits[:, P:, :V].float().cpu()                          # positions P..S-1
+        del logits
+    dec, toks = rows[1]["dec"], rows[1]["toks"]
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{tag} prefill_32k: non-finite logits")
+    # decode step i read the token at position P + i and chose toks[:, i]
+    gap = (full - dec).abs().amax(-1)                                   # [B, G]
+    top2 = full.topk(2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    agree = full.argmax(-1) == toks
+    if not int(checked.sum()) or not bool(agree[checked].all()):
+        raise AssertionError(f"{tag} prefill_32k: argmax = the generated token at "
+                             f"{int((agree & checked).sum())} of {int(checked.sum())} positions "
+                             f"whose top-2 margin exceeds twice their gap")
+    bound = (prefill_flops(cfg, params, CELL_PREFILL_B, S)
+             + attention_flops(cfg, CELL_PREFILL_B, S)) / bf16_rate * 1e3
+    r = cell_log(
+        f"[cells/prefill_32k {arch}]",
+        f"make_prefill_step at B={CELL_PREFILL_B} x T={S:,}; its last {G} positions' bf16 gap "
+        f"to the decode steps' logits max {float(gap.max()):.4f} (max |logit| "
+        f"{float(full.abs().max()):.3f}); argmax = the generated token at "
+        f"{int((agree & checked).sum())} of {int(checked.sum())} positions whose top-2 margin "
+        f"exceeds twice their gap, {int(agree.sum())} of {agree.numel()} in all",
+        {"ms": ms, "ms_what": "the call, profiled", "bound_ms": bound,
+         "bound_what": "(2 N T + 2 L H Dh T^2) / bf16 peak", "kernels": kernels,
+         "busy_ms": busy, "busy_what": "the call",
+         "top": profiled.top, "profiled_ms": ms, "peak": peak,
+         "resident": {"weights": nbytes(params)}})
+    del params
+    free_cuda()
+    return {"prefill_ms": pre_ms, "prefill_bound_ms": pre_bound, "decode_1": rows[1],
+            f"decode_{CELL_DECODE_B}": rows[CELL_DECODE_B], "prefill_32k": r,
+            "gap": float(gap.max())}
+
+
+def cell_granite_train(mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 25(b), train_4k: granite-3-2b at full width and depth, bf16,
+    remat on, ``CELL_TRAIN_STEPS`` ``make_train_step`` steps at B=
+    ``CELL_TRAIN_B`` x S=4,096 (the last profiled); losses finite and
+    falling."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch_array
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim import adamw
+
+    arch = "granite-3-2b"
+    cfg = get_config(arch)
+    B, S, n = CELL_TRAIN_B, SHAPES["train_4k"].seq_len, CELL_TRAIN_STEPS
+    tag = f"[cells/train_4k {arch}]"
+    if not cfg.remat:
+        raise AssertionError(f"{tag} remat off")
+    mesh = make_host_mesh(1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw.init(params)
+    resident = {"weights": nbytes(params), "AdamW moments": nbytes([opt.mu, opt.nu])}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step = STEPS.make_train_step(cfg, adamw.AdamWConfig(lr=CELL_TRAIN_LR, warmup_steps=1,
+                                                        total_steps=2))
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    state = {"params": params, "opt": opt}
+    del params, opt
+
+    def run(i):
+        tokens, labels = global_batch_array(data, i, mesh)
+        state["params"], state["opt"], m = step(state["params"], state["opt"], tokens, labels)
+        return float(m["loss"])
+
+    losses, ms, kernels, busy, med = cell_steps(run, n)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} losses {losses}: not finite or not falling")
+    comp_ms, opt_ms = step_bound_ms(n_params, B * S, mem_rate, bf16_rate)
+    attn_ms = 4 * attention_flops(cfg, B, S) / bf16_rate * 1e3
+    r = cell_log(
+        tag, f"B={B} x S={S:,}, remat on, {n_params / 1e9:.3f} G parameters, lr "
+        f"{CELL_TRAIN_LR} then a tenth: losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + "; steps " + ", ".join(f"{v:.1f}" for v in ms) + f" ms; {B * S / med * 1e3:.0f} "
+        f"tokens/s",
+        {"ms": med, "ms_what": f"a step, median of steps 2-{n - 1}",
+         "bound_ms": comp_ms + attn_ms + opt_ms,
+         "bound_what": f"8 N B S {comp_ms:.1f} + 4 x attention's forward {attn_ms:.1f} (bf16 "
+                       f"peak) + {OPT_BYTES_PER_PARAM} B a parameter {opt_ms:.1f} (memory rate)",
+         "kernels": kernels, "busy_ms": busy, "busy_what": f"step {n}", "top": profiled.top,
+         "profiled_ms": ms[-1], "peak": peak, "resident": resident})
+    del state
+    free_cuda()
+    return dict(r, losses=losses, step_ms=ms)
+
+
+def cell_long(arch: str, layers, mem_rate: float) -> dict:
+    """Phase 25(b), long_500k: ``arch`` at full width (``layers`` of it, or
+    whole), bf16, B=1, a 524,288-row cache (and the recurrent states) drawn
+    on the card from a seed, then ``CELL_STEPS`` greedy steps from index
+    524,288 - steps; finite logits."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, supported_shapes
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import SHAPES
+
+    cfg = get_config(arch)
+    if "long_500k" not in supported_shapes(cfg):
+        raise AssertionError(f"{arch} does not run long_500k")
+    if layers is not None:
+        cfg = dc.replace(cfg, layers=layers)
+    S, G, V = SHAPES["long_500k"].seq_len, CELL_STEPS, cfg.vocab
+    tag = f"[cells/long_500k {arch}]"
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params, prompt = lm_seeded(cfg, 0, 1, 1)
+        cache = TF.init_cache(cfg, 1, S, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for t in tree_leaves(cache):
+            t.normal_(generator=gen)
+        resident = {"weights": nbytes(params), "cache": nbytes(cache)}
+        step = STEPS.make_decode_step(cfg)
+        state = {"cache": cache, "tok": prompt}
+        del cache
+
+        def run(i):
+            logits, state["cache"] = step(params, state["cache"], state["tok"], S - G + i)
+            state["tok"] = logits[:, -1:, :V].argmax(-1)
+            return logits[:, 0, :V].float()
+
+        with DispatchLog(MOE) as moe:
+            outs, ms, kernels, busy, med = cell_steps(run, G)
+        dec = torch.stack(outs, 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{tag} non-finite logits")
+    mlayers = lm_moe_layers(cfg)
+    routed = moe.total("routed") / len(moe.routed) if mlayers else 0.0
+    wbytes = weight_bytes_per_step(params, cfg, routed)
+    read = sum(cache_bytes_read(state["cache"], S - G + i + 1) for i in range(G)) / G
+    kinds = [TF.layer_spec(cfg, i)[0] for i in range(TF.num_layers(cfg))]
+    r = cell_log(
+        tag, f"{cfg.layers} of {get_config(arch).layers} layers ({kinds.count('attn')} attention, "
+        f"{kinds.count('mamba')} mamba, {kinds.count('rwkv')} rwkv, {mlayers} MoE), bf16, B=1, "
+        f"a seeded {S:,}-row cache, {G} greedy steps from index {S - G:,}: logits finite, max "
+        f"|logit| {float(dec.abs().max()):.3f}" + (f"; {routed:.2f} of {cfg.num_experts} experts "
+                                                     f"routed a MoE layer and step" if mlayers
+                                                     else ""),
+        {"ms": med, "ms_what": f"a step, median of steps 2-{G - 1}",
+         "bound_ms": (wbytes + read) / mem_rate * 1e3,
+         "bound_what": f"{wbytes / 1e9:.3f} GB of weights" + (" (routed experts)" if mlayers
+                                                               else "")
+                       + f" + {read / 1e9:.3f} GB of cache a step / memory rate",
+         "kernels": kernels, "busy_ms": busy, "busy_what": f"step {G}", "top": profiled.top,
+         "profiled_ms": ms[-1], "peak": peak, "resident": resident})
+    del params, state
+    free_cuda()
+    return dict(r, step_ms=ms)
+
+
+def cell_granite_f32(mem_rate: float, f32_rate: float) -> dict:
+    """Phase 25(c): granite-3-2b at full width, ``CELL_F32_LAYERS`` of its
+    layers, f32 (TF32 off): a cached prefill of S - ``CELL_F32_STEPS``
+    tokens into an S-row cache (decode_32k's S) and the steps to its last
+    row, each within ``LM_DECODE_TOL`` of the uncached forward over the
+    same S tokens (:func:`lm_check_f32`)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import SHAPES
+
+    arch = "granite-3-2b"
+    cfg = dc.replace(get_config(arch), layers=CELL_F32_LAYERS, dtype="float32")
+    S, G = SHAPES["decode_32k"].seq_len, CELL_F32_STEPS
+    tag = f"[cells/decode_32k {arch} f32]"
+    torch.cuda.reset_peak_memory_stats()
+    params, prompt = lm_seeded(cfg, 0, 1, S - G)
+    cache = nbytes(TF.init_cache(cfg, 1, S, device="meta"))
+    out = lm_check_f32(cfg, params, prompt, G, tag, profile_last=1)
+    peak = torch.cuda.max_memory_allocated()
+    w = nbytes(params)
+    pre_bound = ((prefill_flops(cfg, params, 1, S - G) + attention_flops(cfg, 1, S - G))
+                 / f32_rate * 1e3)
+    r = cell_log(
+        tag, f"{CELL_F32_LAYERS} of 40 layers, f32, B=1: cached prefill of {S - G:,} tokens "
+        f"{out['prefill_ms']:.1f} ms (bound {pre_bound:.1f} ms at the f32 peak), {G} steps to "
+        f"row {S - 1:,} within {LM_DECODE_TOL} + {LM_DECODE_TOL}|logit| of the forward over "
+        f"{S:,} tokens ({out['over_tol']:.3f} of it at worst), argmax at {out['agree']} of "
+        f"{out['checked']}",
+        {"ms": out["decode_ms"], "ms_what": f"a step, mean of {G}, the last profiled",
+         "bound_ms": (w + cache) / mem_rate * 1e3,
+         "bound_what": "f32 weights + the cache / memory rate",
+         "kernels": round(out["work"]["kernels"]), "busy_ms": out["work"]["busy_ms"],
+         "busy_what": f"step {G}", "top": [], "profiled_ms": out["decode_ms"], "peak": peak,
+         "resident": {"weights": w, "cache": cache}})
+    del params, prompt
+    free_cuda()
+    return dict(r, check=out)
+
+
+def cells_phase(mem_rate: float, f32_rate: float, bf16_rate: float) -> dict:
+    """Phase 25: the reference's shape cells on the card."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must run at full precision (TF32 off) for phase 25")
+    t_phase = time.perf_counter()
+    log(f"[cells] cuts: decode_32k B=128 -> {CELL_DECODE_B}, prefill_32k B=32 -> "
+        f"{CELL_PREFILL_B}, train_4k B=256 -> {CELL_TRAIN_B}, jamba-v0.1-52b 32 -> "
+        f"{CELL_JAMBA_LAYERS} layers, (c) granite-3-2b 40 -> {CELL_F32_LAYERS} layers in f32; "
+        f"no length cut")
+    out = {"narrow": [cell_narrow_decode("granite-3-2b", "decode_32k", 2, mem_rate),
+                      cell_narrow_decode("jamba-v0.1-52b", "long_500k", 1, mem_rate),
+                      cell_narrow_decode("rwkv6-3b", "long_500k", 1, mem_rate),
+                      cell_narrow_train(f32_rate)]}
+    free_cuda()
+    out["granite"] = cell_granite_serve(mem_rate, bf16_rate)
+    out["train"] = cell_granite_train(mem_rate, bf16_rate)
+    out["long"] = [cell_long("jamba-v0.1-52b", CELL_JAMBA_LAYERS, mem_rate),
+                   cell_long("rwkv6-3b", None, mem_rate)]
+    out["f32"] = cell_granite_f32(mem_rate, f32_rate)
+    log(f"[cells] phase done in {time.perf_counter() - t_phase:.1f} s; {loadavg()}")
+    return out
 
 
 def main() -> int:
@@ -4908,6 +5535,10 @@ def main() -> int:
     # 24. the dry run and the examples
     free_cuda()
     dryrun_phase(lm_rows, train_rows, sharded, dry_cli, dry_bg)
+
+    # 25. the reference's shape cells
+    free_cuda()
+    cells_phase(mem_rate, f32_rate, bf16_rate)
 
     # 18. result lines
     kernels = {"kernels": [kernel_entry(
