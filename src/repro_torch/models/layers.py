@@ -94,8 +94,13 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    """``1 / theta ** (i / head_dim)`` for even i, float32: the exponent in
+    float32 as the reference writes it, the power and the reciprocal in
+    float64 and rounded once, which is the constant XLA folds the
+    reference's expression to under ``jax.jit`` (two float32 roundings, as
+    the reference gives run eagerly, land one ulp off at some i)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponent)
+    return (1.0 / theta ** exponent.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:

@@ -83,9 +83,12 @@ def init(params: Params) -> AdamWState:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """The 2-norm of every leaf (every piece of a ``Sharded`` leaf) together,
-    on the first leaf's device."""
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in pieces_of(tree)]
-    return torch.sqrt(torch.sum(torch.stack([v.to(sq[0].device) for v in sq])))
+    on the first leaf's device, float32: the float32 squares summed in
+    float64 and the norm rounded once, so that the card and the CPU, whose
+    float32 sums add in different orders, give one norm."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)), dtype=torch.float64)
+          for x in pieces_of(tree)]
+    return torch.sqrt(torch.sum(torch.stack([v.to(sq[0].device) for v in sq]))).float()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.data import pipeline as RDATA
 from repro.launch.mesh import make_host_mesh as ref_host_mesh

@@ -37,6 +37,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import get_config, get_smoke_config

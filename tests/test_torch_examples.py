@@ -11,6 +11,7 @@ import re
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.configs.spmv_suite import grid_laplacian_2d as ref_grid
 from repro.core.spmv import prepare as ref_prepare
@@ -18,15 +19,6 @@ from repro.core.spmv import prepare as ref_prepare
 from repro_torch.launch import quickstart, serve_lm, train_lm
 
 GRID = 16
-
-
-@pytest.fixture
-def one_thread():
-    """Tiny matmuls run fastest on one thread beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_quickstart_prints_the_references_quantities(capsys):
@@ -41,7 +33,7 @@ def test_quickstart_prints_the_references_quantities(capsys):
     assert err < 1e-4 and out.rstrip().endswith("tuned kernel.")
 
 
-def test_serve_lm_generates(one_thread, capsys):
+def test_serve_lm_generates(capsys):
     assert serve_lm.main(["--batch", "2", "--prompt-len", "16", "--gen", "6",
                           "--device", "cpu"]) == 0
     out = capsys.readouterr().out
@@ -50,7 +42,7 @@ def test_serve_lm_generates(one_thread, capsys):
     assert len(toks) == 6 and all(0 <= t < 4096 for t in toks)
 
 
-def test_train_lm_trains(one_thread, capsys):
+def test_train_lm_trains(capsys):
     assert train_lm.main(["--steps", "12", "--batch", "4", "--seq", "32", "--layers", "2",
                           "--d-model", "96", "--vocab", "512", "--device", "cpu"]) == 0
     out = capsys.readouterr().out

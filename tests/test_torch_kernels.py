@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 import repro.sparse as js
 from repro.kernels import ops as j_ops

@@ -3,6 +3,7 @@ other's ``{"meta", "records"}`` files, and both read a legacy bare list."""
 import json
 
 import pytest
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.obs import read_records as j_read
 from repro.obs import write_records as j_write

@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.models import mamba as RM
 from repro.models import rwkv6 as RR

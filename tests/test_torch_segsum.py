@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 import repro.sparse as js
 from repro.configs.spmv_suite import grid_laplacian_2d as j_grid

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 try:  # hypothesis is a dev-only dependency (requirements-dev.txt)
     from hypothesis import given, settings, strategies as st

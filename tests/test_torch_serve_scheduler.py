@@ -12,6 +12,7 @@ same batches.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.serve import CoalescingScheduler as JScheduler
 from repro.serve import Request as JRequest

@@ -67,6 +67,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.launch import sharded as SHD

@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 from jax.sharding import PartitionSpec as RP
 
 from repro.configs import registry as RREG

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  one torch thread per test process
 
 import repro.core.ordering as j_ord
 import repro.core.tuner as j_tuner

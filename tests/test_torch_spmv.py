@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.configs.spmv_suite import load_suite as j_load_suite
 from repro.core import solvers as j_solvers

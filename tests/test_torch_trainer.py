@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro.data.pipeline import DataConfig as RefDataConfig
