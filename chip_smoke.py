@@ -20,19 +20,25 @@ Phases (any failure exits non-zero and prints no result line):
    and every launch bit-equal to ``ref.csrk_tile_rows_in_order`` (each row's
    f32 products added from +0 in slot order);
 4. run the main path at the paper's size of ecology1 (1M rows, 5M nnz):
-   ``prepare(format="auto")`` -> ``apply_original`` against a plain CSR
+   ``prepare(format="auto")`` under the default device model ``"h100"``
+   (its params logged) -> ``apply_original`` against a plain CSR
    product -> the kernel bit-equal to ``ref.csrk_tile_rows_in_order`` at
    B = 1 and 8 -> CG and 8-column block CG to a true relative residual
    <= 1e-4 (logged beside the 129 and 133 iterations and the 9.855e-06
-   residual of the earlier kernel, whose sums were the same), counting
-   kernel launches;
+   residual of the earlier kernel under ``"ampere"``, whose sums were the
+   same), counting kernel launches; then the ``"ampere"`` container built
+   from the same Band-k permutation (``prepare(Ar, "ampere",
+   reorder="natural")`` on the permuted matrix), whose ``apply_original``
+   must give the same bits at B = 1 and 8 on every row no remainder
+   touches (the kernel sums a row in slot order whatever the tile);
 5. time the kernel, its plain version and ``torch.sparse`` CSR (cuSPARSE
    with int32 indices, the yardstick; the port never calls it) at the
    ecology1 shapes, as device time from CUDA-graph replays between CUDA
    events, beside the memory-bound least time, with the achieved GB/s and
    the time as a multiple of the bound and of cuSPARSE (f32 at the same B
    for every value type); the eager per-call time (host overhead included)
-   is logged;
+   is logged; and the ``"h100"`` and ``"ampere"`` containers at f32, B = 1
+   and 8, timed in turns (h100, ampere, ampere, h100) beside cuSPARSE;
 6. SELL-C-σ kernel against its plain version on bmwcra_1 at 1/64 and on a
    Pareto matrix with empty rows and m not a multiple of C: f32/bf16/int8 x
    B in {1, 8}, within the same per-row bound, repeat launches and B=8
@@ -316,6 +322,12 @@ Phases (any failure exits non-zero and prints no result line):
     a cached prefill into a 32,768-row cache, the steps to row 32,767, each
     within 2e-3 + 2e-3 |logit| of the uncached forward over the same 32,768
     tokens, the argmax as in phase 21.
+
+26. (run after 5) the fit tool, ``repro_torch.launch.fit_device_model``,
+    on the card with ``--quick`` at scale 256 (ids 1, 9, 12, 16: every
+    candidate within the row bound of the plain CSR product, timed with
+    the CSR-k kernel), its per-matrix table logged and its JSON read back
+    through ``tuner.load_fitted_device_model(path, "h100")``.
 
 bf16 x, inside the phases above (each kernel reads a bf16 x, sums in f32
 and writes y in bf16, rounded once):
@@ -5654,6 +5666,48 @@ def cells_phase(mem_rate: float, f32_rate: float, bf16_rate: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the fit tool on the card
+# ---------------------------------------------------------------------------
+
+#: the suite's down-scale for the fit tool's quick run: ids 1, 9, 12, 16 at
+#: 5,442, 1,024, 1,000 and 576 rows
+FIT_SCALE = 256
+
+
+def fit_phase() -> dict:
+    """Phase 26: ``fit_device_model`` with ``--quick`` at ``FIT_SCALE`` on the
+    card, through the CSR-k kernel; its JSON read back through
+    ``tuner.load_fitted_device_model(path, "h100")``."""
+    import tempfile
+
+    from repro_torch.core import tuner
+    from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
+    from repro_torch.launch import fit_device_model as fdm
+
+    t0 = time.perf_counter()
+    spmv_csrk_tiles.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "device_model.json")
+        result = fdm.run(scale=FIT_SCALE, quick=True, out=path, device="cuda")
+        model = tuner.load_fitted_device_model(path, "h100")
+    launches = spmv_csrk_tiles.launches
+    want = result["model"]["h100"]
+    got = {"ssrs": [model.ssrs_a, model.ssrs_b], "srs": [model.srs_a, model.srs_b],
+           "gather_chunk": model.gather_chunk}
+    if model.name != "h100" or got != want:
+        raise AssertionError(f"the fit tool wrote {want}, read back as {model}")
+    if tuple(r["id"] for r in result["rows"]) != fdm.QUICK_IDS or launches == 0:
+        raise AssertionError(f"the fit tool swept {[r['id'] for r in result['rows']]} with "
+                             f"{launches} CSR-k launches")
+    for line in fdm.report(result, path).splitlines():
+        if not line.startswith("# grid"):
+            log(f"[fit] {line}")
+    log(f"[fit] read back through load_fitted_device_model(path, 'h100'): {model}; "
+        f"{launches} spmv_csrk_tiles launches; {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5663,7 +5717,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.spmv_suite import load_suite
-    from repro_torch.core import block_cg, cg, prepare
+    from repro_torch.core import block_cg, cg, prepare, tuner
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmv_csrk import spmv_csrk_tiles
     from repro_torch.obs import get_registry
@@ -5724,11 +5778,15 @@ def main() -> int:
     t_prep = time.perf_counter() - t0
     if op.backend != "csrk":
         raise AssertionError(f"ecology1 routed to {op.backend}, expected csrk")
+    if op.device_model != "h100":
+        raise AssertionError(f"prepare's default device model is {op.device_model!r}, "
+                             f"expected 'h100'")
     phases = {r["name"]: r["value"] for r in reg.records() if r["section"] == "prepare"}
     log(f"[main] prepare {t_prep:.1f} s: " + ", ".join(
         f"{k[6:-3]} {v / 1e3:.1f} s" for k, v in sorted(phases.items())
         if k.startswith("phase.") and k.endswith("_ms")))
     T = op.tiles.num_tiles
+    log(f"[main] device model {op.device_model!r} ({tuner.active_h100_model()})")
     log(f"[main] params {op.params}; tiles {T} x {op.tiles.rows_per_tile} rows, "
         f"window {op.tiles.window}, buckets {op.tile_buckets.bucket_slots()}, "
         f"remainder {op.tiles.remainder_nnz}; modeled_bytes() {op.modeled_bytes()} "
@@ -5782,15 +5840,35 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the CUDA kernel")
     log(f"[main] cg {res.iters} and block_cg {bres.iters} iterations, true relative residual "
-        f"{true_res:.3e}; the earlier kernel, whose sums were the same, took 129 and 133 "
-        f"iterations to 9.855e-06")
+        f"{true_res:.3e}; under 'ampere' the kernel, whose sums do not depend on the tile, "
+        f"took 129 and 133 iterations to 9.855e-06")
     for xb in (x, X_true):
         y_k, y_in_order = csrk_in_order(op.tile_buckets, xb)
         if not torch.equal(y_k, y_in_order):
             raise AssertionError(f"ecology1 B={xb.shape[1:] or 1}: kernel != "
                                  f"ref.csrk_tile_rows_in_order bits")
     log("[main] at full size the kernel equals ref.csrk_tile_rows_in_order bit for bit "
-        "(B = 1 and 8, both buckets)")
+        f"(B = 1 and 8, all {op.tile_buckets.num_buckets} buckets)")
+    # the A100 model's container, from the same Band-k permutation
+    t0 = time.perf_counter()
+    op_amp = prepare(op.csrk.csr, "ampere", device="cuda", reorder="natural")
+    t_amp = time.perf_counter() - t0
+    params_h100, params_amp = op.params, op_amp.params
+    touched = torch.zeros(A.m, dtype=torch.bool, device="cuda")
+    for o in (op, op_amp):
+        touched[perm[o.tile_buckets.rem_row.long()]] = True
+    for xb in (x, X_true):
+        y_h = op.apply_original(xb)
+        y_a = op_amp.apply_original(xb[perm])[inv]
+        if not torch.equal(y_h[~touched], y_a[~touched]):
+            raise AssertionError(f"ecology1 B={xb.shape[1:] or 1}: the 'h100' and 'ampere' "
+                                 f"containers give other bits")
+    log(f"[main] 'ampere' container from the same permutation: params {op_amp.params}; tiles "
+        f"{op_amp.tiles.num_tiles} x {op_amp.tiles.rows_per_tile} rows, buckets "
+        f"{op_amp.tile_buckets.bucket_slots()}, remainder {op_amp.tiles.remainder_nnz} (h100's "
+        f"{op.tiles.remainder_nnz}); prepare {t_amp:.1f} s; apply_original bit-equal to the "
+        f"'h100' one at B = 1 and 8 on the {int((~touched).sum())} of {A.m} rows no remainder "
+        f"touches")
     spmv_csrk_tiles.launches = 0
     folded = torch.zeros(A.m, dtype=torch.bool, device="cuda")
     folded[perm[op.tiles.rem_row.long()]] = True
@@ -5840,7 +5918,24 @@ def main() -> int:
             lambda x: ref.spmv_csrk_buckets(view, x),
             lambda x: ref.spmv_csrk_buckets(abs_view, x), csr.row_lengths(), sp16,
             nnz * (4 + 8) + 2 * n * B + 2 * m * B, nnz, (mem_rate, f32_rate)))
+    # the two device models' containers, timed in turns beside cuSPARSE
+    by_model = {}
+    views_by = {"h100": op.tile_buckets, "ampere": op_amp.tile_buckets}
+    for B in (1, 8):
+        xb = torch.randn((n, B), generator=gen, device="cuda")
+        xb = xb[:, 0].contiguous() if B == 1 else xb
+        got = {k: [] for k in views_by}
+        for k in ("h100", "ampere", "ampere", "h100"):
+            got[k].append(time_ms(lambda: ops.spmv_csrk_bucketed(views_by[k], xb)))
+        by_model[B] = {"library_ms": yardstick[B], **got}
+        log(f"[time] f32 B={B} by device model: 'h100' {op.params.ssrs}x{op.params.srs} "
+            f"{got['h100'][0]:.4f}, {got['h100'][1]:.4f} ms; 'ampere' "
+            f"{op_amp.params.ssrs}x{op_amp.params.srs} {got['ampere'][0]:.4f}, "
+            f"{got['ampere'][1]:.4f} ms; cuSPARSE {yardstick[B]:.4f} ms")
     log(f"[time] done in {time.perf_counter() - t0:.1f} s")
+
+    # 26. the fit tool on the card
+    fit_phase()
 
     # 6.-8. the SELL-C-σ kernel and its path
     sell_entry, bmw = sellcs_phases(mem_rate, f32_rate)
@@ -5864,7 +5959,8 @@ def main() -> int:
     distributed = distributed_phase(A_small, {"op": op, "b": b, "perm": perm, "cg": res}, bmw)
 
     # 21. the LM tree's serving path; the SpMV phases' operators go first
-    del op, op_small, A, A_small, A_dev, A64, bmw, zipf, fringe, views, view, abs_view, sp, csr
+    del op, op_amp, op_small, A, A_small, A_dev, A64, bmw, zipf, fringe, views, view, abs_view
+    del sp, csr
     del x, X_true, Bm, b, xb
     gc.collect()
     torch.cuda.empty_cache()
@@ -5893,6 +5989,9 @@ def main() -> int:
         {"matrix": "ecology1", "m": m, "n": n, "nnz": nnz, "value_dtype": "f32", "B": 1},
         bf16_x=bf16_entry(bf16_launches, errs16, err16, bf16_variants),
     ), sell_entry, segsum_entry, dia_entry, ell_entry]}
+    kernels["kernels"][0]["device_models"] = {
+        "h100": dataclasses.asdict(params_h100), "ampere": dataclasses.asdict(params_amp),
+        "f32_ms_in_turns": by_model}
     for entry in kernels["kernels"]:
         entry.update(serving[entry["name"]])
         entry.update(distributed.get(entry["name"], {}))

@@ -26,8 +26,10 @@ whose ``__call__`` is the SpMV:
 
 The JAX ``device=`` string named both the tuning model and where arrays
 live; here they are two arguments: ``device_model`` (a name the tuner knows,
-default the paper's fitted ``"ampere"`` GPU model) and ``device`` (a
-``torch.device``, default ``"cuda"``).  For ``device_model`` in
+default ``"h100"``, the model fitted on the port's own card by
+``python -m repro_torch.launch.fit_device_model``, as the reference defaults
+to its own device's ``"tpu_v5e"``) and ``device`` (a ``torch.device``,
+default ``"cuda"``).  For ``device_model`` in
 ``("cpu", "rome", "icelake")`` the hierarchy collapses to CSR-2 and the SpMV
 runs the plain CSR product.
 """
@@ -323,7 +325,7 @@ def _auto_value_dtype(
 
 def prepare(
     A: CSRMatrix,
-    device_model: str = "ampere",
+    device_model: str = "h100",
     *,
     device="cuda",
     format: str = "auto",             # "auto" | "csrk" | "sellcs" | "segsum" | "diahybrid"
@@ -347,10 +349,12 @@ def prepare(
     Args:
       A: the matrix, as a :class:`~repro_torch.sparse.CSRMatrix` of shape
         [m, n] (on any device; setup runs on the host).
-      device_model: tuning-model name ("ampere" | "volta" | "tpu_v5e" |
-        "cpu" | "rome" | "icelake"); drives the constant-time tuner and the
-        format selector.  Unknown names fall through to the TPU model, as in
-        the reference tuner.
+      device_model: tuning-model name ("h100" | "ampere" | "volta" |
+        "tpu_v5e" | "cpu" | "rome" | "icelake"); drives the constant-time
+        tuner and the format selector.  The default ``"h100"`` is the model
+        fitted on an H100 with the CSR-k kernel (``tuner.H100``, or a fitted
+        file installed through ``REPRO_DEVICE_MODEL``).  Unknown names fall
+        through to the TPU model, as in the reference tuner.
       device: where the operator's tensors live and its SpMV runs ("cuda"
         unless the caller asks for "cpu"); raises if CUDA is asked for and
         absent.

@@ -1,8 +1,11 @@
 """Constant-time tuning model for CSR-k (paper Sec. 4).
 
-A verbatim copy of ``repro.core.tuner`` (pure numpy), so tuner outputs
-compare field by field with the reference's — including the fall-through of
-unknown device names to :func:`tune_tpu` in :func:`tune`.
+A copy of ``repro.core.tuner`` (pure numpy), so tuner outputs compare field
+by field with the reference's — including the fall-through of unknown device
+names to :func:`tune_tpu` in :func:`tune` — plus the port's own device: the
+``"h100"`` model (:data:`H100`, :func:`tune_h100`), fitted on an H100 by
+``python -m repro_torch.launch.fit_device_model`` and the default of
+``prepare``.
 
 The paper's method: calibrate once per device by sweeping
 ``(SSRS, SRS) ∈ (∪_{i=2..5} {2^i, 1.5·2^i})²`` over a representative matrix
@@ -59,8 +62,10 @@ class DeviceModel:
     """Fitted ⌊a − b·ln(rdensity)⌉ model plus density-case corrections.
 
     ``gather_chunk`` is the device's preferred one-hot gather chunk width —
-    hand-set for the builtin models, measured by
-    ``benchmarks/fit_device_model.py`` for fitted ones.
+    hand-set for the builtin models, measured by the reference's
+    ``benchmarks/fit_device_model.py`` for fitted TPU ones (the port's CUDA
+    kernel has no one-hot gather, and its fit tool writes the hand-set
+    width).
     """
 
     name: str
@@ -83,25 +88,36 @@ AMPERE = DeviceModel("ampere", ssrs_a=9.175, ssrs_b=1.32, srs_a=20.500, srs_b=3.
 # the sweep optimises padded-tile efficiency (useful-slot fraction × occupancy)
 # over the synthetic Table-2 suite.
 TPU_V5E = DeviceModel("tpu_v5e", ssrs_a=9.0, ssrs_b=1.10, srs_a=12.0, srs_b=1.60)
+# H100 constants fitted by ``python -m repro_torch.launch.fit_device_model
+# --scale 1 --scale-for 4:4`` (the hand-written CSR-k kernel, f32, B=1,
+# device time from CUDA-graph replay, over the 16 Table-2 matrices, ties
+# within 2% to the most nearly square pair) on "NVIDIA H100 80GB HBM3,
+# 700.00 W" (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader),
+# as the tool wrote them: SSRS = ⌊13.854 − 2.345·ln(rd)⌉, SRS = ⌊13.857 −
+# 2.467·ln(rd)⌉; ecology1 (10, 10).  No case table (see :func:`tune_h100`).
+H100 = DeviceModel("h100", ssrs_a=13.853545702918414, ssrs_b=2.3445204936343247,
+                   srs_a=13.85661181321622, srs_b=2.4667648729302227)
 
-DEVICES: Dict[str, DeviceModel] = {d.name: d for d in (VOLTA, AMPERE, TPU_V5E)}
+DEVICES: Dict[str, DeviceModel] = {d.name: d for d in (VOLTA, AMPERE, TPU_V5E, H100)}
 
 
 # ---------------------------------------------------------------------------
 # measured-model loading (the calibration loop closed: see
-# benchmarks/fit_device_model.py and docs/tuning.md)
+# repro_torch.launch.fit_device_model)
 # ---------------------------------------------------------------------------
 
-#: Installed fitted model for the TPU path; None → resolve from the
-#: ``REPRO_DEVICE_MODEL`` env var once, falling back to hand-set TPU_V5E.
-_ACTIVE_TPU_MODEL: DeviceModel | None = None
-_ENV_RESOLVED = False
+#: Installed fitted models, by the tuner that runs on them ("tpu_v5e" for
+#: :func:`tune_tpu`, "h100" for :func:`tune_h100`); an absent entry resolves
+#: from the ``REPRO_DEVICE_MODEL`` env var once, falling back to the builtin
+#: model of that name.
+_ACTIVE: Dict[str, DeviceModel] = {}
 
 
 def load_fitted_device_model(
     path: str, name: str = "tpu_v5e"
 ) -> DeviceModel:
-    """Load fitted ``(a, b)`` constants written by benchmarks/fit_device_model.py.
+    """Load fitted ``(a, b)`` constants written by a fit tool
+    (``python -m repro_torch.launch.fit_device_model`` on the card).
 
     The file maps device name → ``{"ssrs": [a, b], "srs": [a, b],
     "gather_chunk": g}``.  A missing/unreadable file or absent device entry
@@ -132,28 +148,39 @@ def load_fitted_device_model(
 
 
 def use_device_model(model: DeviceModel | None) -> None:
-    """Install a (fitted) model for :func:`tune_tpu`; None resets to the
-    env-var / hand-set resolution."""
-    global _ACTIVE_TPU_MODEL, _ENV_RESOLVED
-    _ACTIVE_TPU_MODEL = model
-    _ENV_RESOLVED = model is not None
+    """Install a (fitted) model: one named ``"h100"`` for :func:`tune_h100`,
+    any other for :func:`tune_tpu`; None resets both to the env-var /
+    hand-set resolution."""
+    if model is None:
+        _ACTIVE.clear()
+    else:
+        _ACTIVE["h100" if model.name == "h100" else "tpu_v5e"] = model
+
+
+def _active_model(tuner: str) -> DeviceModel:
+    if tuner not in _ACTIVE:
+        import os
+
+        env = os.environ.get("REPRO_DEVICE_MODEL", "")
+        _ACTIVE[tuner] = load_fitted_device_model(env, tuner) if env else DEVICES[tuner]
+    return _ACTIVE[tuner]
 
 
 def active_tpu_model() -> DeviceModel:
     """The model :func:`tune_tpu` currently runs on.
 
     Resolution order: :func:`use_device_model` install → the
-    ``REPRO_DEVICE_MODEL`` env var (a fit_device_model.py JSON, read once)
-    → the hand-set :data:`TPU_V5E`.
+    ``REPRO_DEVICE_MODEL`` env var (a fit tool's JSON, its ``"tpu_v5e"``
+    entry, read once) → the hand-set :data:`TPU_V5E`.
     """
-    global _ACTIVE_TPU_MODEL, _ENV_RESOLVED
-    if not _ENV_RESOLVED:
-        import os
+    return _active_model("tpu_v5e")
 
-        env = os.environ.get("REPRO_DEVICE_MODEL", "")
-        _ACTIVE_TPU_MODEL = load_fitted_device_model(env) if env else TPU_V5E
-        _ENV_RESOLVED = True
-    return _ACTIVE_TPU_MODEL or TPU_V5E
+
+def active_h100_model() -> DeviceModel:
+    """The model :func:`tune_h100` currently runs on: as
+    :func:`active_tpu_model`, with the JSON's ``"h100"`` entry and the
+    builtin fitted :data:`H100`."""
+    return _active_model("h100")
 
 
 def tune_volta(rdensity: float) -> TuningParams:
@@ -173,9 +200,9 @@ def tune_volta(rdensity: float) -> TuningParams:
     return TuningParams(max(ssrs, 1), max(srs, 1), k=3, use_inner_parallel=rdensity >= 8)
 
 
-def tune_ampere(rdensity: float) -> TuningParams:
-    """Paper Sec. 4.1, Ampere case table — verbatim."""
-    ssrs, srs = AMPERE.base(rdensity)
+def ampere_cases(rdensity: float, ssrs: int, srs: int) -> Tuple[int, int]:
+    """Paper Sec. 4.1, Ampere case table — verbatim: the corrections to a
+    base ``(ssrs, srs)`` above rdensity 8."""
     if rdensity <= 8:
         pass
     elif rdensity <= 16:
@@ -189,7 +216,27 @@ def tune_ampere(rdensity: float) -> TuningParams:
     else:
         ssrs = round_half_up(ssrs * 2.7)
         srs = round_half_up(ssrs / 4)
-    return TuningParams(max(ssrs, 1), max(srs, 1), k=3, use_inner_parallel=rdensity >= 8)
+    return max(ssrs, 1), max(srs, 1)
+
+
+def tune_ampere(rdensity: float) -> TuningParams:
+    """Paper Sec. 4.1, Ampere model and case table — verbatim."""
+    ssrs, srs = ampere_cases(rdensity, *AMPERE.base(rdensity))
+    return TuningParams(ssrs, srs, k=3, use_inner_parallel=rdensity >= 8)
+
+
+def tune_h100(rdensity: float, model: DeviceModel | None = None) -> TuningParams:
+    """The port's device: the model fitted on an H100 (``model``, default
+    :func:`active_h100_model`) over the whole suite, with no case table: on
+    the card the Ampere table, applied to this base above rdensity 8, picked
+    slower tiles than the base alone on all five suite matrices there.
+
+    ``gather_chunk`` is the model's (the CUDA kernel reads no chunk width).
+    """
+    model = model or active_h100_model()
+    ssrs, srs = model.base(rdensity)
+    return TuningParams(ssrs, srs, k=3, use_inner_parallel=rdensity >= 8,
+                        gather_chunk=model.gather_chunk)
 
 
 def tune_cpu(
@@ -238,8 +285,9 @@ def tune_tpu(rdensity: float, m: int | None = None) -> TuningParams:
         count stays near a multiple of 128 (lane count).
 
     Runs on :func:`active_tpu_model` — the hand-set :data:`TPU_V5E` constants
-    unless a fitted model (benchmarks/fit_device_model.py) was installed via
-    :func:`use_device_model` or the ``REPRO_DEVICE_MODEL`` env var.
+    unless a fitted model (the reference's benchmarks/fit_device_model.py on
+    a TPU) was installed via :func:`use_device_model` or the
+    ``REPRO_DEVICE_MODEL`` env var.
     """
     model = active_tpu_model()
     ssrs, srs = model.base(rdensity)
@@ -277,6 +325,8 @@ def tune(rdensity: float, device: str = "tpu_v5e", m: int | None = None) -> Tuni
         return tune_volta(rdensity)
     if device == "ampere":
         return tune_ampere(rdensity)
+    if device == "h100":
+        return tune_h100(rdensity)
     if device in ("cpu", "rome", "icelake"):
         return tune_cpu(rdensity)
     return tune_tpu(rdensity, m=m)

@@ -189,7 +189,7 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-mb", type=float, default=0.0,
                     help="operator-cache byte budget in MiB (0 = unbounded)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device-model", default="ampere",
+    ap.add_argument("--device-model", default="h100",
                     help="the tuner's device model (prepare's device_model)")
     ap.add_argument("--device", default="cuda",
                     help='where it runs: "cuda" (default) or "cpu"')

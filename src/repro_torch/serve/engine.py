@@ -75,7 +75,8 @@ class ServeEngine:
         engine built for a card that is missing raises at construction.
       prepare_fn / **prepare_kwargs: how operators are built on cache miss
         (defaults to :func:`repro_torch.core.spmv.prepare` on ``device``
-        with its defaults — ``device_model`` names the tuner's model —
+        with its defaults — ``device_model`` names the tuner's model,
+        ``"h100"`` unless given —
         plus ``spmm_width=max_batch`` unless overridden, the fixed launch
         width of the bit-for-bit contract).  A custom ``prepare_fn`` takes
         over both responsibilities: it must put its operators on

@@ -2,11 +2,14 @@
 ``serve_lm``, ``train_lm``) on the CPU at small sizes.
 
 ``quickstart`` is held to the reference's ``prepare`` on the same matrix
-and tuning model: the tuned SSRS/SRS, the pointer overhead and the tile
-view it prints are the reference's, and max |CSR-k − CSR| is within 1e-4.
+and tuning: the port tunes with its ``"h100"`` model, which the reference
+does not know, so the reference is given the same params; the tuned
+SSRS/SRS, the pointer overhead and the tile view it prints are the
+reference's, and max |CSR-k − CSR| is within 1e-4.
 ``serve_lm`` and ``train_lm`` run end to end; each example raises where
 CUDA is asked for (their default) and absent.
 """
+import dataclasses
 import re
 
 import pytest
@@ -15,7 +18,9 @@ import torch_threads  # noqa: F401  one torch thread per test process
 
 from repro.configs.spmv_suite import grid_laplacian_2d as ref_grid
 from repro.core.spmv import prepare as ref_prepare
+from repro.core.tuner import TuningParams as RefTuningParams
 
+from repro_torch.core import tuner
 from repro_torch.launch import quickstart, serve_lm, train_lm
 
 GRID = 16
@@ -24,7 +29,9 @@ GRID = 16
 def test_quickstart_prints_the_references_quantities(capsys):
     assert quickstart.main(["--grid", str(GRID), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    op = ref_prepare(ref_grid(GRID, GRID), device="ampere", format="csrk", reorder="bandk")
+    A = ref_grid(GRID, GRID)
+    params = RefTuningParams(**dataclasses.asdict(tuner.tune(A.rdensity, "h100")))
+    op = ref_prepare(A, device="ampere", format="csrk", reorder="bandk", params=params)
     assert f"tuned: SSRS={op.params.ssrs} SRS={op.params.srs} " in out
     assert f"pointer-array overhead: {100 * op.overhead_fraction():.3f}%" in out
     assert (f"tile view: {op.tiles.num_tiles} tiles × {op.tiles.slots} nnz slots, "

@@ -112,7 +112,7 @@ def test_col_reach_csrk_and_sellcs(value_dtype):
     """col_reach reports real (val != 0) column extents per tile, as the
     reference's does on the same operator."""
     A, Aj = grid_laplacian_2d(24, 24), j_grid(24, 24)
-    op = t_prepare(A, device="cpu", format="csrk", tile_layout="monolithic",
+    op = t_prepare(A, "ampere", device="cpu", format="csrk", tile_layout="monolithic",
                    value_dtype=value_dtype)
     opj = j_prepare(Aj, "ampere", format="csrk", tile_layout="monolithic",
                     value_dtype=value_dtype)
@@ -138,7 +138,7 @@ def test_col_reach_csrk_and_sellcs(value_dtype):
     real = hi >= lo
     assert (lo[real] >= np.maximum(t_rows[real] - bw, 0)).all()
 
-    op2 = t_prepare(A, device="cpu", format="sellcs", value_dtype=value_dtype)
+    op2 = t_prepare(A, "ampere", device="cpu", format="sellcs", value_dtype=value_dtype)
     op2j = j_prepare(Aj, "ampere", format="sellcs", value_dtype=value_dtype)
     lo2, hi2 = op2.sell_tiles.col_reach()
     jlo2, jhi2 = op2j.sell_tiles.col_reach()

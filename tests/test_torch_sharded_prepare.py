@@ -75,8 +75,8 @@ def _single(name, value_dtype):
     if key not in _SINGLE:
         A, _ = _mat(name)
         fmt = "csrk" if name == "grid" else "sellcs"
-        _SINGLE[key] = t_prepare(A, device="cpu", format=fmt, tile_layout="monolithic",
-                                 value_dtype=value_dtype)
+        _SINGLE[key] = t_prepare(A, "ampere", device="cpu", format=fmt,
+                                 tile_layout="monolithic", value_dtype=value_dtype)
     return _SINGLE[key]
 
 
@@ -150,7 +150,7 @@ def test_sharded_within_bound_of_reference(name, value_dtype):
     row_nnz = (base.csrk.csr if fmt == "csrk" else A).row_lengths().double()
     x, X = _inputs(A.n, seed=2, B=3)
     for D, strategy, overlap in ((4, "auto", None), (2, "halo", False), (4, "allgather", None)):
-        op = t_prepare(A, device="cpu", format=fmt, value_dtype=value_dtype,
+        op = t_prepare(A, "ampere", device="cpu", format=fmt, value_dtype=value_dtype,
                        mesh=make_host_mesh(D, "cpu"), x_strategy=strategy,
                        halo_overlap=overlap)
         for v in (x, X):

@@ -132,9 +132,10 @@ def test_tune_identical(suite, device):
 
 
 def test_tune_unknown_device_falls_through_to_tpu():
-    assert t_tuner.tune(5.0, device="h100", m=4096) == t_tuner.tune_tpu(5.0, m=4096)
-    assert dataclasses.asdict(t_tuner.tune(5.0, device="h100", m=4096)) == \
-        dataclasses.asdict(j_tuner.tune(5.0, device="h100", m=4096))
+    # "h100" is the port's own model now (tests/test_torch_device_model.py)
+    assert t_tuner.tune(5.0, device="mi300", m=4096) == t_tuner.tune_tpu(5.0, m=4096)
+    assert dataclasses.asdict(t_tuner.tune(5.0, device="mi300", m=4096)) == \
+        dataclasses.asdict(j_tuner.tune(5.0, device="mi300", m=4096))
 
 
 @pytest.mark.parametrize("value_dtype", ["f32", "bf16", "int8"])
